@@ -1,0 +1,51 @@
+"""Test harness: the LocalQueryRunner analog.
+
+Reference: ``core/trino-main/src/main/java/io/trino/testing/LocalQueryRunner.java:221,631``
+(single-process full stack). Delegates to :class:`trino_tpu_torch.engine.Engine`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from trino_tpu_torch.config import Session
+from trino_tpu_torch.engine import Engine
+from trino_tpu_torch.planner import plan as P
+from trino_tpu_torch.sql import parse_statement
+
+
+class LocalQueryRunner:
+    """Parse -> analyze/plan -> execute, one process, no RPC.
+
+    ``device`` defaults to ``cuda`` and raises without a GPU unless the
+    caller passes ``device="cpu"``."""
+
+    def __init__(
+        self,
+        session: Optional[Session] = None,
+        engine: Optional[Engine] = None,
+        device=None,
+    ):
+        self.session = session or Session()
+        # sharing an engine across runners shares connector state
+        self.engine = engine or Engine(device=device)
+
+    @property
+    def catalogs(self):
+        return self.engine.catalogs
+
+    def plan(self, sql: str) -> P.PlanNode:
+        return self.engine.plan(parse_statement(sql), self.session)
+
+    def execute(self, sql: str) -> tuple[list[tuple], list[str]]:
+        res = self.engine.execute_statement(sql, self.session)
+        return res.rows, res.column_names
+
+    def explain(self, sql: str) -> str:
+        return P.plan_text(self.plan(sql))
+
+    def assert_query(self, sql: str, expected: Sequence[tuple], ordered: bool = False):
+        rows, _ = self.execute(sql)
+        got = rows if ordered else sorted(map(tuple, rows))
+        want = list(expected) if ordered else sorted(map(tuple, expected))
+        assert got == want, f"query mismatch:\n got: {got[:20]}\nwant: {want[:20]}"
