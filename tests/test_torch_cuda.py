@@ -86,3 +86,60 @@ def test_group_by_query_launches_the_kernel(cuda):
     sums = np.bincount(k, weights=v, minlength=4096).astype(np.int64)  # < 2^53
     want = [(g, int(sums[g]), int(counts[g])) for g in np.flatnonzero(counts)]
     assert sorted(rows) == want
+
+
+# (key domain, capacity) for K2 at n = 2^15: random keys, duplicate
+# chains past the 16-slot window, a table too small for the rows
+K2_CASES = {"random": (1 << 40, 1 << 17), "dup-chains": (1000, 1 << 17),
+            "overflow": (1 << 40, 1 << 14)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_dense_join_build_kernel_matches_plain(cuda, case):
+    from trino_tpu_torch.ops import dense_join as DJ
+    from trino_tpu_torch.ops import join as J
+
+    domain, cap = K2_CASES[case]
+    rng = np.random.default_rng(9)
+    keys = torch.from_numpy(rng.integers(0, domain, N)).to(cuda)
+    use = torch.from_numpy(rng.random(N) < 0.9).to(cuda)
+    base = DJ.slot_base_hash(J.hash_keys([(keys, use)])[0], cap)
+    before = _kernels.LAUNCHES["dense_join_build"]
+    table, unplaced = DJ.build_table_device(base, use, cap)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["dense_join_build"] == before + 1
+    ptable, punplaced = DJ.build_table_plain(base, use, cap)
+    assert torch.equal(table, ptable)
+    assert int(unplaced) == int(punplaced)
+    assert (int(unplaced) > 0) == (case != "random")
+
+
+@pytest.mark.cuda
+def test_dense_join_build_raises_instead_of_falling_back(cuda):
+    from trino_tpu_torch.ops import dense_join as DJ
+
+    base = torch.zeros(64, dtype=torch.int32, device=cuda)
+    use = torch.ones(64, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        DJ.build_table_device(base, use, 256)  # use on the CPU
+    with pytest.raises(ValueError):
+        DJ.build_table_device(base, use.to(cuda), 384)  # not a power of two
+
+
+@pytest.mark.cuda
+def test_join_queries_launch_the_build_kernel(cuda):
+    from chip_smoke import JOIN_QUERIES, load_tpch, tpch_oracle, tpch_tables
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    tables = tpch_tables(0.01, seed=7)
+    want = tpch_oracle(tables)
+    runner = LocalQueryRunner(device=cuda)
+    runner.session.set("execution_mode", "distributed")
+    load_tpch(runner, tables)
+    for name, sql in JOIN_QUERIES.items():
+        before = _kernels.LAUNCHES["dense_join_build"]
+        rows, _ = runner.execute(sql)
+        assert (rows if name == "Q-J1" else sorted(rows)) == want[name]
+        if name != "Q-J3":  # the semi join probes the sort tier
+            assert _kernels.LAUNCHES["dense_join_build"] > before

@@ -7,9 +7,12 @@ only, into ``.kernel_build/`` at the repository root (listed in
 ``.gitignore``); a library is rebuilt when its source changes.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
-Every kernel wrapper counts its launches in :data:`LAUNCHES` (one per
-launch of the CUDA kernel, nowhere else) and its plain-version runs on
-CPU tensors in :data:`PLAIN_CALLS`, so a run can show which path it took.
+Every kernel wrapper counts its launches in :data:`LAUNCHES` and its
+plain-version runs on CPU tensors in :data:`PLAIN_CALLS`, so a run can show
+which path it took. A count is one call of the kernel's C entry point, made
+where the wrapper launches it and nowhere else: one grid for
+``dense_groupby``, one whole table build for ``dense_join_build`` (W round
+grids, an unplaced-count grid and a table grid on one stream).
 """
 
 from __future__ import annotations
@@ -36,6 +39,13 @@ _ENTRY = {
         [ctypes.c_void_p] * 4
         + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
            ctypes.c_int, ctypes.c_void_p],
+    ),
+    "dense_join_build": (
+        "tt_dense_join_build",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+         ctypes.c_int]
+        + [ctypes.c_void_p] * 4
+        + [ctypes.c_int, ctypes.c_void_p],
     ),
 }
 

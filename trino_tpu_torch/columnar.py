@@ -67,6 +67,13 @@ class Dictionary:
         """Code for value, or -1 if absent (useful for predicates)."""
         return self.index().get(value, -1)
 
+    def ranks(self) -> np.ndarray:
+        """rank[code] gives the lexicographic rank of each dictionary entry."""
+        order = np.argsort(np.asarray(self.values, dtype=object), kind="stable")
+        ranks = np.empty(len(self.values), dtype=np.int64)
+        ranks[order] = np.arange(len(self.values), dtype=np.int64)
+        return ranks
+
     @staticmethod
     def from_strings(strings: Iterable[str]) -> tuple["Dictionary", np.ndarray]:
         """Build a dictionary and the int32 code array for a string
@@ -138,6 +145,11 @@ class Column:
             self.dictionary,
         )
 
+    def take(self, idx: torch.Tensor) -> "Column":
+        """Rows ``idx`` on the column's device."""
+        valid = None if self.valid is None else self.valid[idx]
+        return Column(self.type, self.data[idx], valid, self.dictionary)
+
 
 @dataclasses.dataclass
 class Batch:
@@ -145,12 +157,15 @@ class Batch:
 
     ``num_rows`` is the count of *physical* rows (leading); rows past it are
     padding. ``sel`` (optional, shape (capacity,)) marks rows surviving
-    filters. Logical rows = first num_rows AND sel.
+    filters. Logical rows = first num_rows AND sel. A batch with no
+    columns and no selection (a scan that reads no column) keeps the
+    device it was made on or moved to in ``placement``.
     """
 
     columns: list[Column]
     num_rows: int
     sel: torch.Tensor | None = None
+    placement: torch.device | None = None
 
     @property
     def capacity(self) -> int:
@@ -166,11 +181,15 @@ class Batch:
             return self.columns[0].data.device
         if self.sel is not None:
             return self.sel.device
-        return torch.device("cpu")
+        return torch.device(self.placement or "cpu")
 
     @property
     def width(self) -> int:
         return len(self.columns)
+
+    def count_rows(self) -> int:
+        """Number of selected rows (one host read)."""
+        return int(self.selection_mask().sum())
 
     def selection_mask(self) -> torch.Tensor:
         """Full boolean mask over capacity combining num_rows and sel."""
@@ -184,6 +203,14 @@ class Batch:
             [c.to(device) for c in self.columns],
             self.num_rows,
             None if self.sel is None else self.sel.to(device),
+            torch.device(device),
+        )
+
+    def take(self, idx: torch.Tensor) -> "Batch":
+        """The rows ``idx`` (all selected) on the batch's device."""
+        return Batch(
+            [c.take(idx) for c in self.columns], int(idx.shape[0]), None,
+            self.device,
         )
 
     def to_host(self) -> "Batch":

@@ -49,12 +49,10 @@ def _numeric(t: T.SqlType) -> bool:
 class ExprCompiler:
     """Evaluates a RowExpr tree over a batch's columns."""
 
-    def __init__(self, columns: Sequence[Column], device=None):
+    def __init__(self, columns: Sequence[Column], device):
         self.columns = list(columns)
         self.n = self.columns[0].capacity if self.columns else 1
-        self.device = (
-            self.columns[0].data.device if self.columns else (device or "cpu")
-        )
+        self.device = torch.device(device)
 
     # -- entry points -----------------------------------------------------
     def evaluate(self, expr: RowExpr) -> Pair:

@@ -93,6 +93,7 @@ class Engine:
             batch.to_pylist(),
             names,
             [c.type for c in batch.columns],
+            dynamic_filters=len(executor.dynamic_filters),
             exchange_stats=dict(getattr(executor, "exchange_stats", {}) or {})
             or None,
             fragment_modes=dict(getattr(executor, "fragment_modes", {}) or {})
