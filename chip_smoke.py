@@ -6,17 +6,23 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases, each printed as it ends (any failure raises and exits non-zero):
 
-1. device: the card's name and power limit, and the time to build every
-   CUDA kernel of the port from ``trino_tpu_torch/csrc/``;
+1. device: the card's name and power limit, the time to build every
+   CUDA kernel of the port from ``trino_tpu_torch/csrc/``, and what ptxas
+   reports for each (registers, shared memory, spills);
 2. kernel: the dense group-by kernel against its plain PyTorch version on
    the card over three lane plans at 2^25 rows; the limb totals must be
    equal bit for bit (integer sums: the tolerance is zero). Kernel, plain
-   and library-call times are CUDA-event medians of 10 runs;
+   and library-call times are CUDA-event medians of 10 runs; each plan
+   logs its launch plan (lane slices, blocks per slice, copies);
 3. k2: the dense hash-join build kernel against its plain PyTorch version
    on the card in four plans (the orders build of Q-J2 at SF10, the same
    rows keyed on ``o_custkey`` so that duplicate chains overflow the probe
    window, a small build, and the build of Q-J1's second join); the table
-   must be equal elementwise and the count of unplaced rows equal;
+   must be equal elementwise and the count of unplaced rows equal. Each
+   plan also logs its worklist lengths, its launches and the rounds they
+   skipped (the later rounds stop at the first empty worklist), the device
+   time of one build by grid (from torch.profiler) and the device memory
+   one build takes;
 4. sql: ``select k, sum(v), count(*) ... group by k`` (Q-A) and a filtered
    signed-sum/avg variant (Q-B) over a 2^25-row memory table through
    ``LocalQueryRunner(device="cuda")`` in distributed mode, once cold and
@@ -217,6 +223,25 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def profile_grids(fn, names) -> dict:
+    """Device ms of one run of ``fn`` by kernel, for the kernels whose
+    (mangled) name contains one of ``names``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                out[name] += getattr(e, "self_device_time_total", 0) / 1e3
+    return out
+
+
 def nonzero_adds(DG, plan, bins, vals) -> int:
     """The adds this data needs: per lane, the live rows whose limb, sign
     bit or count is nonzero (the kernel skips zero limbs)."""
@@ -251,6 +276,11 @@ def phase_device():
         "device", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, kernel_build_s=round(build_s, 3),
     )
+    # registers, shared memory and spills of every kernel, from ptxas
+    for name in _kernels.LAUNCHES:
+        lines = [ln.strip() for ln in _kernels.build_log(name).splitlines()
+                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+        log("ptxas", kernel=name, info=lines)
     return smi
 
 
@@ -263,6 +293,7 @@ def phase_kernel():
     from trino_tpu_torch.ops import dense_groupby as DG
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(11)
     n = ROWS
     plans = {
@@ -312,8 +343,13 @@ def phase_kernel():
                 torch.bincount(bins, minlength=G)
 
             library_ms = cuda_ms(library)
+        launch = DG.k1_launch_plan(plan, sms, n)
         out[name] = dict(
-            G=G, m=plan.m, lanes=plan.lanes, rows=n, ms=ms, plain_ms=plain_ms,
+            G=G, m=plan.m, lanes=plan.lanes, rows=n,
+            slices=len(launch.slices), launch_groups=len(launch.groups),
+            blocks_per_slice=[g.blocks for g in launch.groups],
+            copies=launch.copies, smem_bytes=launch.smem_bytes,
+            rows_per_flush=launch.rows_per_flush, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
             bytes=nbytes, ops=nops,
             matches_plain=True, max_abs_err=err,
@@ -374,6 +410,25 @@ def phase_k2(tables, dev="cuda"):
             raise AssertionError("k2 plan b: expected rows past the probe window")
         ms = cuda_ms(lambda: DJ.build_table_device(base, use, cap))
         plain_ms = cuda_ms(lambda: DJ.build_table_plain(base, use, cap))
+        # the worklists of one build, and the device memory it takes
+        window = min(DJ.PROBE_WINDOW, cap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        lens = DJ.build_table_cuda(base, use, cap, window)[2].tolist()
+        torch.cuda.synchronize()
+        build_peak = torch.cuda.max_memory_allocated() - held
+        # launches: the compaction, the scan, the scatters (two above 64
+        # buckets, that is 2^20 slots), round 0 and one cooperative launch
+        # for the later rounds, which stops at the first empty worklist
+        launches = 4 + (cap > 1 << 20) + (window > 1)
+        skipped = sum(x == 0 for x in lens[1:window])
+        # device time of one build by grid
+        grid_ms = profile_grids(
+            lambda: DJ.build_table_device(base, use, cap),
+            ("compact_kernel", "scan_kernel", "scatter_kernel", "round0_kernel",
+             "rounds_kernel"),
+        )
         # least time: slot bases (4 B) and use flags (1 B) read once, the
         # int32 table written once; the operations, one proposal per live
         # row per round it takes (this data's rounds, from the table), are
@@ -397,6 +452,9 @@ def phase_k2(tables, dev="cuda"):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             bytes=nbytes, proposals=proposals,
             bound_with_sectors_ms=(nbytes + sector_bytes) / HBM_BYTES_PER_S * 1e3,
+            worklist_lens=lens, placed=lens[0] - lens[window],
+            launches=launches, rounds_skipped=int(skipped), grid_ms=grid_ms,
+            build_peak_device_bytes=build_peak,
             library_ms=None, matches_plain=True, max_abs_err=err,
         )
         log("k2", plan=name, **out[name])

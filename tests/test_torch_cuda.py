@@ -32,6 +32,31 @@ PLANS = {
 }
 
 
+# K2 edge cases as (slot bases, use flags, capacity, window), shared with
+# the CPU emulation of the kernel's round protocol
+def k2_edge_case(name):
+    rng = np.random.default_rng(17)
+    n = 1 << 12
+    if name == "random":
+        return rng.integers(0, 1 << 14, n), rng.random(n) < 0.9, 1 << 14, 16
+    if name == "dup-chains":  # 100 keys, ~40 rows a base: chains past W
+        slots = rng.permutation(1 << 14)[:100]
+        return slots[rng.integers(0, 100, n)], rng.random(n) < 0.9, 1 << 14, 16
+    if name == "too-small":  # 4096 rows, 1024 slots
+        return rng.integers(0, 1 << 10, n), np.ones(n, bool), 1 << 10, 16
+    if name == "bases-5-5-6":
+        return np.array([5, 5, 6]), np.ones(3, bool), 16, 2
+    if name == "empty":
+        return np.zeros(0, np.int64), np.zeros(0, bool), 64, 16
+    if name == "all-dead":
+        return rng.integers(0, 1024, 1000), np.zeros(1000, bool), 1024, 16
+    raise KeyError(name)
+
+
+K2_EDGE_CASES = ["random", "dup-chains", "too-small", "bases-5-5-6", "empty",
+                 "all-dead"]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -56,6 +81,72 @@ def test_dense_groupby_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["dense_groupby"] == before + 1
     assert torch.equal(lt, D.dense_groupby_plain(plan, b, v))
+
+
+def _plan(G, cols, pair):
+    return D.DensePlan(
+        G=G, cols=tuple(D.DenseCol(*c) for c in cols), pair128=tuple(pair)
+    )
+
+
+@pytest.mark.cuda
+def test_dense_groupby_flushes_past_2_to_the_32(cuda):
+    """One block, 2^25 rows all in bin 0, every value -1: every limb is
+    255, each lane's total passes 2^32, so the uint32 counters are exact
+    only because the block flushes every 2^24 rows."""
+    n = 1 << 25
+    plan = _plan(128, [(False, 64)], [True])
+    launch = D.k1_launch_plan(plan, 132, n, blocks=1)
+    assert len(launch.slices) == 1 and launch.rows_per_flush < n
+    b = torch.zeros(n, dtype=torch.int32, device=cuda)
+    v = [torch.full((n,), -1, dtype=torch.int64, device=cuda)]
+    lt = D.dense_groupby_cuda(plan, b, v, blocks=1)
+    want = D.dense_groupby_plain(plan, b, v)
+    assert int(want[:8, 0].min()) == 255 * n > 1 << 32
+    assert torch.equal(lt, want)
+
+
+# plans that need more than one lane slice: the slice's plan c, 60 columns
+# in three launch groups, and the largest plan the dense path admits
+SLICED = {
+    "c": PLANS["c"][:3],
+    "groups": (128, [(False, 64)] * 60, [True] * 60),
+    "max-m": (8192, [(False, 64)] * 7, [False] * 7),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SLICED))
+def test_dense_groupby_lane_slices_match_plain(cuda, name):
+    plan = _plan(*SLICED[name])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    launch = D.k1_launch_plan(plan, sms, N)
+    assert len(launch.slices) > 1
+    assert (len(launch.groups) > 1) == (name == "groups")
+    if name == "max-m":
+        assert plan.m == 4096
+    rng = np.random.default_rng(6)
+    b = torch.from_numpy(
+        np.where(rng.random(N) < 0.9, rng.integers(0, plan.G, N), plan.G)
+        .astype(np.int32)).to(cuda)
+    v = [torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, N)).to(cuda)
+         for _ in plan.cols]
+    assert torch.equal(D.dense_groupby_device(plan, b, v),
+                       D.dense_groupby_plain(plan, b, v))
+
+
+@pytest.mark.cuda
+def test_dense_groupby_hot_cells_match_plain(cuda):
+    """G = 128 and every row live: per-warp copies of 1,280 hot cells."""
+    n = 1 << 22
+    plan = _plan(*PLANS["b"][:3])
+    assert D.k1_launch_plan(plan, 132, n).copies == 32
+    rng = np.random.default_rng(8)
+    b = torch.from_numpy(rng.integers(0, 128, n).astype(np.int32)).to(cuda)
+    v = [torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                       dtype=np.int64)).to(cuda)]
+    assert torch.equal(D.dense_groupby_device(plan, b, v),
+                       D.dense_groupby_plain(plan, b, v))
 
 
 @pytest.mark.cuda
@@ -113,6 +204,42 @@ def test_dense_join_build_kernel_matches_plain(cuda, case):
     assert torch.equal(table, ptable)
     assert int(unplaced) == int(punplaced)
     assert (int(unplaced) > 0) == (case != "random")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_EDGE_CASES)
+def test_dense_join_build_edge_cases_match_plain(cuda, case):
+    from trino_tpu_torch.ops import dense_join as DJ
+
+    base_np, use_np, cap, window = k2_edge_case(case)
+    base = torch.from_numpy(base_np.astype(np.int32)).to(cuda)
+    use = torch.from_numpy(use_np).to(cuda)
+    table, unplaced, lens = DJ.build_table_cuda(base, use, cap, window)
+    ptable, punplaced = DJ.build_table_plain(base, use, cap, window)
+    assert torch.equal(table, ptable)
+    assert int(unplaced) == int(punplaced) == int(lens[window])
+    lens = lens.tolist()
+    assert lens[0] == int(use_np.sum())
+    assert lens[0] - lens[window] == int((table != DJ.EMPTY).sum())  # placed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1 << 20, 1 << 27])
+def test_dense_join_build_buckets_and_windows_match_plain(cuda, cap):
+    """Tables of 64 slot buckets (2^20 slots), and of 4096 buckets twice
+    as wide as round 0's shared window (2^27 slots)."""
+    from trino_tpu_torch.ops import dense_join as DJ
+
+    rng = np.random.default_rng(19)
+    n = 1 << 18
+    keys = rng.integers(0, 1 << 16, n)  # duplicates: later rounds run too
+    slots = rng.integers(0, cap, 1 << 16)
+    base = torch.from_numpy(slots[keys].astype(np.int32)).to(cuda)
+    use = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    table, unplaced, lens = DJ.build_table_cuda(base, use, cap, 16)
+    ptable, punplaced = DJ.build_table_plain(base, use, cap, 16)
+    assert torch.equal(table, ptable) and int(unplaced) == int(punplaced)
+    assert int(lens[1]) > 0
 
 
 @pytest.mark.cuda

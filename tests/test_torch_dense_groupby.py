@@ -140,3 +140,26 @@ def test_lane_ops_cover_every_limb():
     assert ops[12] == D._OP_COUNT
     assert ops[13:] == [D._OP_ZERO] * (len(ops) - 13) and len(ops) % 8 == 0
 
+
+
+@pytest.mark.parametrize("ncols,nonneg", [(31, True), (60, False)])
+def test_many_columns_sum_exactly(ncols, nonneg):
+    """Plans of 30 and more value columns, which the dense path admits:
+    the lane word codes of ``lane_tables`` collide there (code 2*30 is the
+    zero lane's, 2*50 the sign lane of column 0), so the lane ops come from
+    the columns themselves. Sums and counts equal numpy's exactly."""
+    plan = D.DensePlan(
+        G=128, cols=tuple([D.DenseCol(nonneg, 8 if nonneg else 64)] * ncols),
+        pair128=tuple([not nonneg] * ncols),
+    )
+    rng = np.random.default_rng(ncols)
+    bins = rng.integers(0, 128, 2000).astype(np.int32)
+    vals = [rng.integers(0 if nonneg else -300, 256, 2000) for _ in range(ncols)]
+    lt = D.dense_groupby_device(
+        plan, torch.from_numpy(bins), [torch.from_numpy(v) for v in vals]
+    )
+    sums, counts = D.reconstruct(plan, lt)
+    for c in range(ncols):
+        want = np.bincount(bins, weights=vals[c], minlength=128).astype(np.int64)
+        assert sums[c] == want.tolist(), f"column {c}"
+    np.testing.assert_array_equal(counts, np.bincount(bins, minlength=128))

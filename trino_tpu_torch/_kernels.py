@@ -4,15 +4,17 @@ Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
 ``ctypes``. Builds happen at first use, from the sources in this checkout
 only, into ``.kernel_build/`` at the repository root (listed in
-``.gitignore``); a library is rebuilt when its source changes.
+``.gitignore``); a library is rebuilt when its source changes, and what
+``nvcc -Xptxas -v`` printed is kept beside it (:func:`build_log`).
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES` and its
 plain-version runs on CPU tensors in :data:`PLAIN_CALLS`, so a run can show
 which path it took. A count is one call of the kernel's C entry point, made
-where the wrapper launches it and nowhere else: one grid for
-``dense_groupby``, one whole table build for ``dense_join_build`` (W round
-grids, an unplaced-count grid and a table grid on one stream).
+where the wrapper launches it and nowhere else: one group-by for
+``dense_groupby`` (one grid per launch group, one for every plan of the
+main path), one whole table build for ``dense_join_build`` (at most six
+launches on one stream).
 """
 
 from __future__ import annotations
@@ -30,21 +32,22 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / ".kernel_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills into the build log
 ]
 
 # kernel name -> C entry point and its ctypes signature
 _ENTRY = {
     "dense_groupby": (
         "tt_dense_groupby",
-        [ctypes.c_void_p] * 4
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-           ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+         ctypes.c_void_p, ctypes.c_void_p],
     ),
     "dense_join_build": (
         "tt_dense_join_build",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_int]
-        + [ctypes.c_void_p] * 4
+        + [ctypes.c_void_p] * 3
         + [ctypes.c_int, ctypes.c_void_p],
     ),
 }
@@ -98,6 +101,7 @@ def _finish_build(name: str, job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -109,6 +113,12 @@ def build_all() -> None:
         for name, job in jobs.items():
             if job is not None:
                 _finish_build(name, job)
+
+
+def build_log(name: str) -> str:
+    """What nvcc and ptxas printed when kernel ``name`` was built."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

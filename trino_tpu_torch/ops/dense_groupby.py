@@ -16,14 +16,20 @@ DECIMAL accumulators.
 Counterpart of ``trino_tpu/ops/dense_groupby.py``. The TPU kernel built
 the matrix with a bf16 one-hot matmul and drained f32 accumulators into
 int32 (hi, lo) pairs; here the CUDA kernel ``csrc/dense_groupby.cu`` adds
-integers with 64-bit atomics and returns the totals ``lt`` directly
-(``hi * 65536 + lo`` of the reference). :func:`dense_groupby_plain` is the
-same function in plain PyTorch: the wrapper runs it for CPU tensors only.
+integers into per-block shared-memory copies of the table and flushes
+them into the totals ``lt`` (``hi * 65536 + lo`` of the reference).
+:func:`k1_launch_plan` decides how the table is cut for the card: live
+lanes into slices that fit one block's shared memory, slices into launch
+groups whose descriptor fits a kernel parameter, the per-warp copies and
+the rows between flushes. :func:`dense_groupby_plain` is the same function
+in plain PyTorch: the wrapper runs it for CPU tensors only.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -40,6 +46,15 @@ _W_SIGN_BASE = 100  # +ci: sign bit of column ci
 _OP_SIGN = 64
 _OP_COUNT = 65
 _OP_ZERO = 66
+
+# launch geometry shared with csrc/dense_groupby.cu (kThreads, kMax*)
+K1_THREADS = 1024
+K1_TILE_ROWS = 4 * K1_THREADS       # one int4 of bins per thread
+SMEM_BLOCK_BYTES = 232448           # opt-in shared memory of one H100 block
+MAX_FLUSH_ROWS = 1 << 24            # 2^24 rows x 255 stays below 2^32
+K1_MAX_COLS = 32                    # value columns of one launch group
+K1_MAX_LANES = 704                  # lanes of one launch group
+K1_MAX_SLICES = 32                  # slices of one launch group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,21 +120,23 @@ class DensePlan:
 def lane_ops(plan: DensePlan) -> tuple[list[int], list[int]]:
     """Per lane: (column read, op) — the lane tables as the CUDA kernel
     takes them: op 0..56 is the bit shift of a limb of the full 64-bit
-    value (word code 2ci+1 reads the high word, so its shift is +32)."""
+    value (limb j of a column shifts by 8j), then the column's sign lane,
+    then the count lane and zero padding, in :meth:`DensePlan.lane_tables`
+    order. Built from the columns, not by decoding the word codes, which
+    collide from the 30th column on (code 2*30 is ``_W_ZERO``)."""
     cols, ops = [], []
-    for code, shift in zip(*plan.lane_tables()):
-        if code == _W_COUNT:
-            cols.append(-1)
-            ops.append(_OP_COUNT)
-        elif code == _W_ZERO:
-            cols.append(-1)
-            ops.append(_OP_ZERO)
-        elif code >= _W_SIGN_BASE:
-            cols.append(code - _W_SIGN_BASE)
+    for ci, col in enumerate(plan.cols):
+        for j in range(col.limbs):
+            cols.append(ci)
+            ops.append(8 * j)
+        if plan.sign_lane(ci):
+            cols.append(ci)
             ops.append(_OP_SIGN)
-        else:
-            cols.append(code // 2)
-            ops.append(shift + 32 * (code % 2))
+    cols.append(-1)
+    ops.append(_OP_COUNT)
+    while len(ops) % 8:
+        cols.append(-1)
+        ops.append(_OP_ZERO)
     return cols, ops
 
 
@@ -168,25 +185,157 @@ def dense_groupby_plain(plan: DensePlan, bins, value_cols) -> torch.Tensor:
     return flat[: M * 128].reshape(M, 128)
 
 
-def dense_groupby_cuda(plan: DensePlan, bins, value_cols) -> torch.Tensor:
-    """Launch ``csrc/dense_groupby.cu`` on the current stream."""
-    dev = bins.device
-    M = plan.m
-    lt = torch.zeros((M, 128), dtype=torch.int64, device=dev)
+@dataclasses.dataclass(frozen=True)
+class K1Group:
+    """Slices launched together as one grid: ``slices[s]`` lists the ``lt``
+    lanes that the blocks with ``blockIdx.y == s`` hold in shared memory;
+    ``cols`` are the plan columns those lanes read, in descriptor order."""
+
+    slices: tuple
+    cols: tuple
+    blocks: int        # blocks per slice (gridDim.x)
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Launch:
+    """How :func:`dense_groupby_cuda` cuts one plan for the card."""
+
+    groups: tuple      # K1Group per grid, launched in order
+    copies: int        # shared-memory copies of a slice per block
+    max_lanes: int     # most lanes in one slice
+    smem_bytes: int    # dynamic shared memory of one block
+    rows_per_flush: int
+
+    @property
+    def slices(self) -> tuple:
+        return tuple(sl for g in self.groups for sl in g.slices)
+
+
+def _split(lanes: list, parts: int) -> list:
+    """``lanes`` cut into ``parts`` contiguous runs of near-equal length."""
+    q, r = divmod(len(lanes), parts)
+    out, at = [], 0
+    for i in range(parts):
+        k = q + (i < r)
+        out.append(tuple(lanes[at:at + k]))
+        at += k
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def k1_launch_plan(plan: DensePlan, sms: int, n: int, blocks: int | None = None) -> K1Launch:
+    """The launch plan of kernel K1 for ``plan`` over ``n`` rows on a card
+    with ``sms`` multiprocessors.
+
+    Only live lanes (limbs, sign lanes, the count) get shared memory: each
+    is ``G`` uint32 counters. The live lanes are cut into the fewest
+    near-equal contiguous slices whose counters fit one block and whose
+    columns fit one descriptor; a block holds one slice. Slices are
+    grouped, in order, into grids whose descriptor (lane words, column
+    pointers, slice bounds) fits the kernel-parameter struct. Each block
+    keeps ``copies`` copies of its slice, one per group of warps, the most
+    (a power of two, up to one a warp) that fit its shared memory, so that
+    warps adding to the same hot cell do not wait on each other. A grid
+    has about one block per multiprocessor (``blocks`` per slice unless
+    given), never more than there are tiles of rows."""
     cols, ops = lane_ops(plan)
-    lane_col = torch.tensor(cols, dtype=torch.int32, device=dev)
-    lane_op = torch.tensor(ops, dtype=torch.int32, device=dev)
-    ptrs = torch.tensor(
-        [v.data_ptr() for v in value_cols] or [0], dtype=torch.int64, device=dev
+    live = [l for l, op in enumerate(ops) if op != _OP_ZERO]
+    lane_bytes = 4 * plan.G
+    cap = min(SMEM_BLOCK_BYTES // lane_bytes, K1_MAX_LANES)
+    if cap < 1:
+        raise ValueError(f"dense_groupby: G={plan.G} leaves no lane in shared memory")
+
+    def read(slices):
+        """The value columns that the lanes of ``slices`` read."""
+        return {cols[l] for sl in slices for l in sl if ops[l] != _OP_COUNT}
+
+    parts = -(-len(live) // cap)
+    while True:
+        slices = _split(live, parts)
+        if all(len(read([sl])) <= K1_MAX_COLS for sl in slices):
+            break
+        parts += 1
+    max_lanes = max(len(sl) for sl in slices)
+    copies = 1
+    while copies * 2 <= K1_THREADS // 32 and 2 * copies * max_lanes * lane_bytes <= SMEM_BLOCK_BYTES:
+        copies *= 2
+    tiles = max(1, -(-n // K1_TILE_ROWS))
+    groups, cur = [], []
+
+    def close():
+        per = blocks if blocks is not None else max(1, sms // len(cur))
+        groups.append(K1Group(tuple(cur), tuple(sorted(read(cur))), max(1, min(per, tiles))))
+
+    for sl in slices:
+        nxt = cur + [sl]
+        if cur and (
+            len(nxt) > K1_MAX_SLICES
+            or sum(map(len, nxt)) > K1_MAX_LANES
+            or len(read(nxt)) > K1_MAX_COLS
+        ):
+            close()
+            nxt = [sl]
+        cur = nxt
+    close()
+    return K1Launch(
+        groups=tuple(groups), copies=copies, max_lanes=max_lanes,
+        smem_bytes=copies * max_lanes * lane_bytes,
+        rows_per_flush=MAX_FLUSH_ROWS // K1_TILE_ROWS * K1_TILE_ROWS,
     )
+
+
+class _K1Desc(ctypes.Structure):
+    """``K1Desc`` of csrc/dense_groupby.cu, passed to the kernel by value."""
+
+    _fields_ = [
+        ("cols", ctypes.c_void_p * K1_MAX_COLS),
+        # lt lane | op << 16 | descriptor column << 24
+        ("lane", ctypes.c_uint32 * K1_MAX_LANES),
+        ("slice_begin", ctypes.c_int32 * (K1_MAX_SLICES + 1)),
+        ("nslices", ctypes.c_int32),
+        ("max_lanes", ctypes.c_int32),
+        ("copies", ctypes.c_int32),
+        ("blocks", ctypes.c_int32),
+    ]
+
+
+def k1_descriptors(plan: DensePlan, launch: K1Launch, col_ptrs: Sequence[int]):
+    """The launch groups of ``launch`` as a ctypes array of ``K1Desc``."""
+    cols, ops = lane_ops(plan)
+    descs = (_K1Desc * len(launch.groups))()
+    for d, g in zip(descs, launch.groups):
+        slot = {c: i for i, c in enumerate(g.cols)}
+        for i, c in enumerate(g.cols):
+            d.cols[i] = col_ptrs[c]
+        j = 0
+        for s, sl in enumerate(g.slices):
+            d.slice_begin[s] = j
+            for l in sl:
+                d.lane[j] = l | ops[l] << 16 | slot.get(cols[l], 0) << 24
+                j += 1
+        d.slice_begin[len(g.slices)] = j
+        d.nslices = len(g.slices)
+        d.max_lanes = launch.max_lanes
+        d.copies = launch.copies
+        d.blocks = g.blocks
+    return descs
+
+
+def dense_groupby_cuda(plan: DensePlan, bins, value_cols, blocks: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/dense_groupby.cu`` on the current stream: one grid per
+    launch group of :func:`k1_launch_plan` (one for every plan of the main
+    path), counted as one launch. ``blocks`` fixes the blocks per slice."""
+    dev = bins.device
     n = int(bins.shape[0])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min((n + 255) // 256, sms * 8))
+    launch = k1_launch_plan(plan, sms, n, blocks)
+    lt = torch.zeros((plan.m, 128), dtype=torch.int64, device=dev)
+    descs = k1_descriptors(plan, launch, [v.data_ptr() for v in value_cols])
     fn = _kernels.entry("dense_groupby")
     rc = fn(
-        bins.data_ptr(), ptrs.data_ptr(), lane_col.data_ptr(),
-        lane_op.data_ptr(), plan.lanes, plan.G, n, lt.data_ptr(), blocks,
-        torch.cuda.current_stream(dev).cuda_stream,
+        bins.data_ptr(), n, plan.G, plan.lanes, ctypes.byref(descs),
+        len(descs), ctypes.sizeof(_K1Desc), launch.rows_per_flush,
+        lt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _kernels.check("dense_groupby", rc)
     _kernels.LAUNCHES["dense_groupby"] += 1

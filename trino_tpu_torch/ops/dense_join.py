@@ -19,8 +19,9 @@ Trino's ``PagesHash`` linear-probe table — with the same contracts:
 
 The build is kernel K2. On a CUDA tensor :func:`build_table_device` launches
 ``csrc/dense_join_build.cu``, which computes the same round table as
-:func:`build_table_plain` with 64-bit atomics; on a CPU tensor it runs the
-plain version. The TPU kernel it replaces inserted rows one at a time, and
+:func:`build_table_plain` in the int32 table itself (a round's proposals
+carry a tag bit until they commit) over worklists of the rows still
+unplaced; on a CPU tensor it runs the plain version. The TPU kernel it replaces inserted rows one at a time, and
 its table may differ from the round table where rows collide; probing
 either gives the same join, so the port keeps the round table, which
 parallelises over rows.
@@ -100,27 +101,42 @@ def _check_build_inputs(slot_base, use, capacity: int, window: int) -> None:
         raise ValueError("dense_join_build: window must be positive")
 
 
+# proposals are tagged with bit 30 while the kernel runs: row ids stay below it
+_MAX_CUDA_ROWS = (1 << 30) - 1
+# the kernel's most slot buckets (kMaxBuckets): their counts, starts and
+# cursors follow the worklist lengths in its int32 scratch
+_MAX_BUCKETS = 4096
+
+
 def build_table_cuda(slot_base, use, capacity: int, window: int):
-    """Launch ``csrc/dense_join_build.cu`` on the current stream: W round
-    grids, an unplaced-count grid and a table grid, counted as one build."""
+    """Launch ``csrc/dense_join_build.cu`` on the current stream: the live
+    rows compacted and ordered by slot bucket (a count, a scan and one or
+    two scatters), round 0 in shared memory one bucket a block, then the
+    later rounds over worklists in one cooperative launch: at most six
+    launches, counted as one build. Returns
+    ``(table, unplaced, lens)``: ``lens[d]`` int32 is the count of rows
+    entering round ``d`` (``lens[0]`` the live rows, ``lens[window]`` the
+    unplaced ones, of which ``unplaced`` is a 0-d view)."""
     dev = slot_base.device
     n = int(slot_base.shape[0])
-    slots = torch.empty(capacity, dtype=torch.int64, device=dev)
-    done = torch.empty(n, dtype=torch.uint8, device=dev)
+    if n > _MAX_CUDA_ROWS:
+        raise ValueError(f"dense_join_build: {n} build rows, the kernel takes {_MAX_CUDA_ROWS}")
     table = torch.empty(capacity, dtype=torch.int32, device=dev)
-    unplaced = torch.empty((), dtype=torch.int32, device=dev)
+    work = torch.empty((2, max(n, 1), 2), dtype=torch.int32, device=dev)
+    # worklist lengths, then the counts, starts and cursors of the buckets
+    counts = torch.empty(window + 1 + 4 * _MAX_BUCKETS, dtype=torch.int32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min((max(n, capacity) + 255) // 256, sms * 8))
+    blocks = max(1, min((max(n, capacity // 4) + 255) // 256, sms * 8))
     fn = _kernels.entry("dense_join_build")
     rc = fn(
         slot_base.data_ptr(), use.data_ptr(), n, capacity, window,
-        slots.data_ptr(), done.data_ptr(), table.data_ptr(),
-        unplaced.data_ptr(), blocks,
+        table.data_ptr(), work.data_ptr(), counts.data_ptr(), blocks,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _kernels.check("dense_join_build", rc)
     _kernels.LAUNCHES["dense_join_build"] += 1
-    return table, unplaced
+    lens = counts[: window + 1]
+    return table, lens[window], lens
 
 
 def build_table_device(
@@ -137,7 +153,7 @@ def build_table_device(
     window = min(window, capacity)
     _check_build_inputs(slot_base, use, capacity, window)
     if slot_base.device.type == "cuda":
-        return build_table_cuda(slot_base, use, capacity, window)
+        return build_table_cuda(slot_base, use, capacity, window)[:2]
     if slot_base.device.type != "cpu":
         raise ValueError(f"dense_join_build: unsupported device {slot_base.device}")
     _kernels.PLAIN_CALLS["dense_join_build"] += 1
