@@ -35,9 +35,21 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    a numpy oracle exactly, and the join-build kernel's launch count must
    rise on every run of Q-J1 and Q-J2.
 
-Phases 4 and 5 each end with one warm run of each query under
-``torch.profiler`` (phase ``profile``); phase 5 then times the layers of
-one more warm run of each join query on the host clock (phase ``spans``).
+6. tpch: TPC-H Q1 (Q-T1) and Q6 (Q-T6), spec text, over ``tpch.sf10``
+   generated by the port's tpch connector (the generate-and-stage seconds
+   on a line of their own), and Q-D, a narrow-DECIMAL GROUP BY over a
+   memory table of the first 2^25 generated lineitem rows, through the
+   same runner in distributed mode, once cold and 5 times warm. Q-T1 and
+   Q-T6 stream through the sort-based step (their slab of 15 x 2^22 rows
+   is not a power of two, so the dense path declines); Q-D must launch the
+   dense group-by kernel once a run with a ``pair128`` plan. Rows must
+   equal exact integer oracles over the same generated arrays; every line
+   names the card and its power limit.
+
+Phases 4, 5 and 6 each end with one warm run of each query under
+``torch.profiler`` (phase ``profile``); phases 5 and 6 then time the
+layers of one more warm run of each join query, and of Q-T1 and Q-T6, on
+the host clock (phase ``spans``).
 The line before the last is a JSON
 object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -46,6 +58,7 @@ repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -622,25 +635,13 @@ def phase_join(tables, oracle):
     return launches
 
 
-def phase_spans(runner, queries) -> None:
-    """Where a warm join query's wall time goes: one more warm run of each
-    query with the table scans (split concatenation and host-to-device
-    copies), the dynamic filters, the join steps and, inside them, the
-    K2 builds, and the grouped aggregations timed on the host clock, each
-    span ending in a synchronise. ``probe_ms`` is the join steps less
-    their builds: the probe, the exactness pass and the payload gathers."""
+def timed_spans(runner, queries, spans) -> dict:
+    """One more warm run of each query with the functions ``spans`` names
+    (``(owner, attribute, label)``) timed on the host clock, each call
+    ending in a synchronise; returns per query its wall ms, the ms of each
+    label and ``rest_ms``, the wall time outside them."""
     import torch
 
-    from trino_tpu_torch import dynfilter
-    from trino_tpu_torch.exec import local
-    from trino_tpu_torch.ops import dense_join as DJ
-    from trino_tpu_torch.parallel import distributed
-
-    spans = [(local.LocalExecutor, "_exec_tablescan", "scan_ms"),
-             (dynfilter, "fragment_dynamic_filters", "dynamic_filter_ms"),
-             (distributed, "_sharded_probe", "join_ms"),
-             (DJ, "build_table", "k2_build_ms"),
-             (local, "group_aggregate", "group_by_ms")]
     originals = [getattr(owner, attr) for owner, attr, _ in spans]
     spent: dict[str, float] = {}
 
@@ -655,6 +656,7 @@ def phase_spans(runner, queries) -> None:
                 spent[label] = spent.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
         return run
 
+    out = {}
     try:
         for (owner, attr, label), fn in zip(spans, originals):
             setattr(owner, attr, timed(fn, label))
@@ -665,19 +667,43 @@ def phase_spans(runner, queries) -> None:
             runner.engine.execute_statement(sql, runner.session)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            out = {label: spent.get(label, 0.0) for _, _, label in spans}
-            out["probe_ms"] = out.pop("join_ms") - out["k2_build_ms"]
-            out["rest_ms"] = wall_ms - sum(out.values())
-            log("spans", query=name, wall_ms=wall_ms, **out)
+            out[name] = {"wall_ms": wall_ms,
+                         **{label: spent.get(label, 0.0) for _, _, label in spans}}
+            out[name]["rest_ms"] = wall_ms - sum(spent.values())
     finally:
         for (owner, attr, _), fn in zip(spans, originals):
             setattr(owner, attr, fn)
+    return out
 
 
-def phase_profile(runner, queries) -> None:
+def phase_spans(runner, queries) -> None:
+    """Where a warm join query's wall time goes: the table scans (split
+    concatenation and host-to-device copies), the dynamic filters, the
+    join steps and, inside them, the K2 builds, and the grouped
+    aggregations. ``probe_ms`` is the join steps less their builds: the
+    probe, the exactness pass and the payload gathers."""
+    from trino_tpu_torch import dynfilter
+    from trino_tpu_torch.exec import local
+    from trino_tpu_torch.ops import dense_join as DJ
+    from trino_tpu_torch.parallel import distributed
+
+    spans = [(local.LocalExecutor, "_exec_tablescan", "scan_ms"),
+             (dynfilter, "fragment_dynamic_filters", "dynamic_filter_ms"),
+             (distributed, "_sharded_probe", "join_ms"),
+             (DJ, "build_table", "k2_build_ms"),
+             (local, "group_aggregate", "group_by_ms")]
+    for name, out in timed_spans(runner, queries, spans).items():
+        # the K2 builds run inside the join steps: counted once, in k2
+        out["probe_ms"] = out.pop("join_ms") - out["k2_build_ms"]
+        out["rest_ms"] += out["k2_build_ms"]
+        log("spans", query=name, **out)
+
+
+def phase_profile(runner, queries, **extra) -> None:
     """Where a warm query's time goes: one more warm run of each query
     under torch.profiler, device time by kernel name against the host
-    wall time (the device's idle share is 1 - busy / wall)."""
+    wall time (the device's idle share is 1 - busy / wall). ``extra``
+    goes into every line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -703,11 +729,235 @@ def phase_profile(runner, queries) -> None:
         kernels.sort(reverse=True)
         busy_ms = sum(k[0] for k in kernels)
         log(
-            "profile", query=name, events="device" if on_device else "host",
+            "profile", **extra, query=name,
+            events="device" if on_device else "host",
             wall_ms=wall_ms, device_busy_ms=busy_ms,
             device_idle_share=1 - busy_ms / wall_ms if wall_ms else None,
             top=[{"ms": ms, "calls": c, "name": k} for ms, c, k in kernels[:8]],
         )
+
+
+# columns of TPC-H Q1 (the Q6 columns are a subset): staged once
+Q1_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+              "l_discount", "l_tax", "l_shipdate")
+QD_ROWS = 1 << 25        # Q-D's memory table: the first 2^25 lineitem rows
+Q_D = ("select l_returnflag, l_linestatus, sum(l_quantity), sum(l_extendedprice), "
+       "count(*) from memory.default.lineitem_d group by 1, 2")
+
+
+def _day(y: int, m: int, d: int) -> int:
+    import datetime
+
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+def _half_up(num: int, den: int) -> int:
+    """num / den rounded half away from zero (Trino's DECIMAL rounding)."""
+    q, r = divmod(abs(num), den)
+    q += 2 * r >= den
+    return q if num >= 0 else -q
+
+
+def tpch_q1_q6_oracle(cols: dict, flags: list, statuses: list) -> dict:
+    """Rows of TPC-H Q1 and Q6 over the generated lineitem arrays, in exact
+    integer arithmetic: DECIMAL(12,2) columns are int64 cents, products
+    stay below 2^40 a row, and every sum is taken over chunks of 2^22 rows
+    (each chunk sum far below 2^63) added as Python ints."""
+    from decimal import Decimal
+
+    ship = cols["l_shipdate"]
+    price, disc, tax, qty = (cols[c] for c in (
+        "l_extendedprice", "l_discount", "l_tax", "l_quantity"))
+    step = 1 << 22
+
+    def total(x, mask) -> int:
+        return sum(int(x[i:i + step][mask[i:i + step]].sum(dtype=np.int64))
+                   for i in range(0, len(x), step))
+
+    keep = ship <= _day(1998, 12, 1) - 90
+    disc_price = price * (100 - disc)
+    charge = disc_price * (100 + tax)
+    q1 = []
+    for f in range(len(flags)):
+        for st in range(len(statuses)):
+            m = keep & (cols["l_returnflag"] == f) & (cols["l_linestatus"] == st)
+            n = int(m.sum())
+            if not n:
+                continue
+            s_qty, s_price, s_disc = total(qty, m), total(price, m), total(disc, m)
+            q1.append((
+                flags[f], statuses[st],
+                Decimal(s_qty) / 100, Decimal(s_price) / 100,
+                Decimal(total(disc_price, m)) / 10**4,
+                Decimal(total(charge, m)) / 10**6,
+                Decimal(_half_up(s_qty, n)) / 100,
+                Decimal(_half_up(s_price, n)) / 100,
+                Decimal(_half_up(s_disc, n)) / 100,
+                n,
+            ))
+    q1.sort(key=lambda r: (r[0], r[1]))
+    m6 = ((ship >= _day(1994, 1, 1)) & (ship < _day(1995, 1, 1))
+          & (disc >= 5) & (disc <= 7) & (qty < 2400))
+    q6 = [(Decimal(total(price * disc, m6)) / 10**4,)]
+    return {"Q-T1": q1, "Q-T6": q6}
+
+
+def qd_oracle(cols: dict, flags: list, statuses: list) -> list:
+    """Rows of Q-D over the first QD_ROWS lineitem rows, exact."""
+    from decimal import Decimal
+
+    out = []
+    f_col, s_col = cols["l_returnflag"][:QD_ROWS], cols["l_linestatus"][:QD_ROWS]
+    for f in range(len(flags)):
+        for st in range(len(statuses)):
+            m = (f_col == f) & (s_col == st)
+            n = int(m.sum())
+            if n:
+                out.append((
+                    flags[f], statuses[st],
+                    Decimal(int(cols["l_quantity"][:QD_ROWS][m].sum())) / 100,
+                    Decimal(int(cols["l_extendedprice"][:QD_ROWS][m].sum())) / 100,
+                    n,
+                ))
+    return sorted(out)
+
+
+def phase_tpch(smi: str) -> int:
+    """TPC-H Q1 and Q6 at SF10 from the port's tpch connector, and Q-D
+    (a narrow-DECIMAL GROUP BY over a 2^25-row memory table of the same
+    rows) through ``LocalQueryRunner(device="cuda")`` in distributed mode,
+    once cold and 5 times warm, against exact integer oracles; returns
+    the dense group-by launches of this path's run (Q-D's)."""
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.benchmarks.tpch import queries
+    from trino_tpu_torch.columnar import Batch, Column
+    from trino_tpu_torch.connectors.api import ColumnSchema, TableSchema
+    from trino_tpu_torch.ops import dense_groupby as DG
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    runner = LocalQueryRunner(device="cuda")
+    runner.session.set("execution_mode", "distributed")
+    tpch = runner.catalogs.get("tpch")
+    schema = f"sf{SF}"
+    cap = int(runner.session.get("stream_device_chunk_rows"))
+    t0 = time.perf_counter()
+    slab, n_line = tpch.device_slab(
+        schema, "lineitem", Q1_COLUMNS, cap,
+        int(runner.session.get("stream_device_cache_bytes")), device="cuda",
+    )
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    slab_bytes = sum(c.data.numel() * c.data.element_size() for c in slab.columns)
+    log("tpch", card=smi, schema=schema, lineitem_rows=n_line,
+        slab_rows=slab.capacity, slab_bytes=slab_bytes, generate_and_stage_s=gen_s)
+    # the oracle reads the same generated arrays back from the card
+    t0 = time.perf_counter()
+    cols = {name: c.data[:n_line].cpu().numpy()
+            for name, c in zip(Q1_COLUMNS, slab.columns)}
+    flags = slab.columns[0].dictionary.values
+    statuses = slab.columns[1].dictionary.values
+    oracle = tpch_q1_q6_oracle(cols, flags, statuses)
+    # Q-D: the first 2^25 rows as a memory table (VARCHAR codes with the
+    # connector's dictionaries, DECIMAL(12,2) cents)
+    dec = T.decimal(12, 2)
+    qd_cols = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice")
+    qd_types = (T.VARCHAR, T.VARCHAR, dec, dec)
+    mem = runner.catalogs.get("memory")
+    mem.create_table("default", "lineitem_d", TableSchema("lineitem_d", tuple(
+        ColumnSchema(c, t) for c, t in zip(qd_cols, qd_types))))
+    mem.insert("default", "lineitem_d", Batch([
+        Column(t, torch.from_numpy(cols[c][:QD_ROWS].copy()), None,
+               slab.columns[Q1_COLUMNS.index(c)].dictionary)
+        for c, t in zip(qd_cols, qd_types)
+    ], QD_ROWS))
+    oracle["Q-D"] = qd_oracle(cols, flags, statuses)
+    del cols, slab
+    log("tpch", card=smi, oracle_s=time.perf_counter() - t0)
+    runs = {
+        "Q-T1": (queries(f"tpch.{schema}")[1], n_line),
+        "Q-T6": (queries(f"tpch.{schema}")[6], n_line),
+        "Q-D": (Q_D, QD_ROWS),
+    }
+    plans = []
+    real_dense = DG.dense_groupby_device
+
+    def logged_dense(plan, *args, **kwargs):
+        plans.append(plan)
+        return real_dense(plan, *args, **kwargs)
+
+    DG.dense_groupby_device = logged_dense
+    # the main path's run: every count starts at 0 here and is read after
+    _kernels.reset_counts()
+    try:
+        for name, (sql, scanned) in runs.items():
+            times, per_run = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(1 + WARM):
+                before = _kernels.LAUNCHES["dense_groupby"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = runner.engine.execute_statement(sql, runner.session)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                per_run.append(_kernels.LAUNCHES["dense_groupby"] - before)
+                rows = res.rows if name != "Q-D" else sorted(res.rows)
+                if rows != oracle[name]:
+                    raise AssertionError(f"{name}: rows differ from the exact oracle")
+            modes = {str(f): m for f, m in (res.fragment_modes or {}).items()}
+            if "streamed" not in modes.values():
+                raise AssertionError(f"{name}: no fragment streamed")
+            if name == "Q-D":
+                if per_run != [1] * (1 + WARM):
+                    raise AssertionError(f"Q-D: K1 launches per run {per_run}, not 1")
+                if not all(p.pair128 == (True, True) for p in plans):
+                    raise AssertionError(f"Q-D: not a pair128 plan: {plans[0]}")
+            warm = statistics.median(times[1:])
+            stats = res.exchange_stats or {}
+            log(
+                "tpch", card=smi, query=name, rows=len(res.rows),
+                cold_ms=times[0], warm_median_ms=warm, warm_ms=times[1:],
+                rows_per_s=scanned / (warm / 1e3), k1_launches_per_run=per_run,
+                fragment_modes=modes,
+                overflow_retries=stats.get("overflow_retries"),
+                peak_device_bytes=torch.cuda.max_memory_allocated(),
+                matches_oracle=True,
+            )
+    finally:
+        DG.dense_groupby_device = real_dense
+    launches = dict(_kernels.LAUNCHES)
+    log("tpch", card=smi, launches=launches,
+        qd_plan={"G": plans[0].G,
+                 "cols": [[c.nonneg, c.bits] for c in plans[0].cols],
+                 "pair128": list(plans[0].pair128)})
+    phase_profile(runner, {q: sql for q, (sql, _) in runs.items()}, card=smi)
+    tpch_spans(runner, {q: runs[q][0] for q in ("Q-T1", "Q-T6")}, smi)
+    return launches["dense_groupby"]
+
+
+def tpch_spans(runner, queries, smi: str) -> None:
+    """Where a warm Q-T1/Q-T6 goes, on the host clock, each span ending in
+    a synchronise: each chunk's filter and projections (inside them, the
+    128-bit products), its aggregation step (inside it, the grouping sorts
+    and the 32-bit limb sums), and the finish. ``rest_ms`` is planning,
+    the slab lookup, the final fragments and the rows' conversion."""
+    from trino_tpu_torch.compiler import ExprCompiler
+    from trino_tpu_torch.exec.streaming import StreamingAggregator
+    from trino_tpu_torch.ops import decimal128, keypack
+
+    outer = [(StreamingAggregator, "_chunk_prep", "filter_project_ms"),
+             (StreamingAggregator, "_step", "aggregate_ms"),
+             (StreamingAggregator, "_finish", "finish_ms")]
+    inner = [(ExprCompiler, "_arith_wide", "wide_arith_ms"),
+             (keypack, "grouping_sort", "sort_ms"),
+             (decimal128, "narrow_limb_sums", "limb_sums_ms"),
+             (decimal128, "wide_limb_sums", "limb_sums_ms")]
+    for name, out in timed_spans(runner, queries, outer + inner).items():
+        # the inner spans run inside the outer ones: counted once
+        out["rest_ms"] += sum(out[label] for label in {lb for *_, lb in inner})
+        log("spans", card=smi, query=name, **out)
 
 
 def main() -> int:
@@ -730,13 +980,19 @@ def main() -> int:
     join_launches = phase_join(tables, oracle)
     if join_launches["dense_join_build"] < 1:
         raise AssertionError("the join path launched no join-build kernel")
+    # release the join phase's tables and device memory first
+    del tables, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpch_launches = phase_tpch(smi)
     a, ka = kern["a"], k2["a"]
     print(json.dumps({"kernels": [{
         "name": "dense_groupby",
         "route": "cuda",
         "source": "trino_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "trino_tpu/ops/dense_groupby.py:229",
-        "launches": sql_launches["dense_groupby"] + join_launches["dense_groupby"],
+        "launches": (sql_launches["dense_groupby"] + join_launches["dense_groupby"]
+                     + tpch_launches),
         "matches_plain": True,
         "max_abs_err": kern["max_abs_err"],
         "ms": a["ms"],

@@ -25,13 +25,14 @@ def test_port_imports_neither_jax_nor_reference():
             trino_tpu_torch.__path__, "trino_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        import chip_smoke  # the GPU smoke script: torch only, too
         leaked = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.")
             or m == "jaxlib" or m.startswith("jaxlib.")
             or m == "trino_tpu" or m.startswith("trino_tpu.")
         )
-        print(len(names))
+        print(",".join(names))
         print(",".join(leaked))
         """
     )
@@ -40,8 +41,12 @@ def test_port_imports_neither_jax_nor_reference():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    count, leaked = out.stdout.splitlines()[-2:]
-    assert int(count) >= 20  # every module of the package was imported
+    names, leaked = out.stdout.splitlines()[-2:]
+    names = names.split(",")
+    assert len(names) >= 20  # every module of the package was imported
+    for module in ("connectors.tpch", "connectors.dbgen", "benchmarks.tpch",
+                   "ops.decimal128", "exec.streaming"):
+        assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 
 

@@ -90,6 +90,32 @@ class Dictionary:
         d._index = index
         return d, codes
 
+    def absorb(self, other: "Dictionary") -> tuple[np.ndarray | None, bool]:
+        """Merge ``other``'s values into *this* dictionary in place
+        (append-only: existing codes stay valid).
+
+        Returns (remap, grew): ``remap[other_code] -> my code`` (None when
+        the dictionaries already agree code for code), and whether new
+        values were appended."""
+        if other is self:
+            return None, False
+        index = self.index()
+        remap = np.empty(len(other.values), dtype=np.int32)
+        grew = False
+        identical = len(other.values) <= len(self.values)
+        for i, v in enumerate(other.values):
+            code = index.get(v)
+            if code is None:
+                code = len(self.values)
+                self.values.append(v)
+                index[v] = code
+                grew = True
+                identical = False
+            elif code != i:
+                identical = False
+            remap[i] = code
+        return (None if identical else remap), grew
+
     def merged(self, other: "Dictionary") -> tuple["Dictionary", np.ndarray]:
         """Merge other into a new dictionary; returns (merged, remap) where
         remap[old_other_code] = new code."""

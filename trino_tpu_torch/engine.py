@@ -4,8 +4,10 @@ Reference: ``execution/SqlQueryExecution.java:373`` (the DQL path) and
 ``testing/LocalQueryRunner.java``, which drives the same core in-process.
 Counterpart of ``trino_tpu/engine.py``: queries and SET SESSION are
 ported; other statements (DDL, INSERT, transactions, EXPLAIN, prepared
-statements) raise a "not yet ported" error. Tables are created and loaded
-through the memory connector's API (``connectors/memory.py``).
+statements) raise a "not yet ported" error. The ``tpch`` catalog
+generates its tables (``connectors/tpch.py``); ``memory`` tables are
+created and loaded through the memory connector's API
+(``connectors/memory.py``).
 """
 
 from __future__ import annotations
@@ -59,10 +61,14 @@ class Engine:
         self.device = resolve_device(device)
         if catalogs is None:
             from trino_tpu_torch.connectors.memory import MemoryConnector
+            from trino_tpu_torch.connectors.tpch import TpchConnector
 
             catalogs = CatalogManager()
+            catalogs.register("tpch", TpchConnector())
             catalogs.register("memory", MemoryConnector())
         self.catalogs = catalogs
+        # streamed fragments' grown group budgets, kept across queries
+        self.stream_caps: dict = {}
 
     def execute_statement(self, sql: str, session: Session) -> StatementResult:
         """Run one statement."""
@@ -105,7 +111,9 @@ class Engine:
         if mode == "distributed" and session.get("fragment_execution"):
             from trino_tpu_torch.exec.fragments import FragmentedExecutor
 
-            return FragmentedExecutor(self.catalogs, session, self.device)
+            return FragmentedExecutor(
+                self.catalogs, session, self.device, stream_caps=self.stream_caps
+            )
         if mode not in ("local", "distributed"):
             raise SemanticError(
                 f"execution_mode={mode!r} is not yet ported to trino_tpu_torch"

@@ -6,9 +6,10 @@ run leaves first, each consumer reading its producers' results through
 ``RemoteSource`` nodes. This engine runs on a mesh of one device, so
 every exchange (hash, broadcast, gather) is the identity.
 
-A scan→(filter|project)*→partial-aggregate fragment over a large table
-tries the streaming path first (``exec/streaming.py``: the device-resident
-slab and the dense group-by kernel). Otherwise the fragment runs
+A scan→(filter|project)*→aggregate fragment over a large table streams
+(``exec/streaming.py``: the dense group-by kernel over the device-resident
+slab, else the sort-based chunk step over the slab or host chunks, under
+its own overflow retry). Otherwise the fragment runs
 materialized through :class:`_FragmentTracer`: completed build fragments
 first prune its probe scans (dynamic filtering), then its joins run the
 dense open-addressing tier (``ops/dense_join.py``, whose build is kernel
@@ -18,7 +19,7 @@ read, grows each fired site (``_Caps``) and runs again, at most 12 times.
 
 Not ported yet: fused multi-fragment programs, cross-query program
 caching and batching, the history store, skew handling, streaming joins
-on the probe spine, and operator counters.
+on the probe spine (``_prebuild``), and operator counters.
 """
 
 from __future__ import annotations
@@ -404,12 +405,18 @@ def _post_order(sub: SubPlan) -> list[PlanFragment]:
 class FragmentedExecutor(LocalExecutor):
     """Distributed-mode executor: one plan fragment at a time."""
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
+    def __init__(self, catalogs, session, device,
+                 stream_caps: Optional[dict] = None):
+        super().__init__(catalogs, session, device)
         self.exchange_stats: dict = {"overflow_retries": 0, "joinStrategy": {}}
         # fragment id -> "streamed" | "materialized" (which path ran)
         self.fragment_modes: dict[int, str] = {}
         self._caps: dict[int, _Caps] = {}
+        # streamed fragments' capacities by fragment id; the engine passes
+        # one dict to every query so grown budgets are kept
+        self.stream_caps: dict[int, _Caps] = (
+            stream_caps if stream_caps is not None else {}
+        )
 
     def execute(self, node: P.PlanNode) -> tuple[Batch, list[str]]:
         return self._execute_fragments(fragment_plan(node, self.session))
@@ -513,11 +520,15 @@ class FragmentedExecutor(LocalExecutor):
     def _try_streaming(
         self, frag: PlanFragment, names_holder: dict[int, list[str]]
     ) -> Optional[Result]:
-        """Scan→agg fragments over large tables run over the connector's
-        device-resident slab (exec/streaming.py) instead of materializing
-        the scan; None when the shape or the table does not qualify."""
+        """Scan→agg fragments over large tables run as a chunk loop with
+        carried state (exec/streaming.py) instead of materializing the
+        scan. An overflowed group budget grows (``grow_or_raise``) and the
+        stream reruns, at most 12 times; the fragment's ``_Caps`` are kept
+        across queries (``stream_caps``). None when the shape or the table
+        does not qualify."""
         from trino_tpu_torch.exec.streaming import (
             StreamingAggregator,
+            StreamOverflow,
             streamable_chain,
         )
 
@@ -533,9 +544,22 @@ class FragmentedExecutor(LocalExecutor):
             self.session.get("stream_scan_threshold_rows")
         ):
             return None
-        res = StreamingAggregator(self, frag, agg, scan).run()
-        if res is None:
-            return None
+        caps = self.stream_caps.setdefault(frag.id, _Caps())
+        for _ in range(MAX_ATTEMPTS):
+            try:
+                res = StreamingAggregator(self, frag, agg, scan, caps).run()
+                break
+            except FusedUnsupported:
+                return None
+            except StreamOverflow as e:
+                for nm in e.names:
+                    grow_or_raise(nm, caps)
+                self.exchange_stats["overflow_retries"] += 1
+        else:
+            raise CapacityRetryExceeded(
+                "streaming", fragment_id=frag.id, capacities=caps.vals,
+                attempts=MAX_ATTEMPTS,
+            )
         if isinstance(frag.root, P.Output):
             names_holder[frag.id] = list(frag.root.column_names)
             cols = [res.column(s) for s in frag.root.symbols]

@@ -9,10 +9,11 @@ The subset of ``trino_tpu/exec/local.py`` this engine runs today:
 TableScan, Filter, Project, Aggregate (single, partial and final steps),
 Join (INNER, LEFT, RIGHT as a flipped LEFT, SEMI and ANTI, through the
 sort tier of ``ops/join.py``, with dynamic filtering), Sort, TopN, Limit
-and Output. Any other plan node raises :class:`ExecutionError` naming it;
-so do FULL and CROSS joins, scalar-subquery joins, LEFT joins with an ON
-filter, the spill join, and join keys that are DECIMAL(38) or floating
-point. Gathers stay on the executor's device.
+and Output, wide (n, 2) DECIMAL columns included. Any other plan node
+raises :class:`ExecutionError` naming it; so do FULL and CROSS joins,
+scalar-subquery joins, LEFT joins with an ON filter, the spill join, and
+join keys that are DECIMAL(38) or floating point. Gathers stay on the
+executor's device.
 """
 
 from __future__ import annotations
@@ -48,9 +49,10 @@ class ExecutionError(Exception):
 
 
 def sum_spec_for(fn: P.AggFunction, data) -> AggSpec:
-    """Pick the accumulation kind for an aggregate: the exact 128-bit
-    accumulators for wide DECIMAL sums (not ported yet), the kind itself
-    otherwise."""
+    """Pick the accumulation kind for a sum/avg: exact 128-bit limb
+    accumulation when the input is wide (n, 2) storage (``sum128w``) or
+    the declared result a wide DECIMAL (``sum128``), the kind itself
+    otherwise (reference: UnscaledDecimal128Arithmetic accumulation)."""
     from trino_tpu_torch.ops.decimal128 import is_wide_data
 
     if fn.kind in ("sum", "avg"):
@@ -60,6 +62,16 @@ def sum_spec_for(fn: P.AggFunction, data) -> AggSpec:
         if isinstance(rt, T.DecimalType) and rt.wide:
             return AggSpec("sum128")
     return AggSpec(fn.kind)
+
+
+def _limbs_to_wide(val):
+    """Limb sums (n, 3|5) -> wide (n, 2) (hi, lo) values; others as they
+    are."""
+    if val.ndim == 2 and val.shape[1] in (3, 5):
+        from trino_tpu_torch.ops.decimal128 import limb_sums_to_pair
+
+        return torch.stack(limb_sums_to_pair(val), dim=1)
+    return val
 
 
 @dataclasses.dataclass
@@ -106,9 +118,13 @@ def agg_inputs_for(node: P.Aggregate, res: Result):
     return agg_inputs, specs
 
 
-def finalize_aggs(node: P.Aggregate, results, valid_rows=None) -> list[Column]:
+def finalize_aggs(node: P.Aggregate, results) -> list[Column]:
     """Per aggregate, its output column from (value, count) results: avg
-    division, NULL on an empty group. ``valid_rows`` masks dead rows."""
+    division (DECIMAL averages round half up, wide ones through
+    ``div128_round``), NULL on an empty group, limb sums resolved into
+    wide (hi, lo) values."""
+    from trino_tpu_torch.ops import decimal128 as D128
+
     cols = []
     for (_, fn), raw in zip(node.aggregates, results):
         t = fn.result_type
@@ -117,8 +133,22 @@ def finalize_aggs(node: P.Aggregate, results, valid_rows=None) -> list[Column]:
             cols.append(Column(t, raw.reshape(-1).to(torch.int64)))
             continue
         ssum, cnt = raw
-        ssum, cnt = ssum.reshape(-1), cnt.reshape(-1)
+        cnt = cnt.reshape(-1)
         valid = cnt > 0
+        ssum = _limbs_to_wide(ssum)
+        if ssum.ndim == 2:
+            if fn.kind == "avg":
+                qhi, qlo, _ = D128.div128_round(
+                    ssum[:, 0], ssum[:, 1],
+                    *D128.widen_i64(torch.clamp(cnt, min=1)), 0,
+                )
+                wide_t = isinstance(t, T.DecimalType) and t.wide
+                data = torch.stack([qhi, qlo], dim=1) if wide_t else qlo.to(dt)
+            else:  # sum, or a wide min/max passing through
+                data = ssum
+            cols.append(Column(t, data, valid))
+            continue
+        ssum = ssum.reshape(-1)
         if fn.kind == "avg":
             safe = torch.clamp(cnt, min=1)
             if isinstance(t, T.DecimalType):
@@ -577,7 +607,7 @@ class LocalExecutor:
         if not node.group_keys:
             raw = [
                 r.reshape(1) if not isinstance(r, tuple)
-                else (r[0].reshape(1), r[1].reshape(1))
+                else (r[0].reshape((1,) + tuple(r[0].shape[1:])), r[1].reshape(1))
                 for r in global_aggregate(sel, agg_inputs, specs)
             ]
             cols, layout = acc_columns(node, raw, 0)
@@ -608,9 +638,11 @@ class LocalExecutor:
                 continue
             ccol = res.column(csym)
             combine_inputs.append((vcol.data, ccol.data > 0))
-            combine_specs.append(
-                AggSpec("sum" if fn.kind in ("sum", "avg") else fn.kind)
-            )
+            if fn.kind in ("sum", "avg"):
+                wide = vcol.data.ndim == 2
+                combine_specs.append(AggSpec("sum128w" if wide else "sum"))
+            else:
+                combine_specs.append(AggSpec(fn.kind))
             combine_inputs.append((ccol.data, ccol.valid))
             combine_specs.append(AggSpec("sum"))
 
@@ -651,8 +683,9 @@ def acc_columns(node: P.Aggregate, raw, offset: int):
             continue
         val, cnt = r
         # the value keeps its accumulation dtype (an avg of BIGINT sums
-        # in int64 under a DOUBLE-typed accumulator), as in the reference
-        cols.append(Column(vsym.type, val))
+        # in int64 under a DOUBLE-typed accumulator), as in the reference;
+        # limb sums travel as wide (hi, lo) values
+        cols.append(Column(vsym.type, _limbs_to_wide(val)))
         layout[vsym.name] = offset + len(cols) - 1
         cols.append(Column(T.BIGINT, cnt.to(torch.int64)))
         layout[csym.name] = offset + len(cols) - 1

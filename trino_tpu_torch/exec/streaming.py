@@ -1,25 +1,41 @@
-"""Streaming scan aggregation over a device-resident table.
+"""Streaming scan aggregation: bounded chunks through one step with
+carried accumulator state.
 
 Reference: Trino drives scans through the operator pipeline in bounded
 pages (``operator/Driver.java:355-392``). ``trino_tpu/exec/streaming.py``
 compiles a scan->filter->project->aggregate fragment into one step
-program over device chunks; its fast path, ``_try_dense``, sends a
-small-domain integer GROUP BY through the dense group-by kernel.
+program
 
-This port carries that fast path: the connector stages the whole table on
-the engine's device once (``device_slab``), filters and projections run
-over the resident slab, the bin program maps group keys to dense bins and
-``ops/dense_groupby.py`` totals every (bin, limb lane) in one kernel
-launch. Differences from the reference:
+    state' = step(state, chunk)
 
-- no platform gate: the dense path is taken whenever the shape is
-  eligible; a CUDA slab launches the kernel, a CPU slab runs its plain
-  version, so the CPU tests walk the same path;
-- key/value statistics are computed per query (never cached under an
-  object id that a later table may reuse), and their sentinels use the
-  key dtype's own bounds;
-- an ineligible shape returns None and the fragment runs materialized
-  (the sort-based chunk loop is not ported yet).
+run over chunks of the table; this port runs the same step eagerly, as
+PyTorch ops on the engine's device:
+
+- the connector stages the table on the device once (``device_slab``)
+  and each chunk is a view ``column[off:off + cap]`` of the slab with a
+  live mask from the row count; the loop runs over live rows only;
+- a table the device slab refuses streams host chunks: splits read one
+  after another, string codes remapped onto one running dictionary per
+  column (``_canonicalize_dicts``), each piece padded to the chunk
+  capacity and copied to the device;
+- a chunk is aggregated into at most G groups (``group_aggregate``) and
+  merged with the carried groups; DECIMAL(38) sums carry their 32-bit
+  limb lanes, which add independently, so carries resolve once at the
+  end. The overflow flag stays on the device and is read once per run;
+  a fired flag raises :class:`StreamOverflow` and the caller grows G.
+
+Before any of that, ``_try_dense`` sends a small-domain integer GROUP BY
+over a power-of-two slab through the dense group-by kernel (K1). Unlike
+the reference it has no platform gate (a CUDA slab launches the kernel, a
+CPU slab runs its plain version, so the CPU tests walk the same path),
+and its key statistics are computed per query, with sentinels from the
+key dtype's own bounds.
+
+Not ported: joins on the probe spine (their fragments run materialized),
+the connector-generated device chunks of the synthetic connector, and
+the reference's compile-failure chunk halving (an XLA workaround). On a
+mesh of one the per-shard partitioning and ``pmax`` of the reference are
+plain calls.
 """
 
 from __future__ import annotations
@@ -30,13 +46,22 @@ import torch
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import Batch, Column, bucket_capacity, torch_dtype
-from trino_tpu_torch.exec.local import Result
+from trino_tpu_torch.exec.local import Result, _limbs_to_wide, finalize_aggs
+from trino_tpu_torch.ops.aggregation import AggSpec, global_aggregate, group_aggregate
 from trino_tpu_torch.planner import plan as P
 
 # largest dense key domain and accumulator matrix the dense path takes
 # (the reference's limits, kept so both engines route the same shapes)
 _MAX_BINS = 8192
 _MAX_M = 4096
+
+
+class StreamOverflow(Exception):
+    """A capacity overflowed mid-stream; retry with grown caps."""
+
+    def __init__(self, names):
+        super().__init__(f"stream capacity overflow: {names}")
+        self.names = names
 
 
 def streamable_chain(frag_root: P.PlanNode):
@@ -78,24 +103,64 @@ def streamable_chain(frag_root: P.PlanNode):
 
 
 class StreamingAggregator:
-    """Runs one streamable fragment over the connector's device slab."""
+    """Runs one streamable fragment as a chunk loop with carried state."""
 
-    def __init__(self, executor, frag, agg_node, scan_node):
+    def __init__(self, executor, frag, agg_node, scan_node, caps):
         self.executor = executor
-        self.frag = frag
         self.agg = agg_node
         self.scan = scan_node
         self.nkeys = len(agg_node.group_keys)
+        self.site = f"agg@{frag.id}"
+        self.G = caps.get(
+            self.site, int(executor.session.get("stream_group_budget"))
+        )
+        # one running dictionary per string column of the host chunk
+        # stream (see _canonicalize_dicts)
+        self._running_dicts: Optional[list] = None
 
-    def run(self) -> Optional[Result]:
-        return self._run_device_slab()
+    @property
+    def device(self):
+        return self.executor.device
+
+    # === chunk loop ======================================================
+
+    def run(self) -> Result:
+        """Stream the fragment: the device slab when the connector stages
+        the table, host chunks otherwise. Raises :class:`StreamOverflow`
+        when the group budget overflowed."""
+        res = self._run_device_slab()
+        if res is not None:
+            return res
+        chunk_rows = int(self.executor.session.get("stream_chunk_rows"))
+        return self._run_chunks(self._chunks(chunk_rows))
+
+    def _run_chunks(self, chunks) -> Result:
+        state = meta = None
+        for chunk in chunks:
+            prep = self._chunk_prep(self._tracer_for(chunk))
+            if meta is None:
+                meta = self._collect_meta(prep)
+                state = self._init_state(meta)
+            state = self._step(state, prep, meta)
+        if meta is None:
+            from trino_tpu_torch.exec.fragments import FusedUnsupported
+
+            raise FusedUnsupported("streaming scan with zero splits")
+        self._check_overflow(state)
+        return self._finish(state, meta)
+
+    def _check_overflow(self, state) -> None:
+        """One host read of the carried overflow flag per run."""
+        if bool(state["overflow"]):
+            raise StreamOverflow([self.site])
 
     # === device-resident slab source =====================================
 
     def _run_device_slab(self) -> Optional[Result]:
         """Stage the table on the executor's device (the connector keeps
-        the slab across queries) and run the dense path over it. None when
-        the connector cannot stage the table or the shape is ineligible."""
+        it across queries), try the dense path, then run the sort-based
+        step over views of the slab, ``cap`` rows a chunk, over the live
+        rows only. None when the connector cannot stage the table."""
         connector = self.executor.catalogs.get(self.scan.catalog)
         stage = getattr(connector, "device_slab", None)
         if stage is None:
@@ -106,12 +171,32 @@ class StreamingAggregator:
         limit = int(self.executor.session.get("stream_device_cache_bytes"))
         staged = stage(
             self.scan.schema, self.scan.table, self.scan.column_names,
-            cap, limit, device=self.executor.device,
+            cap, limit, device=self.device,
         )
         if staged is None:
             return None
         slab, num_rows = staged
-        return self._try_dense(slab, num_rows)
+        dense = self._try_dense(slab, num_rows)
+        if dense is not None:
+            return dense
+        cap = min(cap, slab.capacity)
+        return self._run_chunks(self._slab_chunks(slab, num_rows, cap))
+
+    def _slab_chunks(self, slab: Batch, num_rows: int, cap: int):
+        """Chunk i: views of rows [i*cap, (i+1)*cap) of every slab column,
+        live where the row is below ``num_rows``."""
+        pos = torch.arange(cap, device=self.device)
+        for off in range(0, max(num_rows, 1), cap):
+            cols = [
+                Column(
+                    c.type,
+                    c.data[off : off + cap],
+                    None if c.valid is None else c.valid[off : off + cap],
+                    c.dictionary,
+                )
+                for c in slab.columns
+            ]
+            yield Batch(cols, cap, pos < num_rows - off)
 
     def _try_dense(self, slab: Batch, num_rows: int) -> Optional[Result]:
         """Dense-domain fast path: when the group keys span a small
@@ -268,7 +353,64 @@ class StreamingAggregator:
             layout[csym.name] = len(cols) - 1
         return Result(Batch(cols, G, live), layout)
 
-    # === fragment evaluation over the slab ================================
+    # === host chunk source ===============================================
+
+    def _canonicalize_dicts(self, b: Batch) -> Batch:
+        """Remap every string column of a split batch onto the stream's
+        running dictionary (one object per column, grown append-only by
+        ``Dictionary.absorb``): per-split dictionaries give the same
+        string different codes, so carried group keys would otherwise
+        compare garbage across chunks."""
+        if not any(c.dictionary is not None for c in b.columns):
+            return b
+        if self._running_dicts is None:
+            self._running_dicts = [None] * b.width
+        cols = list(b.columns)
+        for j, c in enumerate(cols):
+            if c.dictionary is None:
+                continue
+            running = self._running_dicts[j]
+            if running is None:
+                self._running_dicts[j] = c.dictionary
+                continue
+            remap, _ = running.absorb(c.dictionary)
+            data = c.data
+            if remap is not None:
+                remap_t = torch.from_numpy(remap).to(data.device)
+                data = torch.where(
+                    data >= 0, remap_t[data.clamp(min=0).long()], -1
+                ).to(torch.int32)
+            cols[j] = Column(c.type, data, c.valid, running)
+        return Batch(cols, b.num_rows, b.sel)
+
+    def _chunks(self, chunk_rows: int):
+        """Device chunks of the table's splits, read one after another,
+        each padded to one capacity decided from the first split."""
+        connector = self.executor.catalogs.get(self.scan.catalog)
+        est = connector.estimate_rows(self.scan.schema, self.scan.table)
+        target = max(1, ((est or 0) + chunk_rows - 1) // chunk_rows)
+        splits = connector.get_splits(
+            self.scan.schema, self.scan.table, target_splits=target,
+            constraint=self.scan.constraint,
+        )
+        cap = None
+        for split in splits:
+            b = connector.read_split(
+                self.scan.schema, self.scan.table, self.scan.column_names, split
+            )
+            b = self._canonicalize_dicts(b)
+            if cap is None:
+                cap = bucket_capacity(max(1, min(b.num_rows, chunk_rows)))
+            lo = 0
+            while True:
+                hi = min(lo + cap, b.num_rows)
+                piece = _slice_rows(b, lo, hi) if b.num_rows else b
+                yield _pad_batch(piece, cap).to(self.device)
+                lo = hi
+                if lo >= b.num_rows:
+                    break
+
+    # === the step ========================================================
 
     def _tracer_for(self, chunk: Batch):
         from trino_tpu_torch.exec.fragments import _FragmentTracer
@@ -287,3 +429,255 @@ class StreamingAggregator:
         keys = [res.opt_pair(k) for k in self.agg.group_keys]
         key_dicts = [res.column(k).dictionary for k in self.agg.group_keys]
         return agg_inputs, specs, keys, key_dicts, sel
+
+    def _collect_meta(self, prep) -> dict:
+        """Static metadata of the step, from the first chunk: specs, the
+        width and dtype of each accumulator, and the key columns' dtypes,
+        widths and dictionaries."""
+        agg_inputs, specs, keys, key_dicts, _ = prep
+        widths, dtypes = [], []
+        for spec, pair in zip(specs, agg_inputs):
+            if spec.kind == "sum128":
+                widths.append(3)
+            elif spec.kind == "sum128w":
+                widths.append(5)
+            elif spec.kind in ("min", "max") and pair[0].ndim == 2:
+                widths.append(2)  # wide min/max: (hi, lo)
+            else:
+                widths.append(1)
+            if pair is None or spec.kind == "count" or widths[-1] > 1:
+                dtypes.append(torch.int64)
+            elif pair[0].dtype == torch.bool:
+                dtypes.append(torch.int64)
+            elif pair[0].is_floating_point():
+                dtypes.append(pair[0].dtype)
+            else:
+                dtypes.append(torch.int64)
+        return {
+            "specs": specs,
+            "combine": [
+                s.kind if s.kind in ("min", "max") else "sum" for s in specs
+            ],
+            "widths": widths,
+            "dtypes": dtypes,
+            "key_dicts": key_dicts,
+            "key_shapes": [(kd.dtype, tuple(kd.shape[1:])) for kd, _ in keys],
+        }
+
+    def _init_state(self, meta: dict) -> dict:
+        rows = self.G if self.nkeys else 1
+        dev = self.device
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        state: dict = {"overflow": zeros((), torch.bool)}
+        if self.nkeys:
+            state["key_data"] = [
+                zeros((rows,) + tail, dt) for dt, tail in meta["key_shapes"]
+            ]
+            state["key_valid"] = [zeros(rows, torch.bool) for _ in range(self.nkeys)]
+            state["live"] = zeros(rows, torch.bool)
+        state["values"] = [
+            zeros((rows,) if w == 1 else (rows, w), dt)
+            for w, dt in zip(meta["widths"], meta["dtypes"])
+        ]
+        state["counts"] = [zeros(rows, torch.int64) for _ in meta["specs"]]
+        return state
+
+    def _step(self, state, prep, meta) -> dict:
+        agg_inputs, _, keys, _, sel = prep
+        if self.nkeys:
+            return self._step_grouped(state, keys, sel, agg_inputs, meta)
+        return self._step_global(state, sel, agg_inputs, meta)
+
+    def _step_grouped(self, state, keys, sel, agg_inputs, meta) -> dict:
+        """Chunk rows -> at most G chunk groups, then the carried groups
+        and the chunk groups -> at most G groups. Every integer lane that
+        merges by addition (the counts, the integer sums, each limb lane)
+        travels in one packed (rows, lanes) input; min/max combine over
+        the non-empty sides and float sums add, each as its own input."""
+        specs, combine = meta["specs"], meta["combine"]
+        G = self.G
+        glive = torch.arange(G, device=self.device)
+        (ckd, ckv), craw, cng, covf = group_aggregate(
+            keys, sel, agg_inputs, specs, G
+        )
+        cvals, ccnts = [], []
+        for spec, r in zip(specs, craw):
+            if spec.kind in ("count", "count_star"):
+                cvals.append(r)
+                ccnts.append(r)
+            else:
+                cvals.append(r[0])
+                ccnts.append(r[1])
+        packs = [j for j, v in enumerate(state["values"])
+                 if combine[j] == "sum" and not v.is_floating_point()]
+
+        def packed(vals, cnts):
+            lanes = [vals[j].reshape(G, -1).to(torch.int64) for j in packs]
+            lanes += [c.reshape(G, 1).to(torch.int64) for c in cnts]
+            return torch.cat(lanes, dim=1)
+
+        minputs = [(torch.cat([packed(state["values"], state["counts"]),
+                               packed(cvals, ccnts)]), None)]
+        mspecs = [AggSpec("sum")]
+        rest = [j for j in range(len(specs)) if j not in packs]
+        for j in rest:
+            sv, cv = state["values"][j], cvals[j].to(state["values"][j].dtype)
+            if combine[j] in ("min", "max"):
+                nonempty = torch.cat([state["counts"][j] > 0, ccnts[j] > 0])
+                minputs.append((torch.cat([sv, cv]), nonempty))
+            else:  # a float sum
+                minputs.append((torch.cat([sv, cv]), None))
+            mspecs.append(AggSpec(combine[j]))
+        mkeys = [
+            (torch.cat([sk, ck.to(sk.dtype)]), torch.cat([sv, cv]))
+            for sk, ck, sv, cv in zip(
+                state["key_data"], ckd, state["key_valid"], ckv
+            )
+        ]
+        msel = torch.cat([state["live"], glive < cng])
+        (nkd, nkv), nraw, nng, novf = group_aggregate(
+            mkeys, msel, minputs, mspecs, G
+        )
+        summed = nraw[0][0]
+        nvals = [None] * len(specs)
+        col = 0
+        for j in packs:
+            w = meta["widths"][j]
+            nvals[j] = summed[:, col] if w == 1 else summed[:, col : col + w]
+            col += w
+        for j, r in zip(rest, nraw[1:]):
+            nvals[j] = r[0]
+        return {
+            "key_data": nkd,
+            "key_valid": nkv,
+            "live": glive < nng,
+            "values": nvals,
+            "counts": [summed[:, col + j] for j in range(len(specs))],
+            "overflow": state["overflow"] | covf | novf,
+        }
+
+    def _step_global(self, state, sel, agg_inputs, meta) -> dict:
+        from trino_tpu_torch.ops.decimal128 import compare128
+
+        specs, combine = meta["specs"], meta["combine"]
+        raw = global_aggregate(sel, agg_inputs, specs)
+        nvals, ncnts = [], []
+        for j, (spec, r) in enumerate(zip(specs, raw)):
+            sv, sc = state["values"][j], state["counts"][j]
+            if spec.kind in ("count", "count_star"):
+                cv = cc = r.to(torch.int64).reshape(1)
+            else:
+                cv = r[0].reshape(sv.shape).to(sv.dtype)
+                cc = r[1].to(torch.int64).reshape(1)
+            if combine[j] in ("min", "max"):
+                if sv.ndim == 2:
+                    sign = compare128(sv[:, 0], sv[:, 1], cv[:, 0], cv[:, 1])
+                    take_c = sign > 0 if combine[j] == "min" else sign < 0
+                else:
+                    take_c = cv < sv if combine[j] == "min" else cv > sv
+                take_c = (sc == 0) | ((cc > 0) & take_c)
+                mask = take_c[:, None] if sv.ndim == 2 else take_c
+                nv = torch.where(mask, cv, sv)
+            else:
+                nv = sv + cv
+            nvals.append(nv)
+            ncnts.append(sc + cc)
+        return {
+            "values": nvals,
+            "counts": ncnts,
+            "overflow": state["overflow"],  # a global agg cannot overflow
+        }
+
+    # === result assembly =================================================
+
+    def _finish(self, state, meta) -> Result:
+        if self.agg.step == "partial":
+            return self._finish_partial(state, meta)
+        return self._finish_single(state, meta)
+
+    def _key_columns(self, state, meta) -> list[Column]:
+        return [
+            Column(
+                ksym.type,
+                state["key_data"][i].to(torch_dtype(ksym.type.storage_dtype)),
+                state["key_valid"][i],
+                meta["key_dicts"][i],
+            )
+            for i, ksym in enumerate(self.agg.group_keys)
+        ]
+
+    def _finish_partial(self, state, meta) -> Result:
+        """The partial aggregate's accumulator rows: keys, then per
+        aggregate its value (limb sums as wide (hi, lo)) and count."""
+        agg = self.agg
+        cols: list[Column] = []
+        layout: dict[str, int] = {}
+        if self.nkeys:
+            cols = self._key_columns(state, meta)
+            layout = {k.name: i for i, k in enumerate(agg.group_keys)}
+            live, total = state["live"], self.G
+        else:
+            live = torch.ones(1, dtype=torch.bool, device=self.device)
+            total = 1
+        for (vsym, csym), spec, v, c in zip(
+            agg.acc_symbols, meta["specs"], state["values"], state["counts"]
+        ):
+            if spec.kind in ("count", "count_star"):
+                cols.append(Column(T.BIGINT, v.reshape(-1)))
+                layout[vsym.name] = len(cols) - 1
+                continue
+            cols.append(Column(vsym.type, _limbs_to_wide(v)))
+            layout[vsym.name] = len(cols) - 1
+            cols.append(Column(T.BIGINT, c))
+            layout[csym.name] = len(cols) - 1
+        return Result(Batch(cols, total, live), layout)
+
+    def _finish_single(self, state, meta) -> Result:
+        agg = self.agg
+        results = [
+            v if spec.kind in ("count", "count_star") else (v, c)
+            for spec, v, c in zip(meta["specs"], state["values"], state["counts"])
+        ]
+        layout = {s.name: i for i, s in enumerate(agg.output_symbols)}
+        if self.nkeys:
+            cols = self._key_columns(state, meta) + finalize_aggs(agg, results)
+            return Result(Batch(cols, self.G, state["live"]), layout)
+        cols = finalize_aggs(agg, results)
+        return Result(
+            Batch(cols, 1, torch.ones(1, dtype=torch.bool, device=self.device)),
+            layout,
+        )
+
+
+# === host-side batch helpers ================================================
+
+
+def _slice_rows(b: Batch, lo: int, hi: int) -> Batch:
+    cols = [
+        Column(
+            c.type, c.data[lo:hi],
+            None if c.valid is None else c.valid[lo:hi], c.dictionary,
+        )
+        for c in b.columns
+    ]
+    return Batch(cols, hi - lo, None if b.sel is None else b.sel[lo:hi])
+
+
+def _pad_batch(piece: Batch, cap: int) -> Batch:
+    """A piece padded with dead rows to exactly ``cap`` rows, its live
+    rows in the selection mask, so every chunk has one shape."""
+    cols = []
+    for c in piece.columns:
+        pad = cap - c.data.shape[0]
+        data = torch.cat([c.data, c.data.new_zeros((pad,) + tuple(c.data.shape[1:]))])
+        valid = c.valid
+        if valid is not None:
+            valid = torch.cat([valid, valid.new_zeros(pad)])
+        cols.append(Column(c.type, data, valid, c.dictionary))
+    live = torch.arange(cap) < piece.num_rows
+    if piece.sel is not None:
+        live[: piece.sel.shape[0]] &= piece.sel
+    return Batch(cols, cap, live)

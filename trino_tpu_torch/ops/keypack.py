@@ -20,15 +20,17 @@ def key_lanes(
 ) -> list[torch.Tensor]:
     """Sort lanes, most significant first: unselected rows last, then per
     key its NULL flag (NULLs last) and its value (zeroed under NULL so all
-    NULLs of a key compare equal). Wide (n, 2) keys give two lanes."""
-    lanes = [(~sel).to(torch.int64)]
+    NULLs of a key compare equal). Wide (n, 2) keys give two lanes. Flags
+    sort as uint8 and values in their own dtype (bool as uint8): a radix
+    sort makes one pass per key byte."""
+    lanes = [(~sel).to(torch.uint8)]
     for data, valid in keys:
         if valid is not None:
-            lanes.append((~valid).to(torch.int64))
+            lanes.append((~valid).to(torch.uint8))
         cols = [data[:, 0], data[:, 1]] if data.ndim == 2 else [data]
         for c in cols:
-            if not c.is_floating_point():
-                c = c.to(torch.int64)
+            if c.dtype == torch.bool:
+                c = c.to(torch.uint8)
             if valid is not None:
                 c = torch.where(valid, c, torch.zeros_like(c))
             lanes.append(c)

@@ -4,7 +4,8 @@ Reference: ``operator/OrderByOperator.java:45`` (PagesIndex sort),
 ``operator/TopNOperator.java:37``. Counterpart of ``trino_tpu/ops/sort.py``:
 each key column maps to operands already oriented for one ascending sort
 (a NULL-position lane, then the value: integers complemented for DESC,
-floats negated, strings as dictionary ranks), and the permutation orders
+floats negated, strings as dictionary ranks, a wide DECIMAL as its signed
+hi and unsigned lo lanes), and the permutation orders
 rows lexicographically by those operands, ties by row index. The
 reference bit-packs the operands for one XLA sort; here stable sorts run
 from the least to the most significant operand, which gives the same
@@ -29,10 +30,14 @@ def sortable_key(data: torch.Tensor, valid: torch.Tensor, key: SortKey,
                  ranks=None) -> list[torch.Tensor]:
     """Sort operands of one key column (NULL key, value), oriented for an
     ascending sort."""
-    if data.ndim == 2:
-        raise NotImplementedError(
-            "ORDER BY over DECIMAL(38) is not yet ported to trino_tpu_torch"
-        )
+    null_key = valid if key.nulls_first else ~valid
+    if data.ndim == 2:  # wide DECIMAL: signed hi, then unsigned lo
+        from trino_tpu_torch.ops.decimal128 import sort_operands_wide
+
+        lanes = sort_operands_wide(data[:, 0], data[:, 1], key.ascending)
+        return [null_key] + [
+            torch.where(valid, x, torch.zeros_like(x)) for x in lanes
+        ]
     if ranks is not None:  # dictionary string: map codes to ranks
         r = torch.as_tensor(ranks, device=data.device)
         if r.shape[0] == 0:
@@ -51,7 +56,6 @@ def sortable_key(data: torch.Tensor, valid: torch.Tensor, key: SortKey,
         value = data.to(torch.int64)
         if not key.ascending:
             value = -1 - value  # bitwise complement keeps the order reversed
-    null_key = valid if key.nulls_first else ~valid
     value = torch.where(valid, value, torch.zeros_like(value))
     return [null_key, value]
 
