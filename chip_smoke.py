@@ -46,10 +46,24 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    equal exact integer oracles over the same generated arrays; every line
    names the card and its power limit.
 
-Phases 4, 5 and 6 each end with one warm run of each query under
-``torch.profiler`` (phase ``profile``); phases 5 and 6 then time the
-layers of one more warm run of each join query, and of Q-T1 and Q-T6, on
-the host clock (phase ``spans``).
+7. tpch22: all 22 TPC-H queries, spec text, over ``tpch.sf1``: the port's
+   native loader builds ``native/columnar.cpp`` and the comment text pool,
+   the connector generates the eight tables and stages them on the card
+   (seconds and staged bytes per table on a line), then each query runs
+   through the same runner in distributed mode once cold and 3 times
+   warm. Rows and column types must equal the reference's answers
+   committed in ``trino_tpu_torch/benchmarks/tpch_sf1_answers.json``
+   exactly (rows whose ORDER BY keys tie compared as a multiset); a
+   mismatch names the query and its first differing row. Each query's
+   line gives its cold and warm times, K1 and K2 launches per run, join
+   strategies, overflow retries and peak device memory; the join-build
+   kernel must launch.
+
+Phases 4, 5, 6 and 7 each end with one warm run of each query (of the
+three slowest in phase 7) under ``torch.profiler`` (phase ``profile``);
+phases 5, 6 and 7 then time the layers of one more warm run of each join
+query, of Q-T1 and Q-T6, and of phase 7's three slowest, on the host
+clock (phase ``spans``).
 The line before the last is a JSON
 object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -960,6 +974,164 @@ def tpch_spans(runner, queries, smi: str) -> None:
         log("spans", card=smi, query=name, **out)
 
 
+TPCH22_SCHEMA = "sf1"     # the all-22 phase's scale factor
+TPCH22_WARM = 3
+
+
+def k2_against_plain(runner, texts: dict) -> list:
+    """One more run of each of ``texts`` with every K2 build held against
+    ``build_table_plain`` on the same inputs (slot bases, live rows,
+    capacity, window): the table and the unplaced count must be equal.
+    Returns one record a build, with the query that made it."""
+    import torch
+
+    from trino_tpu_torch.ops import dense_join as DJ
+
+    real, builds, query = DJ.build_table_cuda, [], [None]
+
+    def checked(slot_base, use, capacity, window):
+        out = real(slot_base, use, capacity, window)
+        ptable, punplaced = DJ.build_table_plain(slot_base, use, capacity, window)
+        builds.append({
+            "query": query[0], "rows": int(slot_base.shape[0]),
+            "live": int(use.sum()), "capacity": capacity, "window": window,
+            "unplaced": int(out[1]),
+            "max_abs_err": int((out[0].to(torch.int64)
+                                - ptable.to(torch.int64)).abs().max()),
+            "unplaced_err": abs(int(out[1]) - int(punplaced)),
+        })
+        return out
+
+    DJ.build_table_cuda = checked
+    try:
+        for name, sql in texts.items():
+            query[0] = name
+            runner.engine.execute_statement(sql, runner.session)
+    finally:
+        DJ.build_table_cuda = real
+    return builds
+
+
+def phase_tpch22(smi: str) -> tuple[dict, int]:
+    """All 22 TPC-H queries, spec text, at SF1 from the port's tpch
+    connector through ``LocalQueryRunner(device="cuda")`` in distributed
+    mode: the eight tables generated (comments from the text pool the
+    port's native loader builds) and staged on the card first, then each
+    query once cold and 3 times warm, its rows and column types held
+    against the reference's answers (``tpch_sf1_answers.json``) exactly,
+    in ORDER BY order (rows whose ORDER BY keys tie as a multiset).
+    Every K2 build of the queries that launch it is then held against
+    its plain version. Returns the kernel launches of this path's run and
+    the largest K2 error over those builds."""
+    import torch
+
+    from trino_tpu_torch import _kernels, native
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.connectors import dbgen
+    from trino_tpu_torch.connectors.tpch import _SCHEMAS, TpchConnector
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    answers = B.load_answers()
+    if answers["schema"] != f"tpch.{TPCH22_SCHEMA}":
+        raise AssertionError(f"answers are for {answers['schema']}")
+    t0 = time.perf_counter()
+    native.load()
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dbgen.text_pool()
+    log("tpch22", card=smi, native_build_s=native_s,
+        text_pool_s=time.perf_counter() - t0)
+    runner = LocalQueryRunner(device="cuda")
+    runner.session.set("execution_mode", "distributed")
+    tpch = TpchConnector()
+    runner.catalogs.register("tpch", tpch)
+    cap = int(runner.session.get("stream_device_chunk_rows"))
+    max_bytes = int(runner.session.get("stream_device_cache_bytes"))
+    staged = {}
+    t_all = time.perf_counter()
+    for table, cols in _SCHEMAS.items():
+        t0 = time.perf_counter()
+        slab, rows = tpch.device_slab(
+            TPCH22_SCHEMA, table, [c for c, _ in cols], cap, max_bytes,
+            device="cuda",
+        )
+        torch.cuda.synchronize()
+        staged[table] = {
+            "rows": rows,
+            "staged_bytes": sum(
+                c.data.numel() * c.data.element_size() for c in slab.columns
+            ),
+            "generate_and_stage_s": time.perf_counter() - t0,
+        }
+    log("tpch22", card=smi, schema=TPCH22_SCHEMA, tables=staged,
+        generate_and_stage_s=time.perf_counter() - t_all)
+    texts = B.queries(f"tpch.{TPCH22_SCHEMA}")
+    failures, warm_ms, k2_runs = [], {}, {}
+    # the main path's run: every count starts at 0 here and is read after
+    _kernels.reset_counts()
+    for q in range(1, 23):
+        want = answers["queries"][str(q)]
+        times, k1, k2 = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(1 + TPCH22_WARM):
+            before = dict(_kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = runner.engine.execute_statement(texts[q], runner.session)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            k1.append(_kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"])
+            k2.append(_kernels.LAUNCHES["dense_join_build"] - before["dense_join_build"])
+            types = [t.name for t in res.column_types]
+            bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"],
+                                   want["order_by"])
+            if bad is None and types != want["types"]:
+                bad = f"column types {types} != {want['types']}"
+            if bad is not None:
+                failures.append(f"Q{q}: {bad}")
+                break
+        warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
+        k2_runs[q] = k2[-1]
+        stats = res.exchange_stats or {}
+        log(
+            "tpch22", card=smi, query=f"Q{q}", rows=len(res.rows),
+            matches_reference=bad is None, cold_ms=times[0],
+            warm_median_ms=warm_ms[q], warm_ms=times[1:],
+            k1_launches_per_run=k1, k2_launches_per_run=k2,
+            joinStrategy=stats.get("joinStrategy"),
+            overflow_retries=stats.get("overflow_retries"),
+            fragment_modes={str(f): m for f, m in (res.fragment_modes or {}).items()},
+            peak_device_bytes=torch.cuda.max_memory_allocated(),
+        )
+    launches = dict(_kernels.LAUNCHES)
+    log("tpch22", card=smi, launches=launches,
+        warm_total_ms=sum(warm_ms.values()))
+    if failures:
+        raise AssertionError("rows differ from the reference: " + "; ".join(failures))
+    # K2 against its plain version at the shapes this path gives it (its
+    # launches here come after the counts were read, and are not counted)
+    builds = k2_against_plain(
+        runner, {f"Q{q}": texts[q] for q in range(1, 23) if k2_runs[q]}
+    )
+    per_query = {f"Q{q}": n for q, n in k2_runs.items() if n}
+    checked = {}
+    for b in builds:
+        checked[b["query"]] = checked.get(b["query"], 0) + 1
+    k2_err = max(max(b["max_abs_err"], b["unplaced_err"]) for b in builds)
+    log("tpch22", card=smi, k2_vs_plain_builds=builds, k2_max_abs_err=k2_err,
+        overflowing_builds=sum(b["unplaced"] > 0 for b in builds),
+        largest_build_rows=max(b["rows"] for b in builds))
+    if checked != per_query:
+        raise AssertionError(f"k2 check pass: builds {checked} != launches {per_query}")
+    if k2_err:
+        raise AssertionError(f"tpch22: K2 != plain on a query's build (max |err| {k2_err})")
+    slowest = sorted(warm_ms, key=warm_ms.get, reverse=True)[:3]
+    three = {f"Q{q}": texts[q] for q in slowest}
+    phase_profile(runner, three, card=smi)
+    phase_spans(runner, three)
+    return launches, k2_err
+
+
 def main() -> int:
     import torch
 
@@ -985,6 +1157,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tpch_launches = phase_tpch(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22, t22_k2_err = phase_tpch22(smi)
+    if t22["dense_join_build"] < 1:
+        raise AssertionError("the TPC-H queries launched no join-build kernel")
     a, ka = kern["a"], k2["a"]
     print(json.dumps({"kernels": [{
         "name": "dense_groupby",
@@ -992,7 +1169,7 @@ def main() -> int:
         "source": "trino_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "trino_tpu/ops/dense_groupby.py:229",
         "launches": (sql_launches["dense_groupby"] + join_launches["dense_groupby"]
-                     + tpch_launches),
+                     + tpch_launches + t22["dense_groupby"]),
         "matches_plain": True,
         "max_abs_err": kern["max_abs_err"],
         "ms": a["ms"],
@@ -1005,9 +1182,10 @@ def main() -> int:
         "route": "cuda",
         "source": "trino_tpu_torch/csrc/dense_join_build.cu",
         "replaces": "trino_tpu/ops/dense_join.py:344",
-        "launches": join_launches["dense_join_build"],
+        "launches": join_launches["dense_join_build"] + t22["dense_join_build"],
         "matches_plain": True,
-        "max_abs_err": max(p["max_abs_err"] for p in k2.values()),
+        "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
+                           + [t22_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

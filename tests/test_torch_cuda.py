@@ -270,3 +270,27 @@ def test_join_queries_launch_the_build_kernel(cuda):
         assert (rows if name == "Q-J1" else sorted(rows)) == want[name]
         if name != "Q-J3":  # the semi join probes the sort tier
             assert _kernels.LAUNCHES["dense_join_build"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["local", "distributed"])
+def test_tpch_queries_on_the_card_equal_the_cpu(cuda, mode):
+    """The 22 TPC-H queries at ``tpch.tiny`` on the card return the rows
+    and column types they return on the CPU (rows whose ORDER BY keys tie
+    as a multiset); the join-build kernel launches in distributed mode."""
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    runners = [LocalQueryRunner(device=d) for d in ("cpu", cuda)]
+    for r in runners:
+        r.session.set("execution_mode", mode)
+    before = _kernels.LAUNCHES["dense_join_build"]
+    for q, sql in B.queries("tpch.tiny").items():
+        cpu, card = (r.engine.execute_statement(sql, r.session) for r in runners)
+        assert [t.name for t in card.column_types] == [t.name for t in cpu.column_types]
+        order = B.order_positions(runners[0].plan(sql))
+        bad = B.first_mismatch(B.canonical_rows(card.rows),
+                               B.canonical_rows(cpu.rows), order)
+        assert bad is None, f"Q{q}: {bad}"
+    if mode == "distributed":
+        assert _kernels.LAUNCHES["dense_join_build"] > before

@@ -181,3 +181,82 @@ def test_scan_without_columns_keeps_its_device():
     assert Batch([Column(T.BIGINT, torch.zeros(3, dtype=torch.int64))], 3).to(
         meta
     ).device == meta
+
+
+SCALAR_SUBQUERIES = {
+    # a correlated scalar subquery over an aggregate: a LEFT single-row join
+    "correlated": (
+        "select p_key, (select max(d_val) from memory.default.dup "
+        "where d_key = p_key) from memory.default.probe"
+    ),
+    # an uncorrelated one: a single-row CROSS join
+    "uncorrelated": (
+        "select count(*) from memory.default.lineitem where l_quantity > "
+        "(select avg(l_quantity) from memory.default.lineitem)"
+    ),
+    # an uncorrelated one over no rows is NULL
+    "empty": (
+        "select o_orderkey, (select c_custkey from memory.default.customer "
+        "where c_custkey < 0) from memory.default.orders where o_orderkey < 40"
+    ),
+}
+SCALAR_ERRORS = {
+    # 40 build rows share the key 12345 that five probe rows carry
+    "correlated": (
+        "select p_key, (select d_val from memory.default.dup where d_key = p_key) "
+        "from memory.default.probe"
+    ),
+    "uncorrelated": (
+        "select o_orderkey, (select c_custkey from memory.default.customer) "
+        "from memory.default.orders"
+    ),
+}
+OTHER_JOINS = {
+    "cross": (
+        "select count(*), sum(c_custkey * o_orderkey) from (select c_custkey from "
+        "memory.default.customer where c_custkey < 30) c cross join (select "
+        "o_orderkey from memory.default.orders where o_orderkey < 200) o"
+    ),
+    # the ON filter drops matches, never probe rows
+    "left-filter": (
+        "select c_custkey, count(o_orderkey) from memory.default.customer left "
+        "join memory.default.orders on c_custkey = o_custkey and o_orderdate < 9000 "
+        "group by c_custkey"
+    ),
+    "left-filter-both-sides": (
+        "select c_custkey, count(o_orderkey), sum(o_orderkey) from "
+        "memory.default.customer left join memory.default.orders on "
+        "c_custkey = o_custkey and o_orderdate < 8100 + c_custkey group by c_custkey"
+    ),
+    # DECIMAL(38) keys at two scales: (hi, lo) lanes, scales aligned
+    "decimal38-keys": (
+        "select count(*), sum(o_orderkey) from (select o_orderkey, "
+        "cast(o_custkey as decimal(38,2)) k from memory.default.orders) o join "
+        "(select cast(c_custkey as decimal(38,0)) k2 from memory.default.customer "
+        "where c_mktsegment = 1) c on o.k = c.k2"
+    ),
+}
+
+
+@pytest.mark.parametrize("mode", ["local", "distributed"])
+@pytest.mark.parametrize("case", sorted(SCALAR_SUBQUERIES) + sorted(OTHER_JOINS))
+def test_scalar_cross_left_filter_and_wide_key_joins_match_reference(
+    engines, case, mode
+):
+    sql = {**SCALAR_SUBQUERIES, **OTHER_JOINS}[case]
+    want = reference_rows(engines, case, sql)
+    res, _ = run_port(engines[1], sql, mode)
+    assert sorted(res.rows, key=repr) == sorted(want, key=repr) and len(want) > 0
+
+
+@pytest.mark.parametrize("mode", ["local", "distributed"])
+@pytest.mark.parametrize("case", sorted(SCALAR_ERRORS))
+def test_scalar_subquery_of_many_rows_raises_as_the_reference(engines, case, mode):
+    ref, port, _ = engines
+    sql = SCALAR_ERRORS[case]
+    with pytest.raises(Exception, match="multiple rows") as ref_err:
+        ref.execute(sql)
+    port.session.set("execution_mode", mode)
+    with pytest.raises(Exception, match="multiple rows") as err:
+        port.engine.execute_statement(sql, port.session)
+    assert str(err.value) == str(ref_err.value)

@@ -2,20 +2,29 @@
 reference, on the CPU.
 
 - The port's generator (``connectors/dbgen.py``, a copy of the
-  reference's) gives the reference connector's lineitem and orders
-  columns split by split, dictionaries included; comment columns raise
-  until the native loader builds their text pool.
-- TPC-H Q1 and Q6 (spec text, ``tpch.tiny``) return exactly the
+  reference's) gives the reference connector's columns of all eight
+  tables split by split, dictionaries included; the comment columns too,
+  sliced from the text pool that the port's native loader builds.
+- The 22 TPC-H queries (spec text, ``tpch.tiny``) return exactly the
   reference's rows and column types, through the port's local executor
-  and through its distributed executor, whose lineitem fragment streams
+  and through its distributed executor, whose lineitem fragments stream
   through the sort-based step (``stream_device_chunk_rows`` 2^16 in both
-  engines: one chunk of live rows). The reference rows come from its
-  distributed run; both of its modes give the same rows.
+  engines: one chunk of live rows). Rows are compared in ORDER BY order,
+  rows whose ORDER BY keys tie as a multiset. The reference rows come
+  from its distributed run, once per module; Q1-Q11 run here and Q12-Q22
+  in ``test_torch_tpch22.py``, so that two test processes share the
+  reference's cost.
 - Their optimized plans equal the reference's, symbol counters aside.
+- The committed SF1 answers (``tpch_sf1_answers.json``, which
+  ``chip_smoke.py`` holds the card's rows against) equal the reference's
+  rows computed anew (marked ``slow``: about 15 minutes).
 - A narrow-DECIMAL GROUP BY over ``tpch.tiny`` (a slab of exactly 2^22
   rows) takes the dense path once with exact 128-bit (``pair128``) sums.
 """
 
+import importlib.util
+import json
+import os
 import re
 from decimal import Decimal
 
@@ -26,6 +35,7 @@ from trino_tpu.benchmarks.tpch import queries as ref_queries
 from trino_tpu.connectors.tpch import TpchConnector as RefTpch
 from trino_tpu.testing import LocalQueryRunner as RefRunner
 from trino_tpu_torch import _kernels
+from trino_tpu_torch.benchmarks import tpch as B
 from trino_tpu_torch.benchmarks.tpch import queries
 from trino_tpu_torch.connectors.tpch import TpchConnector
 from trino_tpu_torch.ops import dense_groupby as DG
@@ -55,15 +65,45 @@ def runners():
     return ref, port
 
 
-@pytest.fixture(scope="module")
-def want(runners):
-    """The reference's rows and column types of Q1 and Q6, once."""
+QUERIES_HERE = range(1, 12)  # Q12-Q22: test_torch_tpch22.py
+
+
+def reference_rows(runners, qs) -> dict:
+    """The reference's rows and column types of queries ``qs``."""
     ref, _ = runners
     out = {}
-    for q in (1, 6):
+    for q in qs:
         res = ref.engine.execute_statement(ref_queries("tpch.tiny")[q], ref.session)
         out[q] = (res.rows, [t.name for t in res.column_types])
     return out
+
+
+@pytest.fixture(scope="module")
+def want(runners):
+    return reference_rows(runners, QUERIES_HERE)
+
+
+def check_query(runners, want, q, mode) -> None:
+    """Query ``q`` through the port in ``mode`` gives the reference's rows
+    and column types."""
+    _, port = runners
+    sql = queries("tpch.tiny")[q]
+    port.session.set("execution_mode", mode)
+    try:
+        res = port.engine.execute_statement(sql, port.session)
+    finally:
+        port.session.set("execution_mode", "distributed")
+    rows, types = want[q]
+    assert [t.name for t in res.column_types] == types
+    bad = B.first_mismatch(
+        B.canonical_rows(res.rows), B.canonical_rows(rows),
+        B.order_positions(port.plan(sql)),
+    )
+    assert bad is None, f"Q{q}: {bad}"
+    if mode == "local":
+        assert res.fragment_modes is None
+    elif q in (1, 6):  # a lineitem scan->aggregate fragment streams
+        assert "streamed" in res.fragment_modes.values()
 
 
 def test_query_texts_match_reference():
@@ -71,6 +111,15 @@ def test_query_texts_match_reference():
 
 
 NON_COMMENT = {
+    "region": ["r_regionkey", "r_name"],
+    "nation": ["n_nationkey", "n_name", "n_regionkey"],
+    "supplier": ["s_suppkey", "s_name", "s_address", "s_nationkey", "s_phone",
+                 "s_acctbal"],
+    "customer": ["c_custkey", "c_name", "c_address", "c_nationkey", "c_phone",
+                 "c_acctbal", "c_mktsegment"],
+    "part": ["p_partkey", "p_name", "p_mfgr", "p_brand", "p_type", "p_size",
+             "p_container", "p_retailprice"],
+    "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty", "ps_supplycost"],
     "lineitem": [
         "l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
         "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
@@ -82,14 +131,18 @@ NON_COMMENT = {
         "o_orderdate", "o_orderpriority", "o_clerk", "o_shippriority",
     ],
 }
+COMMENT = {t: [f"{t[0] if t != 'partsupp' else 'ps'}_comment"] for t in NON_COMMENT}
+# splits of each tiny table at 4096 rows a split and 4 wanted: the
+# split-by-split comparison covers several splits where the table has them
+SPLITS = {"lineitem": 4, "orders": 4, "partsupp": 2}
 
 
-@pytest.mark.parametrize("table", ["lineitem", "orders"])
-def test_generated_columns_match_reference(table):
+def _same_split_columns(table, cols):
+    """The port's columns of ``table`` equal the reference connector's,
+    split by split, dictionaries included."""
     ref, port = RefTpch(split_rows=1 << 12), TpchConnector(split_rows=1 << 12)
-    cols = NON_COMMENT[table]
     splits = port.get_splits("tiny", table, 4)
-    assert len(splits) == 4
+    assert len(splits) == SPLITS.get(table, 1)
     assert [(s.table, s.index, s.total) for s in splits] == [
         (s.table, s.index, s.total) for s in ref.get_splits("tiny", table, 4)
     ]
@@ -106,6 +159,11 @@ def test_generated_columns_match_reference(table):
                 assert g.dictionary.values == list(e.dictionary.values), name
 
 
+@pytest.mark.parametrize("table", sorted(NON_COMMENT))
+def test_generated_columns_match_reference(table):
+    _same_split_columns(table, NON_COMMENT[table])
+
+
 def test_table_stats_match_reference():
     ref, port = RefTpch(), TpchConnector()
     for table in ("lineitem", "orders", "customer", "nation"):
@@ -116,36 +174,64 @@ def test_table_stats_match_reference():
         }
 
 
-def test_comment_column_waits_for_the_native_loader():
-    port = TpchConnector()
-    split = port.get_splits("tiny", "lineitem", 1)[0]
-    with pytest.raises(NotImplementedError, match="native loader"):
-        port.read_split("tiny", "lineitem", ["l_orderkey", "l_comment"], split)
+def test_split_cache_evicts_least_recently_read():
+    """The host cache of generated splits keeps what was read last: at a
+    limit of two splits, reading a third evicts the one read longest ago,
+    and a split larger than the whole limit is not cached."""
+    one = TpchConnector(split_rows=1 << 12)
+    split_bytes = sum(
+        c.data.numel() * c.data.element_size()
+        for c in one.read_split("tiny", "orders", ["o_orderkey"],
+                                one.get_splits("tiny", "orders", 4)[0]).columns
+    )
+    port = TpchConnector(split_rows=1 << 12, cache_bytes=2 * split_bytes)
+    s0, s1, s2, _ = port.get_splits("tiny", "orders", 4)
+
+    def read(split, cols=("o_orderkey",)):
+        return port.read_split("tiny", "orders", list(cols), split)
+
+    b0, b1 = read(s0), read(s1)
+    assert read(s0) is b0  # a hit, now the most recent
+    b2 = read(s2)  # evicts s1
+    assert read(s0) is b0 and read(s2) is b2
+    assert read(s1) is not b1
+    wide = read(s0, ("o_orderkey", "o_custkey", "o_orderdate"))
+    assert read(s0, ("o_orderkey", "o_custkey", "o_orderdate")) is not wide
+    assert port._batch_cache_bytes <= 2 * split_bytes
+
+
+@pytest.mark.parametrize("table", sorted(COMMENT))
+def test_comment_column_matches_reference(table):
+    """Comment columns slice the text pool the port's native loader
+    builds: values and dictionaries equal the reference connector's."""
+    _same_split_columns(table, COMMENT[table])
 
 
 @pytest.mark.parametrize("mode", ["local", "distributed"])
-@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("q", QUERIES_HERE)
 def test_tpch_query_matches_reference(runners, want, q, mode):
-    _, port = runners
-    port.session.set("execution_mode", mode)
-    try:
-        res = port.engine.execute_statement(queries("tpch.tiny")[q], port.session)
-    finally:
-        port.session.set("execution_mode", "distributed")
-    rows, types = want[q]
-    assert res.rows == rows  # ORDER BY (Q1) or one row (Q6): ordered
-    assert [t.name for t in res.column_types] == types
-    if mode == "distributed":
-        assert "streamed" in res.fragment_modes.values()
-    else:
-        assert res.fragment_modes is None
+    check_query(runners, want, q, mode)
 
 
-@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("q", range(1, 23))
 def test_tpch_plan_matches_reference(runners, q):
     ref, port = runners
     sql = queries("tpch.tiny")[q]
     assert _normalised(port.explain(sql)) == _normalised(ref.explain(sql))
+
+
+@pytest.mark.slow
+def test_sf1_answers_equal_the_reference():
+    """``tpch_sf1_answers.json`` equals the reference's SF1 rows computed
+    anew by ``scripts/tpch_sf1_answers.py`` (about 15 minutes on 8 CPU
+    cores, so out of tier-1)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "scripts", "tpch_sf1_answers.py")
+    spec = importlib.util.spec_from_file_location("tpch_sf1_answers", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    fresh = json.loads(json.dumps(script.compute("tpch.sf1")))
+    assert fresh == B.load_answers()
 
 
 def test_narrow_decimal_group_by_takes_the_dense_path(runners, monkeypatch):

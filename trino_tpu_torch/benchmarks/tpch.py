@@ -4,7 +4,19 @@ Reference: ``testing/trino-benchto-benchmarks/src/main/resources/benchmarks/
 presto/tpch.yaml``. The port's own copy of ``trino_tpu/benchmarks/tpch.py``
 (the same 22 query texts), so that scripts of the port such as
 ``chip_smoke.py`` run spec text without importing the JAX package.
+
+Also the means to hold a run's rows against committed answers
+(``tpch_sf1_answers.json``): values in canonical text, and a comparison
+that keeps the ORDER BY's order but treats rows with equal ORDER BY keys
+as a multiset.
 """
+
+import datetime
+import json
+import os
+from decimal import Decimal
+
+ANSWERS_SF1 = os.path.join(os.path.dirname(__file__), "tpch_sf1_answers.json")
 
 
 def queries(schema: str = "tpch.tiny") -> dict[int, str]:
@@ -269,3 +281,72 @@ def queries(schema: str = "tpch.tiny") -> dict[int, str]:
     group by cntrycode order by cntrycode""",
     }
     return QUERIES
+
+
+def canonical_value(v):
+    """A result value in JSON-safe canonical form: DECIMALs and DATEs as
+    their text, everything else as it is (floats round-trip exactly)."""
+    if isinstance(v, Decimal):
+        return str(v)
+    if isinstance(v, (datetime.date, datetime.datetime)):
+        return v.isoformat()
+    return v
+
+
+def canonical_rows(rows) -> list[list]:
+    return [[canonical_value(v) for v in r] for r in rows]
+
+
+def order_positions(plan) -> list[int]:
+    """Output positions of the ORDER BY keys of a plan's top Sort/TopN
+    (through single-source nodes under its Output); [] when unordered or
+    when a key is not an output column."""
+    from trino_tpu_torch.planner import plan as P
+
+    names = [s.name for s in plan.output_symbols]
+    node = plan.source if isinstance(plan, P.Output) else plan
+    while True:
+        if isinstance(node, (P.Sort, P.TopN)):
+            keys = [o.symbol.name for o in node.order_by]
+            if all(k in names for k in keys):
+                return [names.index(k) for k in keys]
+            return []
+        if isinstance(node, P.Project):
+            # follow each output column through a renaming projection
+            exprs = {sym.name: e for sym, e in node.assignments}
+            names = [getattr(exprs.get(n), "name", n) for n in names]
+        if isinstance(node, (P.Project, P.Limit)):
+            node = node.source
+            continue
+        return []
+
+
+def first_mismatch(got, want, positions) -> str | None:
+    """None when ``got`` equals ``want`` (canonical rows) in order, up to
+    the order of rows whose ORDER BY keys (``positions``) are equal;
+    otherwise a description of the first differing row."""
+    if len(got) != len(want):
+        return f"{len(got)} rows, want {len(want)}"
+    i = 0
+    while i < len(want):
+        j = i + 1
+        if positions:
+            key = [want[i][p] for p in positions]
+            while j < len(want) and [want[j][p] for p in positions] == key:
+                j += 1
+        else:
+            j = len(want)
+        g, w = got[i:j], want[i:j]
+        if j - i > 1:
+            g = sorted(g, key=json.dumps)
+            w = sorted(w, key=json.dumps)
+        for k, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                return f"row {i + k}: {a} != {b}"
+        i = j
+    return None
+
+
+def load_answers(path: str = ANSWERS_SF1) -> dict:
+    with open(path) as f:
+        return json.load(f)

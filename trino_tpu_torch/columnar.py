@@ -77,18 +77,13 @@ class Dictionary:
     @staticmethod
     def from_strings(strings: Iterable[str]) -> tuple["Dictionary", np.ndarray]:
         """Build a dictionary and the int32 code array for a string
-        sequence (first-occurrence order, like the reference's encoder)."""
-        index: dict[str, int] = {}
+        sequence (first-occurrence order), through the native hash table
+        (``native.dict_encode``), as the reference does."""
+        from trino_tpu_torch.native import dict_encode
+
         strings = strings if isinstance(strings, list) else list(strings)
-        codes = np.empty(len(strings), dtype=np.int32)
-        for i, s in enumerate(strings):
-            code = index.get(s)
-            if code is None:
-                code = index[s] = len(index)
-            codes[i] = code
-        d = Dictionary(list(index))
-        d._index = index
-        return d, codes
+        codes, values = dict_encode(strings)
+        return Dictionary(values), codes
 
     def absorb(self, other: "Dictionary") -> tuple[np.ndarray | None, bool]:
         """Merge ``other``'s values into *this* dictionary in place

@@ -7,15 +7,23 @@ batch's device. Every expression evaluates to a pair ``(data, valid)`` of
 tensors (SQL three-valued logic).
 
 This is the subset of ``trino_tpu/compiler.py`` the ported query path
-needs: column references; numeric, DECIMAL and DATE literals (DECIMAL
-literals past int64 as wide (n, 2) lanes); comparisons across numeric
-types, DECIMAL scales and widths, and of DATEs; ``+ - * / %`` and
-negation, with DECIMAL rescaling and 128-bit lanes
-(``ops/decimal128.py``); casts among DECIMAL, the integers and DOUBLE;
-AND/OR/NOT (Kleene logic), IS NULL, IF, COALESCE, IN and BETWEEN, over
-wide operands too. Any other expression (VARCHAR functions and
-comparisons, LIKE, ``extract``) raises :class:`NotImplementedError`
-naming it.
+needs: column references; numeric, DECIMAL, DATE and VARCHAR literals
+(DECIMAL literals past int64 as wide (n, 2) lanes); comparisons across
+numeric types, DECIMAL scales and widths, and of DATEs; ``+ - * / %``,
+negation, ``abs``, ``floor``/``ceil``, ``round``, ``greatest``/``least``,
+with DECIMAL rescaling and 128-bit lanes (``ops/decimal128.py``); casts
+among DECIMAL, the integers and DOUBLE; AND/OR/NOT (Kleene logic), IS
+NULL, IF, COALESCE, IN and BETWEEN, over wide operands too; the date
+functions (``year``/``month``/``day``, ``extract``'s fields,
+``date_trunc``); and the string half, dictionary first:
+VARCHAR comparisons and ``IN`` (a column against a literal through the
+column's dictionary, two columns through a unified one), ``LIKE``,
+``length``/``strpos``/``starts_with``/``regexp_like``/``codepoint``, each
+computed once per dictionary value on the host and gathered on the
+device. String->string functions are lowered before evaluation
+(:func:`trino_tpu_torch.strings.lower_string_calls`). Any other expression
+(ARRAY/MAP/ROW accessors among them) raises
+:class:`NotImplementedError` naming it.
 
 Reference semantics kept: integer ``+ - *`` raise on overflow instead of
 wrapping (Trino's "integer overflow"); division by zero gives NULL (the
@@ -26,12 +34,14 @@ super type.
 
 from __future__ import annotations
 
+import re
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.columnar import Column, torch_dtype
+from trino_tpu_torch.columnar import Column, Dictionary, as_tensor, torch_dtype
 from trino_tpu_torch.ir import (
     Call,
     Constant,
@@ -144,10 +154,15 @@ def _trunc_div(a, b):
 class ExprCompiler:
     """Evaluates a RowExpr tree over a batch's columns."""
 
-    def __init__(self, columns: Sequence[Column], device):
+    def __init__(self, columns: Sequence[Column], device,
+                 string_dictionary: Dictionary | None = None):
         self.columns = list(columns)
         self.n = self.columns[0].capacity if self.columns else 1
         self.device = torch.device(device)
+        # unified dictionary context: when set, string literals encode
+        # against it (the executor remaps the referenced string columns
+        # into it first, see exec.local.unify_strings)
+        self.string_dictionary = string_dictionary
 
     # -- entry points -----------------------------------------------------
     def evaluate(self, expr: RowExpr) -> Pair:
@@ -167,12 +182,32 @@ class ExprCompiler:
             c = self.columns[expr.channel]
             return c.data, c.valid_mask()
         if isinstance(expr, Constant):
+            if T.is_string(expr.type) and expr.value is not None:
+                if self.string_dictionary is None:
+                    # string literals are evaluable inside comparisons and
+                    # LIKE (the column's dictionary) or under a unified
+                    # dictionary (string-valued projections)
+                    raise NotImplementedError(
+                        "string literal outside a comparison context"
+                    )
+                code = self.string_dictionary.encode(expr.value)
+                data = torch.full((self.n,), code, dtype=torch.int32, device=self.device)
+                return data, self._ones()
             return self._constant(expr.type, expr.value)
         if isinstance(expr, SpecialForm):
             return self._special(expr)
         if isinstance(expr, Call):
             return self._call(expr)
         raise TypeError(f"unknown IR node {expr!r}")
+
+    def _table(self, values, dtype) -> torch.Tensor:
+        """A host-computed per-code lookup table on the device."""
+        return torch.tensor(values, dtype=dtype, device=self.device)
+
+    def _arg_dictionary(self, e: RowExpr) -> Dictionary | None:
+        if isinstance(e, InputRef):
+            return self.columns[e.channel].dictionary
+        return None
 
     def _constant(self, t: T.SqlType, value) -> Pair:
         if value is None:
@@ -258,11 +293,257 @@ class ExprCompiler:
             return -d, v
         if name == "cast":
             return self._cast(expr)
+        if name == "abs":
+            d, v = self._eval(expr.args[0])
+            if _is_wide(d):
+                hi, lo = D128.neg128(d[:, 0], d[:, 1])
+                neg = (d[:, 0] < 0)[:, None]
+                return torch.where(neg, torch.stack([hi, lo], dim=1), d), v
+            return torch.abs(d), v
+        if name in ("year", "month", "day"):
+            return self._extract(expr)
         if name == "date_add_days":
             d, v = self._eval(expr.args[0])
             delta, dv = self._eval(expr.args[1])
             return d + delta.to(d.dtype), v & dv
+        if name in ("day_of_week", "day_of_year", "week", "quarter",
+                    "last_day_of_month"):
+            return self._date_field(expr)
+        if name == "date_trunc":
+            return self._date_trunc(expr)
+        if name == "like":
+            return self._like(expr)
+        if name in ("length", "strpos", "starts_with", "regexp_like",
+                    "codepoint"):
+            return self._string_table(expr)
+        if name in ("floor", "ceil"):
+            d, v = self._eval(expr.args[0])
+            t = expr.args[0].type
+            if isinstance(t, T.DecimalType):
+                f = t.unscale
+                q = _floordiv(d, f) if name == "floor" else -_floordiv(-d, f)
+                return q * f, v
+            return (torch.floor if name == "floor" else torch.ceil)(d), v
+        if name == "round":
+            return self._round(expr)
+        if name in ("greatest", "least"):
+            # SQL: NULL if any argument is NULL
+            pairs = [self._eval(a) for a in expr.args]
+            fn = torch.maximum if name == "greatest" else torch.minimum
+            out, valid = pairs[0]
+            for d, v in pairs[1:]:
+                out = fn(out, d.to(out.dtype))
+                valid = valid & v
+            return out, valid
         raise _not_ported(f"function {name!r} over {expr.type.name}")
+
+    # -- dates --------------------------------------------------------------
+    @staticmethod
+    def _days(d, st: T.SqlType):
+        if isinstance(st, T.TimestampType):
+            return _floordiv(d, _US_PER_DAY).to(torch.int32)
+        return d.to(torch.int32)
+
+    def _extract(self, expr: Call) -> Pair:
+        d, v = self._eval(expr.args[0])
+        y, m, dd = _civil_from_days(self._days(d, expr.args[0].type))
+        out = {"year": y, "month": m, "day": dd}[expr.name]
+        return out.to(torch.int64), v
+
+    def _date_field(self, expr: Call) -> Pair:
+        d, v = self._eval(expr.args[0])
+        days = self._days(d, expr.args[0].type)
+        name = expr.name
+        if name == "day_of_week":
+            # ISO: Monday=1..Sunday=7 (1970-01-01 was a Thursday)
+            return (torch.remainder(days + 3, 7) + 1).to(torch.int64), v
+        y, m, dd = _civil_from_days(days)
+        if name == "quarter":
+            return (_floordiv(m - 1, 3) + 1).to(torch.int64), v
+        if name == "last_day_of_month":
+            last = _days_from_civil_vec(y, m, _days_in_month_vec(y, m))
+            return last.to(torch.int32), v
+        jan1 = _days_from_civil_vec(y, torch.ones_like(m), torch.ones_like(dd))
+        doy = (days - jan1 + 1).to(torch.int64)
+        if name == "day_of_year":
+            return doy, v
+        # ISO 8601 week number
+        dow = torch.remainder(days + 3, 7) + 1  # Monday=1
+        w = _floordiv(doy - dow + 10, 7)
+        # w == 0: the previous year's last week (52 or 53)
+        prev_y = y - 1
+        prev_len = torch.where(_is_leap(prev_y), 366, 365)
+        prev_jan1_dow = torch.remainder(jan1 - prev_len + 3, 7) + 1
+        prev_has53 = (prev_jan1_dow == 4) | (_is_leap(prev_y) & (prev_jan1_dow == 3))
+        w0 = torch.where(prev_has53, 53, 52)
+        # w == 53: only when this year has 53 ISO weeks
+        jan1_dow = torch.remainder(jan1 + 3, 7) + 1
+        has53 = (jan1_dow == 4) | (_is_leap(y) & (jan1_dow == 3))
+        w = torch.where(w == 0, w0, w)
+        w = torch.where((w == 53) & ~has53, 1, w)
+        return w.to(torch.int64), v
+
+    def _date_trunc(self, expr: Call) -> Pair:
+        unit_e = expr.args[0]
+        if not isinstance(unit_e, Constant):
+            raise _not_ported("date_trunc with a non-literal unit")
+        unit = str(unit_e.value).lower()
+        d, v = self._eval(expr.args[1])
+        if isinstance(expr.args[1].type, T.TimestampType):
+            us_per = {"second": 10**6, "minute": 60 * 10**6,
+                      "hour": 3600 * 10**6, "day": _US_PER_DAY}
+            if unit in us_per:
+                p = us_per[unit]
+                return _floordiv(d, p) * p, v
+            days = _floordiv(d, _US_PER_DAY).to(torch.int32)
+            return _trunc_days(days, unit).to(torch.int64) * _US_PER_DAY, v
+        days = d.to(torch.int32)
+        if unit == "day":
+            return days, v
+        return _trunc_days(days, unit), v
+
+    def _round(self, expr: Call) -> Pair:
+        d, v = self._eval(expr.args[0])
+        st = expr.args[0].type
+        nd = 0
+        if len(expr.args) > 1:
+            if not isinstance(expr.args[1], Constant):
+                raise _not_ported("round to a non-literal number of digits")
+            nd = int(expr.args[1].value)
+        if isinstance(st, T.DecimalType):
+            if nd >= st.scale:
+                return d, v
+            scaled = _rescale(d.to(torch.int64), st.scale, nd)
+            return _rescale(scaled, nd, st.scale), v
+        if nd == 0:
+            return _round_half_up(d), v
+        f = 10.0**nd
+        return _round_half_up(d * f) / f, v
+
+    # -- strings (dictionary first) -----------------------------------------
+    def _gather(self, table: torch.Tensor, codes) -> torch.Tensor:
+        """table[code] per row; a NULL code (-1) reads entry 0."""
+        return table[codes.clamp(min=0).long()]
+
+    def _pool_for_arg(self, expr: Call):
+        """(codes, valid, dictionary) of a call's first argument: a
+        dictionary-coded column, or a literal as a one-value dictionary."""
+        col_e = expr.args[0]
+        if isinstance(col_e, Constant):
+            pool = Dictionary([col_e.value if col_e.value is not None else ""])
+            d = torch.zeros(self.n, dtype=torch.int32, device=self.device)
+            v = torch.full((self.n,), col_e.value is not None, device=self.device)
+            return d, v, pool
+        d, v = self._eval(col_e)
+        pool = self._arg_dictionary(col_e)
+        if pool is None:
+            raise ValueError(f"{expr.name} on a string column without a dictionary")
+        return d, v, pool
+
+    def _pool_length_table(self, entries, d, v) -> Pair:
+        table = self._table([len(e) for e in entries] + [0], torch.int64)
+        return self._gather(table, d), v
+
+    def _string_table(self, expr: Call) -> Pair:
+        """String -> numeric scalar through a per-code lookup table
+        computed on the host, one gather on the device."""
+        d, v, dictionary = self._pool_for_arg(expr)
+        name = expr.name
+        values = dictionary.values
+        if name == "length":
+            return self._pool_length_table(values, d, v)
+        if name == "codepoint":
+            table = [ord(s[0]) if s else 0 for s in values] + [0]
+        elif name == "regexp_like":
+            pat_e = expr.args[1]
+            if not isinstance(pat_e, Constant) or pat_e.value is None:
+                raise _not_ported("a regexp pattern that is not a literal")
+            rx = re.compile(str(pat_e.value))
+            table = [rx.search(s) is not None for s in values] + [False]
+        else:
+            lit_e = expr.args[1]
+            if not isinstance(lit_e, Constant) or lit_e.value is None:
+                raise _not_ported(f"a {name} argument that is not a literal")
+            lit = str(lit_e.value)
+            if name == "strpos":
+                table = [s.find(lit) + 1 for s in values] + [0]
+            else:  # starts_with
+                table = [s.startswith(lit) for s in values] + [False]
+        if isinstance(table[-1], bool):
+            t = self._table(table, torch.bool)
+            return self._gather(t, d) & (d >= 0), v
+        return self._gather(self._table(table, torch.int64), d), v
+
+    def _like(self, expr: Call) -> Pair:
+        col_e, pat_e = expr.args
+        if not isinstance(pat_e, Constant):
+            raise _not_ported("a LIKE pattern that is not a literal")
+        dictionary = self._arg_dictionary(col_e)
+        if dictionary is None:
+            raise ValueError("LIKE on a string column without a dictionary")
+        d, v = self._eval(col_e)
+        regex = _like_to_regex(pat_e.value)
+        table = self._table(
+            [regex.fullmatch(s) is not None for s in dictionary.values] + [False],
+            torch.bool,
+        )
+        return self._gather(table, d) & (d >= 0), v
+
+    def _string_compare(self, expr: Call) -> Pair:
+        a_e, b_e = expr.args
+        # column vs literal: the literal through the column's dictionary
+        col_e, lit_e, flipped = a_e, b_e, False
+        if isinstance(a_e, Constant):
+            col_e, lit_e, flipped = b_e, a_e, True
+        d, v = self._eval(col_e)
+        dictionary = self._arg_dictionary(col_e)
+        name = expr.name
+        if isinstance(lit_e, Constant):
+            if dictionary is None:
+                raise ValueError("string column without a dictionary")
+            lit = lit_e.value
+            if flipped:
+                name = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}.get(name, name)
+            if name in ("eq", "ne"):
+                code = dictionary.encode(lit)
+                if code < 0:  # absent: never equal
+                    res = torch.full_like(v, name == "ne")
+                else:
+                    res = (d == code) if name == "eq" else (d != code)
+                return res, v
+            # ordered compare: a per-code truth table
+            py_op = {"lt": lambda x: x < lit, "le": lambda x: x <= lit,
+                     "gt": lambda x: x > lit, "ge": lambda x: x >= lit}[name]
+            table = self._table(
+                [bool(py_op(s)) for s in dictionary.values] + [False], torch.bool
+            )
+            return self._gather(table, d) & (d >= 0), v
+        # column vs column
+        o_e = a_e if flipped else b_e
+        od, ov = self._eval(o_e)
+        d2 = self._arg_dictionary(o_e)
+        valid = v & ov
+        if dictionary is None or d2 is None:
+            raise _not_ported("a string comparison without dictionaries")
+        if dictionary is d2:
+            if name in ("eq", "ne"):
+                return _cmp_op(name, d, od), valid
+            ranks = as_tensor(dictionary.ranks(), self.device)
+            return _cmp_op(name, self._gather(ranks, d), self._gather(ranks, od)), valid
+        if name in ("eq", "ne"):
+            # this column's codes remapped into the other's code space; a
+            # NULL code reads the -2 sentinel, which equals no code
+            remap = self._table(
+                [d2.encode(s) for s in dictionary.values] + [-2], torch.int64
+            )
+            idx = torch.where(d >= 0, d.long(), len(dictionary.values))
+            return _cmp_op(name, remap[idx], od.to(torch.int64)), valid
+        # ordered: through the merged dictionary's rank space
+        md, remap_b = d2.merged(dictionary)
+        mranks = md.ranks()
+        rb = as_tensor(np.append(mranks[: len(d2.values)], 0), self.device)
+        ra = as_tensor(np.append(mranks[remap_b], 0), self.device)
+        return _cmp_op(name, self._gather(ra, d), self._gather(rb, od)), valid
 
     def _arith(self, expr: Call) -> Pair:
         a_t, b_t = expr.args[0].type, expr.args[1].type
@@ -391,6 +672,8 @@ class ExprCompiler:
     def _compare(self, expr: Call) -> Pair:
         a_e, b_e = expr.args
         a_t, b_t = a_e.type, b_e.type
+        if T.is_string(a_t) or T.is_string(b_t):
+            return self._string_compare(expr)
         ok_t = (T.DecimalType, T.DateType, T.TimestampType)
         if not all(_numeric(x) or isinstance(x, ok_t) for x in (a_t, b_t)):
             raise _not_ported(f"comparison of {a_t.name} with {b_t.name}")
@@ -535,3 +818,78 @@ def _kleene_or(a: Pair, b: Pair) -> Pair:
     value = av | bv
     valid = (a[1] & b[1]) | (a[1] & a[0]) | (b[1] & b[0])
     return value, valid
+
+
+def _civil_from_days(days: torch.Tensor):
+    """days since 1970-01-01 -> (year, month, day), Hinnant's algorithm in
+    int32 (the vector form of ``civil.civil_from_days``)."""
+    z = days + 719468
+    era = _floordiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _floordiv(
+        doe - _floordiv(doe, 1460) + _floordiv(doe, 36524) - _floordiv(doe, 146096),
+        365,
+    )
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floordiv(yoe, 4) - _floordiv(yoe, 100))
+    mp = _floordiv(5 * doy + 2, 153)
+    d = doy - _floordiv(153 * mp + 2, 5) + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(y.dtype)
+    return y, m, d
+
+
+def _is_leap(y: torch.Tensor) -> torch.Tensor:
+    return ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
+
+
+def _days_in_month_vec(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    lengths = torch.tensor(
+        [31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
+        dtype=torch.int32, device=m.device,
+    )
+    base = lengths[(m - 1).long()]
+    return torch.where((m == 2) & _is_leap(y), 29, base)
+
+
+def _days_from_civil_vec(y, m, d) -> torch.Tensor:
+    """Inverse of :func:`_civil_from_days` (Hinnant), elementwise."""
+    y = y - (m <= 2).to(y.dtype)
+    era = _floordiv(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    doy = _floordiv(153 * (m + torch.where(m > 2, -3, 9)) + 2, 5) + d - 1
+    doe = yoe * 365 + _floordiv(yoe, 4) - _floordiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _trunc_days(days: torch.Tensor, unit: str) -> torch.Tensor:
+    y, m, dd = _civil_from_days(days)
+    if unit == "year":
+        m = torch.ones_like(m)
+        dd = torch.ones_like(dd)
+    elif unit == "quarter":
+        m = _floordiv(m - 1, 3) * 3 + 1
+        dd = torch.ones_like(dd)
+    elif unit == "month":
+        dd = torch.ones_like(dd)
+    elif unit == "week":
+        # ISO: back to Monday (1970-01-01 was a Thursday)
+        return days - torch.remainder(days + 3, 7)
+    else:
+        raise _not_ported(f"date_trunc unit {unit!r}")
+    return _days_from_civil_vec(y, m, dd)
+
+
+def _like_to_regex(pattern: str) -> re.Pattern:
+    """SQL LIKE -> a Python regex (``%`` any run, ``_`` one character).
+    The reference's analyzer drops a LIKE's ESCAPE clause, and so does the
+    port's copy; parity keeps that."""
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("".join(out), re.DOTALL)

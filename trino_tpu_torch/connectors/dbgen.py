@@ -588,16 +588,35 @@ def textpool_python(size: int, blob: bytes, seed: int) -> np.ndarray:
     return np.frombuffer(bytes(out[:size]), dtype=np.uint8)
 
 
+_POOL: np.ndarray | None = None
+
+
 def text_pool() -> np.ndarray:
-    """The 300MB comment text pool. It is built by the native loader,
-    which is not ported yet (the reference memory-maps a disk-cached copy
-    built by ``trino_tpu.native``); the pure-Python version
-    (:func:`textpool_python`) takes minutes, so it is never used as a
-    stand-in. Every comment column raises until the loader lands."""
-    raise NotImplementedError(
-        "TPC-H comment columns need the 300 MB text pool, which waits for "
-        "the native loader (ROADMAP Queue 1 item 4)"
-    )
+    """The 300MB comment text pool, built once by the port's native loader
+    (``trino_tpu_torch/native.py``) and memory-mapped from
+    ``.kernel_build/tpch_pool_<digest>.bin``, written atomically (a
+    temporary file, then ``os.replace``) as the reference does with its
+    disk cache."""
+    global _POOL
+    if _POOL is not None:
+        return _POOL
+    import hashlib
+    import os
+
+    from trino_tpu_torch import native
+
+    blob = dists_blob()
+    digest = hashlib.sha256(blob).hexdigest()[:12]
+    build_dir = native.BUILD_DIR.parent
+    build_dir.mkdir(parents=True, exist_ok=True)
+    path = build_dir / f"tpch_pool_{digest}.bin"
+    if not path.exists():
+        pool = native.tpch_textpool(TEXT_POOL_SIZE, blob, S_TEXT_POOL)
+        tmp = path.with_name(path.name + f".tmp{os.getpid()}")
+        pool.tofile(tmp)
+        os.replace(tmp, path)
+    _POOL = np.memmap(path, dtype=np.uint8, mode="r")
+    return _POOL
 
 
 def text_column(stream: Stream, row0: int, n_rows: int, avg_len: int,

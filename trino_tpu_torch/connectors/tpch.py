@@ -6,14 +6,16 @@ involved. Counterpart of ``trino_tpu/connectors/tpch.py`` over the port's
 own copy of the numpy generator (``connectors/dbgen.py``): the same
 schemas, statistics, splits and values, as host batches of CPU tensors.
 
-Left out here: the disk cache of generated splits (the ingest tier,
-ROADMAP Queue 1 item 7). Comment columns raise until the native loader
-builds their text pool (``dbgen.text_pool``).
+Comment columns slice the text pool that the port's native loader builds
+(``dbgen.text_pool``). Left out here: the disk cache of generated splits
+(the ingest tier, ROADMAP Queue 1 item 7).
 
 Schemas: tiny (SF 0.01), sf1, sf10, sf100 (and sf<k> parsed generically).
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 
@@ -143,8 +145,10 @@ class TpchConnector(Connector):
         self.split_rows = split_rows
         self._dict_cache: dict[str, Dictionary] = {}
         # generated splits are deterministic: cache them so repeated
-        # queries measure the engine, not the generator
-        self._batch_cache: dict[tuple, Batch] = {}
+        # queries measure the engine, not the generator. Least recently
+        # read entries go first, so a workload whose column sets outgrow
+        # the limit keeps the splits its current queries read
+        self._batch_cache: OrderedDict[tuple, Batch] = OrderedDict()
         self._batch_cache_bytes = 0
         self._batch_cache_limit = cache_bytes
         # staged device columns, one per (schema, table, column, device):
@@ -354,6 +358,7 @@ class TpchConnector(Connector):
         key = (schema, table, tuple(columns), split.index, split.total)
         hit = self._batch_cache.get(key)
         if hit is not None:
+            self._batch_cache.move_to_end(key)
             return hit
         sf = scale_factor(schema)
         gen = getattr(self, f"_gen_{table}")
@@ -361,7 +366,10 @@ class TpchConnector(Connector):
         out = [cols[c] for c in columns]
         batch = Batch(out, out[0].data.shape[0] if out else 0)
         nbytes = _nbytes(batch)
-        if self._batch_cache_bytes + nbytes <= self._batch_cache_limit:
+        if nbytes <= self._batch_cache_limit:
+            while self._batch_cache_bytes + nbytes > self._batch_cache_limit:
+                _, old = self._batch_cache.popitem(last=False)
+                self._batch_cache_bytes -= _nbytes(old)
             self._batch_cache[key] = batch
             self._batch_cache_bytes += nbytes
         return batch

@@ -17,6 +17,10 @@ K2) or the sort tier, with fixed output capacities. Every capacity site
 reports an overflow flag; the fragment reads all its flags in one host
 read, grows each fired site (``_Caps``) and runs again, at most 12 times.
 
+Joins the reference's fused path does not trace run the local executor's
+version inside the fragment: CROSS joins other than a scalar subquery, and
+LEFT joins with a non-equi ON filter (both through the sort tier).
+
 Not ported yet: fused multi-fragment programs, cross-query program
 caching and batching, the history store, skew handling, streaming joins
 on the probe spine (``_prebuild``), and operator counters.
@@ -31,10 +35,12 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import Batch, Column, bucket_capacity
 from trino_tpu_torch.exec.local import (
+    SCALAR_ROWS_ERROR,
     ExecutionError,
     LocalExecutor,
     Result,
     agg_inputs_for,
+    bound_filter_mask,
     check_join_ported,
     flipped_right_join,
     join_output,
@@ -85,6 +91,27 @@ def grow_or_raise(name: str, caps: "_Caps") -> None:
     if name.startswith("err!"):
         raise ExecutionError(name[4:])
     caps.grow(name, 4 if name.startswith(("agg", "spill", "hot")) else 2)
+
+
+def dup_key_rows(keys, sel) -> torch.Tensor:
+    """Per row: its full key appears on more than one selected row
+    (reference: ``trino_tpu/exec/fragments.py::_dup_key_rows``). One
+    grouping sort puts equal keys side by side; a row equal to a sorted
+    neighbour is a duplicate; one scatter restores row order."""
+    from trino_tpu_torch.ops import keypack as KP
+
+    n = sel.shape[0]
+    s_lanes, perm, s_sel = KP.grouping_sort(keys, sel)
+    same_prev = torch.zeros(n, dtype=torch.bool, device=sel.device)
+    same_prev[1:] = True
+    for lane in s_lanes:
+        same_prev[1:] &= lane[1:] == lane[:-1]
+    same_prev &= s_sel
+    same_next = torch.zeros_like(same_prev)
+    same_next[:-1] = same_prev[1:]
+    out = torch.zeros_like(same_prev)
+    out[perm] = (same_prev | same_next) & s_sel
+    return out
 
 
 class _Caps:
@@ -297,6 +324,13 @@ class _FragmentTracer(LocalExecutor):
             self._ordinals[id(flipped)] = self._ordinals.get(id(node), 0)
             return self._exec_join(flipped)
         check_join_ported(node)
+        if node.join_type == "CROSS":
+            if node.single_row:
+                return self._exec_scalar_cross_traced(node)
+            return self._exec_cross_join(node)
+        if node.join_type == "LEFT" and node.filter is not None:
+            # the reference interprets such a join (the sort tier)
+            return LocalExecutor._exec_join(self, node)
         right = self._exec(node.right)
         left = self._exec(node.left)
         lkeys, rkeys = self._join_keys(left, right, node.criteria)
@@ -309,6 +343,13 @@ class _FragmentTracer(LocalExecutor):
         for s in node.right.output_symbols:
             c = right.column(s)
             build_cols += [c.data, c.valid_mask()]
+        if node.single_row:
+            # a correlated scalar subquery: a build key group of more than
+            # one row that a probe row joins is an error. The duplicate
+            # flag rides along as a synthetic build column, so duplicate
+            # groups no probe row joins do not fire.
+            dup = dup_key_rows(rkeys, right.batch.selection_mask())
+            build_cols += [dup, torch.ones_like(dup)]
         for kd, kv in lkeys:
             probe_keys += [kd, kv]
         for kd, kv in rkeys:
@@ -340,16 +381,48 @@ class _FragmentTracer(LocalExecutor):
             # graceful overflow: the rerun doubles the table and re-hashes
             self.overflows.append((dense_site, table_ovf))
         self.overflows.append((join_site, ovf))
+        if node.single_row:
+            dup_hit = out_cols[-2] & out_cols[-1] & out_sel
+            self.overflows.append((f"err!{SCALAR_ROWS_ERROR}", dup_hit.any()))
         result = join_output(node, left, right, out_cols, cap, out_sel)
-        if node.filter is not None:  # INNER only (check_join_ported)
-            from trino_tpu_torch.compiler import ExprCompiler
-
+        if node.filter is not None:  # INNER only: LEFT took the local path
             expr = self._bind(node.filter, result.layout)
-            mask = ExprCompiler(result.batch.columns, device=self.device).predicate_mask(expr)
+            mask = bound_filter_mask(expr, result.batch.columns, self.device)
             result = Result(
                 Batch(result.batch.columns, cap, mask & out_sel), result.layout
             )
         return result
+
+    def _exec_scalar_cross_traced(self, node: P.Join) -> Result:
+        """An uncorrelated scalar subquery (single-row CROSS): the one
+        selected build row broadcasts into every probe row; no row gives
+        NULLs, more than one fails the query through the ``err!`` flag
+        channel (reference: ``EnforceSingleRowNode``)."""
+        right = self._nonempty(self._exec(node.right))
+        left = self._exec(node.left)
+        rsel = right.batch.selection_mask()
+        cnt = rsel.sum()
+        self.overflows.append((f"err!{SCALAR_ROWS_ERROR}", cnt > 1))
+        pick = torch.argmax(rsel.to(torch.uint8))  # the first selected row
+        has_row = cnt >= 1
+        cap = left.batch.capacity
+        cols = [left.column(s) for s in node.left.output_symbols]
+        for s in node.right.output_symbols:
+            c = right.column(s)
+            val = c.data[pick]
+            data = val.expand((cap,) + tuple(val.shape)).contiguous()
+            valid = (c.valid_mask()[pick] & has_row).expand(cap).contiguous()
+            cols.append(Column(s.type, data, valid, c.dictionary))
+        layout = {
+            s.name: i
+            for i, s in enumerate(
+                list(node.left.output_symbols) + list(node.right.output_symbols)
+            )
+        }
+        return Result(
+            Batch(cols, left.batch.num_rows, left.batch.sel, left.batch.device),
+            layout,
+        )
 
     def _exec_semi_join_traced(self, node: P.Join) -> Result:
         """SEMI/ANTI as a membership mark: probe rows carry only their row

@@ -6,13 +6,17 @@ evaluated to a :class:`Batch` on the executor's device plus a symbol
 layout; operator-at-a-time, eagerly.
 
 The subset of ``trino_tpu/exec/local.py`` this engine runs today:
-TableScan, Filter, Project, Aggregate (single, partial and final steps),
-Join (INNER, LEFT, RIGHT as a flipped LEFT, SEMI and ANTI, through the
-sort tier of ``ops/join.py``, with dynamic filtering), Sort, TopN, Limit
-and Output, wide (n, 2) DECIMAL columns included. Any other plan node
-raises :class:`ExecutionError` naming it; so do FULL and CROSS joins,
-scalar-subquery joins, LEFT joins with an ON filter, the spill join, and
-join keys that are DECIMAL(38) or floating point. Gathers stay on the
+TableScan, Filter, Project (string-valued expressions over a unified
+dictionary), Aggregate (single, partial and final steps; DISTINCT
+aggregates), Join (INNER, LEFT with or without a non-equi ON
+filter, RIGHT as a flipped LEFT, SEMI and ANTI through the sort tier of
+``ops/join.py``, with dynamic filtering; scalar-subquery joins, CROSS
+joins; DECIMAL(38) keys), Sort, TopN, Limit
+and Output, wide (n, 2) DECIMAL columns included. String->string
+functions are lowered onto dictionary-transformed columns first
+(``strings.py``). Any other plan node raises :class:`ExecutionError`
+naming it; so do FULL joins, FILTER aggregates, floating-point join keys
+and the spill join. Gathers stay on the
 executor's device.
 """
 
@@ -26,6 +30,8 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import (
     Batch,
     Column,
+    Dictionary,
+    as_tensor,
     bucket_capacity,
     concat_batches,
     torch_dtype,
@@ -33,15 +39,19 @@ from trino_tpu_torch.columnar import (
 from trino_tpu_torch.compiler import ExprCompiler
 from trino_tpu_torch.config import Session
 from trino_tpu_torch.connectors.api import CatalogManager
-from trino_tpu_torch.ir import InputRef, RowExpr, bind_variables
+from trino_tpu_torch.ir import Call, Constant, InputRef, RowExpr, SpecialForm, bind_variables
 from trino_tpu_torch.ops import join as J
 from trino_tpu_torch.ops.aggregation import (
     AggSpec,
+    distinct_first_mask,
     global_aggregate,
     group_aggregate,
 )
 from trino_tpu_torch.ops.sort import sort_indices
 from trino_tpu_torch.planner import plan as P
+from trino_tpu_torch.strings import lower_string_calls
+
+SCALAR_ROWS_ERROR = "Scalar sub-query has returned multiple rows"
 
 
 class ExecutionError(Exception):
@@ -96,24 +106,31 @@ class Result:
 
 def agg_inputs_for(node: P.Aggregate, res: Result):
     """Per aggregate: its (data, valid-or-None) input (None for count(*))
-    and its accumulation spec. DISTINCT, FILTER and string min/max are not
-    ported yet."""
+    and its accumulation spec. A DISTINCT count/sum/avg keeps the first
+    row of each (group keys, value) combination only. FILTER clauses and
+    string min/max are not ported yet."""
     agg_inputs, specs = [], []
     for _, fn in node.aggregates:
-        if fn.distinct or fn.filter is not None:
+        if fn.filter is not None:
             raise ExecutionError(
-                "DISTINCT / FILTER aggregates are not yet ported to trino_tpu_torch"
+                "FILTER aggregates are not yet ported to trino_tpu_torch"
             )
         if fn.kind == "count_star":
             agg_inputs.append(None)
             specs.append(AggSpec("count_star"))
             continue
         c = res.column(P.Symbol(fn.argument.name, fn.argument.type))
-        if c.dictionary is not None:
+        if c.dictionary is not None and fn.kind != "count":
             raise ExecutionError(
                 f"{fn.kind} over VARCHAR is not yet ported to trino_tpu_torch"
             )
-        agg_inputs.append((c.data, c.valid))
+        valid = c.valid
+        if fn.distinct and fn.kind in ("count", "sum", "avg"):
+            sel = res.batch.selection_mask()
+            vmask = c.valid_mask()
+            keys = [res.pair(k) for k in node.group_keys]
+            valid = vmask & distinct_first_mask(keys, (c.data, vmask), sel & vmask)
+        agg_inputs.append((c.data, valid))
         specs.append(sum_spec_for(fn, c.data))
     return agg_inputs, specs
 
@@ -172,14 +189,51 @@ def _not_ported(what: str) -> ExecutionError:
 
 def check_join_ported(node: P.Join) -> None:
     """Raise for the join shapes this engine does not run yet."""
-    if node.join_type not in ("INNER", "LEFT"):
+    if node.join_type not in ("INNER", "LEFT", "CROSS"):
         raise _not_ported(f"{node.join_type} JOIN")
-    if not node.criteria:
+    if node.join_type != "CROSS" and not node.criteria:
         raise _not_ported("a join without equality criteria")
-    if node.single_row:
-        raise _not_ported("a scalar-subquery join")
-    if node.join_type == "LEFT" and node.filter is not None:
-        raise _not_ported("a LEFT JOIN with a non-equi ON filter")
+
+
+def bound_filter_mask(expr: RowExpr, columns: list[Column], device) -> torch.Tensor:
+    """A bound predicate's mask over ``columns``, string calls lowered
+    first (the lowering appends columns to a copy)."""
+    work = list(columns)
+    expr = lower_string_calls(expr, work)
+    return ExprCompiler(work, device=device).predicate_mask(expr)
+
+
+def unify_strings(expr: RowExpr, columns: list[Column]):
+    """A unified dictionary over every string column and literal that
+    ``expr`` references: returns (the columns with those string columns
+    remapped into it, the dictionary). Reference:
+    ``trino_tpu/exec/local.py::_unify_strings``."""
+    channels: list[int] = []
+    literals: list[str] = []
+
+    def walk(e: RowExpr):
+        if isinstance(e, InputRef) and T.is_string(e.type):
+            channels.append(e.channel)
+        elif isinstance(e, Constant) and T.is_string(e.type) and e.value is not None:
+            literals.append(str(e.value))
+        elif isinstance(e, (Call, SpecialForm)):
+            for a in e.args:
+                walk(a)
+
+    walk(expr)
+    union = Dictionary([])
+    remaps = {}
+    for ch in dict.fromkeys(channels):
+        union, remaps[ch] = union.merged(columns[ch].dictionary or Dictionary([]))
+    if literals:
+        union, _ = union.merged(Dictionary(list(dict.fromkeys(literals))))
+    new_cols = list(columns)
+    for ch, remap in remaps.items():
+        c = new_cols[ch]
+        r = as_tensor(remap, c.data.device)
+        codes = torch.where(c.data >= 0, r[c.data.clamp(min=0).long()], -1)
+        new_cols[ch] = Column(c.type, codes.to(torch.int32), c.valid, union)
+    return new_cols, union
 
 
 def flipped_right_join(node: P.Join) -> P.Join:
@@ -316,7 +370,7 @@ class LocalExecutor:
     def _exec_filter(self, node: P.Filter) -> Result:
         res = self._exec(node.source)
         expr = self._bind(node.predicate, res.layout)
-        mask = ExprCompiler(res.batch.columns, device=self.device).predicate_mask(expr)
+        mask = bound_filter_mask(expr, res.batch.columns, self.device)
         sel = mask if res.batch.sel is None else (mask & res.batch.sel)
         return Result(
             Batch(res.batch.columns, res.batch.num_rows, sel, res.batch.device),
@@ -327,18 +381,37 @@ class LocalExecutor:
         res = self._exec(node.source)
         work_cols = list(res.batch.columns)
         cols: list[Column] = []
+        n = res.batch.capacity
         for sym, expr in node.assignments:
-            bound = self._bind(expr, res.layout)
+            bound = lower_string_calls(self._bind(expr, res.layout), work_cols)
             if isinstance(bound, InputRef):
                 cols.append(work_cols[bound.channel])
                 continue
-            if T.is_string(sym.type) or isinstance(
-                sym.type, (T.ArrayType, T.MapType, T.RowType)
-            ):
+            if isinstance(sym.type, (T.ArrayType, T.MapType, T.RowType)):
                 raise ExecutionError(
                     f"computed {sym.type.name} expressions are not yet "
                     "ported to trino_tpu_torch"
                 )
+            if T.is_string(sym.type):
+                if isinstance(bound, Constant):
+                    if bound.value is None:
+                        codes = torch.full((n,), -1, dtype=torch.int32, device=self.device)
+                        valid = torch.zeros(n, dtype=torch.bool, device=self.device)
+                        cols.append(Column(sym.type, codes, valid, Dictionary([])))
+                    else:
+                        codes = torch.zeros(n, dtype=torch.int32, device=self.device)
+                        cols.append(
+                            Column(sym.type, codes, None, Dictionary([str(bound.value)]))
+                        )
+                    continue
+                # a string-valued expression (CASE, COALESCE, ...): codes in
+                # a dictionary unified over what it references
+                new_cols, union = unify_strings(bound, work_cols)
+                data, valid = ExprCompiler(
+                    new_cols, device=self.device, string_dictionary=union
+                ).evaluate(bound)
+                cols.append(Column(sym.type, data.to(torch.int32), valid, union))
+                continue
             data, valid = ExprCompiler(work_cols, device=self.device).evaluate(bound)
             cols.append(
                 Column(sym.type, data.to(torch_dtype(sym.type.storage_dtype)), valid)
@@ -389,6 +462,8 @@ class LocalExecutor:
         if node.join_type == "RIGHT":
             return self._exec_join(flipped_right_join(node))
         check_join_ported(node)
+        if node.join_type == "CROSS":
+            return self._exec_cross_join(node)
         right = self._exec(node.right)  # build first: enables dynamic filter
         left = self._exec(self._apply_dynamic_filters(node, right))  # probe
         if (
@@ -454,6 +529,12 @@ class LocalExecutor:
         )
         is_outer = bpos == J.MISSING
         pidx = ppos.long()
+        if node.single_row:
+            # a scalar subquery: each probe row may match one row at most
+            # (reference: EnforceSingleRowNode)
+            hits = torch.bincount(pidx[osel & ~is_outer], minlength=1)
+            if int(hits.max()) > 1:
+                raise ExecutionError(SCALAR_ROWS_ERROR)
         bidx = torch.where(is_outer, 0, bpos).long()
         out_cols = []
         for s in node.left.output_symbols:
@@ -463,30 +544,82 @@ class LocalExecutor:
             c = right.column(s)
             out_cols += [c.data[bidx], c.valid_mask()[bidx] & ~is_outer]
         out = join_output(node, left, right, out_cols, out_capacity, osel)
-        if node.filter is not None:  # INNER only (check_join_ported)
-            expr = self._bind(node.filter, out.layout)
-            mask = ExprCompiler(out.batch.columns, device=self.device).predicate_mask(expr)
-            out = Result(
+        if node.filter is None:
+            return out
+        expr = self._bind(node.filter, out.layout)
+        mask = bound_filter_mask(expr, out.batch.columns, self.device)
+        if node.join_type != "LEFT":
+            return Result(
                 Batch(out.batch.columns, out_capacity, mask & osel), out.layout
             )
-        return out
+        return self._left_filtered(node, left, out, mask, osel, is_outer, pidx)
+
+    def _left_filtered(self, node, left, out, mask, osel, is_outer, pidx) -> Result:
+        """A LEFT JOIN's ON filter applies to the matches, not to the
+        probe rows: a probe row whose matches all fail it appears once,
+        null-extended (the probe padded only rows with no raw match)."""
+        sel = mask & osel
+        keep = sel | (osel & is_outer)
+        probe_n = left.batch.capacity
+        raw = torch.zeros(probe_n + 1, dtype=torch.bool, device=mask.device)
+        raw[torch.where(osel & ~is_outer, pidx, probe_n)] = True
+        kept = torch.zeros(probe_n + 1, dtype=torch.bool, device=mask.device)
+        kept[torch.where(sel & ~is_outer, pidx, probe_n)] = True
+        need_outer = torch.nonzero(raw[:probe_n] & ~kept[:probe_n]).reshape(-1)
+        cols = out.batch.columns
+        if need_outer.numel():
+            n_left = len(node.left.output_symbols)
+            grown = []
+            for j, c in enumerate(cols):
+                if j < n_left:  # probe columns: the rows themselves
+                    lc = left.column(node.left.output_symbols[j])
+                    add, addv = lc.data[need_outer], lc.valid_mask()[need_outer]
+                else:  # build columns: NULL
+                    add = c.data.new_zeros((need_outer.numel(),) + tuple(c.data.shape[1:]))
+                    addv = torch.zeros(need_outer.numel(), dtype=torch.bool, device=c.data.device)
+                grown.append(Column(
+                    c.type, torch.cat([c.data, add]),
+                    torch.cat([c.valid_mask(), addv]), c.dictionary,
+                ))
+            cols = grown
+            keep = torch.cat([keep, torch.ones_like(need_outer, dtype=torch.bool)])
+        return Result(Batch(cols, keep.shape[0], keep), out.layout)
 
     def _join_keys(self, left: Result, right: Result, criteria):
         """Per criterion, int64 (data, valid) key pairs for both sides:
         dictionary codes remapped to one dictionary, DECIMAL scales
-        aligned."""
+        aligned, DECIMAL(38) keys as two lanes (hi, lo)."""
+        from trino_tpu_torch.ops import decimal128 as D128
+
         lkeys, rkeys = [], []
         for ls, rs in criteria:
             lc = left.column(ls)
             rc = right.column(rs)
-            if lc.data.ndim == 2 or rc.data.ndim == 2:
-                raise _not_ported("a join on DECIMAL(38) keys")
             if isinstance(ls.type, (T.DoubleType, T.RealType)) or isinstance(
                 rs.type, (T.DoubleType, T.RealType)
             ):
                 raise _not_ported("a join on floating-point keys")
-            ld, lv = lc.data, lc.valid_mask()
-            rd, rv = rc.data, rc.valid_mask()
+            ls_scale = ls.type.scale if isinstance(ls.type, T.DecimalType) else 0
+            rs_scale = rs.type.scale if isinstance(rs.type, T.DecimalType) else 0
+            lv, rv = lc.valid_mask(), rc.valid_mask()
+            if lc.data.ndim == 2 or rc.data.ndim == 2:
+                sc = max(ls_scale, rs_scale)
+
+                def lanes(col, scale):
+                    if col.data.ndim == 2:
+                        hi, lo = col.data[:, 0], col.data[:, 1]
+                    else:
+                        hi, lo = D128.widen_i64(col.data.to(torch.int64))
+                    if sc > scale:
+                        hi, lo = D128.rescale_up_wide(hi, lo, sc - scale)
+                    return hi, lo
+
+                lhi, llo = lanes(lc, ls_scale)
+                rhi, rlo = lanes(rc, rs_scale)
+                lkeys += [(lhi, lv), (llo, lv)]
+                rkeys += [(rhi, rv), (rlo, rv)]
+                continue
+            ld, rd = lc.data, rc.data
             if lc.dictionary is not None or rc.dictionary is not None:
                 if lc.dictionary is not rc.dictionary:
                     _, remap = lc.dictionary.merged(rc.dictionary)
@@ -494,8 +627,6 @@ class LocalExecutor:
                     rd = torch.where(
                         rd >= 0, remap_t[torch.clamp(rd, min=0).long()], -1
                     )
-            ls_scale = ls.type.scale if isinstance(ls.type, T.DecimalType) else 0
-            rs_scale = rs.type.scale if isinstance(rs.type, T.DecimalType) else 0
             ld, rd = ld.to(torch.int64), rd.to(torch.int64)
             if ls_scale != rs_scale:
                 # align scales: equal values must compare equal
@@ -536,7 +667,7 @@ class LocalExecutor:
                     fcols.append(side.column(s).take(idx))
                     flayout[s.name] = len(fcols) - 1
             fexpr = self._bind(node.filter, flayout)
-            osel = osel & ExprCompiler(fcols, device=self.device).predicate_mask(fexpr)
+            osel = osel & bound_filter_mask(fexpr, fcols, self.device)
         matched = torch.zeros(cap + 1, dtype=torch.bool, device=osel.device)
         matched[torch.where(osel, pidx, cap)] = True
         _, bv = J.hash_keys(rkeys)
@@ -544,6 +675,49 @@ class LocalExecutor:
             node, left, matched[:cap], lkeys, bv, right.batch.selection_mask()
         )
         return with_mark(node, left, mark)
+
+    def _exec_cross_join(self, node: P.Join) -> Result:
+        """Every probe row with every build row. A scalar subquery
+        (``single_row``) raises on more than one build row and gives one
+        all-NULL row for none (reference: EnforceSingleRowNode)."""
+        left = self._exec(node.left)
+        right = self._exec(node.right)
+        lb = left.batch.compact().to(self.device)
+        rb = right.batch.compact().to(self.device)
+        nl, nr = lb.num_rows, rb.num_rows
+        if node.single_row and nr > 1:
+            raise ExecutionError(SCALAR_ROWS_ERROR)
+        if node.single_row and nr == 0:
+            rb = Batch(
+                [
+                    Column(
+                        c.type, c.data.new_zeros((1,) + tuple(c.data.shape[1:])),
+                        torch.zeros(1, dtype=torch.bool, device=self.device),
+                        c.dictionary,
+                    )
+                    for c in rb.columns
+                ],
+                1,
+            )
+            nr = 1
+        if nl * nr > (1 << 24):
+            raise ExecutionError("cross join too large")
+        li = torch.arange(nl, device=self.device).repeat_interleave(nr)
+        ri = torch.arange(nr, device=self.device).repeat(nl)
+        cols: list[Column] = []
+        layout: dict[str, int] = {}
+        for side_node, side, b, idx in (
+            (node.left, left, lb, li), (node.right, right, rb, ri)
+        ):
+            for s in side_node.output_symbols:
+                c = b.columns[side.layout[s.name]]
+                valid = c.valid_mask()[idx]
+                cols.append(Column(
+                    c.type, c.data[idx], None if bool(valid.all()) else valid,
+                    c.dictionary,
+                ))
+                layout[s.name] = len(cols) - 1
+        return Result(Batch(cols, nl * nr), layout)
 
     # === aggregation ===================================================
     def _exec_aggregate(self, node: P.Aggregate) -> Result:

@@ -216,6 +216,31 @@ def _lanes_at(data, idx):
     return tuple(data[:, j][idx] for j in range(data.shape[1]))
 
 
+def distinct_first_mask(
+    keys: Sequence[tuple[torch.Tensor, torch.Tensor | None]],
+    value: tuple[torch.Tensor, torch.Tensor | None],
+    sel: torch.Tensor,
+) -> torch.Tensor:
+    """Mask of the first occurrence of each (group keys..., value)
+    combination among the selected rows: the dedup pass behind DISTINCT
+    aggregates (reference: ``MarkDistinctOperator.java``; the counterpart
+    of ``trino_tpu/ops/aggregation.py::distinct_first_mask``). One grouping
+    sort; a row is first where any lane differs from the previous sorted
+    row; the mask goes back to row order by one scatter."""
+    from trino_tpu_torch.ops import keypack as KP
+
+    n = sel.shape[0]
+    s_lanes, perm, s_sel = KP.grouping_sort(list(keys) + [value], sel)
+    changed = torch.zeros(n, dtype=torch.bool, device=sel.device)
+    if n:
+        changed[0] = True
+    for lane in s_lanes:
+        changed[1:] |= lane[1:] != lane[:-1]
+    out = torch.zeros(n, dtype=torch.bool, device=sel.device)
+    out[perm] = changed & s_sel
+    return out
+
+
 def global_aggregate(
     sel: torch.Tensor,
     agg_inputs: Sequence[tuple[torch.Tensor, torch.Tensor | None] | None],
