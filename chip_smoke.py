@@ -26,12 +26,12 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
 4. sql: ``select k, sum(v), count(*) ... group by k`` (Q-A) and a filtered
    signed-sum/avg variant (Q-B) over a 2^25-row memory table through
    ``LocalQueryRunner(device="cuda")`` in distributed mode, once cold and
-   5 times warm; rows must equal a numpy oracle exactly, and the kernel's
+   3 times warm; rows must equal a numpy oracle exactly, and the kernel's
    launch count must rise on every query;
 5. join: TPC-H-shaped customer, orders and lineitem tables at SF10
    (:func:`tpch_tables`) in memory tables, and Q-J1 (TPC-H Q3), Q-J2 (a
    LEFT join) and Q-J3 (TPC-H Q4, an EXISTS semi join) through the same
-   runner in distributed mode, once cold and 5 times warm; rows must equal
+   runner in distributed mode, once cold and 3 times warm; rows must equal
    a numpy oracle exactly, and the join-build kernel's launch count must
    rise on every run of Q-J1 and Q-J2.
 
@@ -39,7 +39,7 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    generated by the port's tpch connector (the generate-and-stage seconds
    on a line of their own), and Q-D, a narrow-DECIMAL GROUP BY over a
    memory table of the first 2^25 generated lineitem rows, through the
-   same runner in distributed mode, once cold and 5 times warm. Q-T1 and
+   same runner in distributed mode, once cold and 3 times warm. Q-T1 and
    Q-T6 stream through the sort-based step (their slab of 15 x 2^22 rows
    is not a power of two, so the dense path declines); Q-D must launch the
    dense group-by kernel once a run with a ``pair128`` plan. Rows must
@@ -50,17 +50,32 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    native loader builds ``native/columnar.cpp`` and the comment text pool,
    the connector generates the eight tables and stages them on the card
    (seconds and staged bytes per table on a line), then each query runs
-   through the same runner in distributed mode once cold and 3 times
+   through the same runner in distributed mode once cold and twice
    warm. Rows and column types must equal the reference's answers
    committed in ``trino_tpu_torch/benchmarks/tpch_sf1_answers.json``
    exactly (rows whose ORDER BY keys tie compared as a multiset); a
    mismatch names the query and its first differing row. Each query's
    line gives its cold and warm times, K1 and K2 launches per run, join
-   strategies, overflow retries and peak device memory; the join-build
-   kernel must launch.
+   strategies, overflow retries and peak device memory (the peak counter
+   reset per query); the join-build kernel must launch. Q5's and Q6's
+   peaks are then attributed (phase ``peak``): each fragment's own peak
+   and the largest allocations alive at the query's peak, with the line
+   of the port that made them, from the allocator's history.
 
-Phases 4, 5, 6 and 7 each end with one warm run of each query (of the
-three slowest in phase 7) under ``torch.profiler`` (phase ``profile``);
+8. tpcds: all 64 TPC-DS queries of the port's corpus, spec text, over
+   ``tpcds.sf1`` from the port's tpcds connector: the 24 tables generated
+   and staged on the card (rows, bytes, generation and staging seconds
+   per table), then each query once cold and twice warm through the same
+   runner in distributed mode with ``join_strategy=auto``, its rows and
+   column types held against ``tpcds_sf1_answers.json`` exactly; then
+   Q64 and Q95 over ``tpcds.sf10`` (``BASELINE.json`` config 3), once cold
+   and once warm, against ``tpcds_sf10_answers.json`` the same way. Each query's line adds its
+   table-cache hits and misses per run. Every K2 build of these queries
+   is held against its plain version, the three slowest are profiled,
+   and the query with the largest peak is attributed.
+
+Phases 4, 5, 6, 7 and 8 each end with one warm run of each query (of the
+three slowest in phases 7 and 8) under ``torch.profiler`` (phase ``profile``);
 phases 5, 6 and 7 then time the layers of one more warm run of each join
 query, of Q-T1 and Q-T6, and of phase 7's three slowest, on the host
 clock (phase ``spans``).
@@ -68,6 +83,10 @@ The line before the last is a JSON
 object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
+
+``python3 chip_smoke.py --only tpch22,tpcds`` runs the device phase and
+the named phases alone (``tpch22``, ``tpcds``), for work on one of them;
+it prints no result lines.
 """
 
 from __future__ import annotations
@@ -84,7 +103,7 @@ import numpy as np
 ROWS = 1 << 25           # the bench.py headline's table size
 KEYS = 4096              # k in [0, 4096)
 VBITS = 20               # v in [0, 2^20)
-WARM = 5
+WARM = 3                 # warm runs a query in phases sql, join and tpch
 SF = 10                  # TPC-H scale factor of the join phase
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
@@ -616,6 +635,7 @@ def phase_join(tables, oracle):
     _kernels.reset_counts()
     for name, sql in JOIN_QUERIES.items():
         times, per_run = [], []
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(1 + WARM):
             before = _kernels.LAUNCHES["dense_join_build"]
             torch.cuda.synchronize()
@@ -840,7 +860,7 @@ def phase_tpch(smi: str) -> int:
     """TPC-H Q1 and Q6 at SF10 from the port's tpch connector, and Q-D
     (a narrow-DECIMAL GROUP BY over a 2^25-row memory table of the same
     rows) through ``LocalQueryRunner(device="cuda")`` in distributed mode,
-    once cold and 5 times warm, against exact integer oracles; returns
+    once cold and 3 times warm, against exact integer oracles; returns
     the dense group-by launches of this path's run (Q-D's)."""
     import torch
 
@@ -975,7 +995,85 @@ def tpch_spans(runner, queries, smi: str) -> None:
 
 
 TPCH22_SCHEMA = "sf1"     # the all-22 phase's scale factor
-TPCH22_WARM = 3
+TPCH22_WARM = 2
+TPCH22_PEAKS = (5, 6)     # queries whose peak device memory is attributed
+
+
+def peak_attribution(runner, sql: str, top: int = 8) -> dict:
+    """Where one more run of ``sql`` peaks in device memory: each
+    fragment's own peak (the peak counter reset as it starts), and the
+    largest allocations alive at the query's peak, each with the
+    innermost frame of the port that made it, from the caching
+    allocator's history (``torch.cuda.memory._record_memory_history``),
+    replayed event by event. Memory allocated before the run (cached
+    tables, staged columns) is the ``baseline``."""
+    import torch
+
+    from trino_tpu_torch.exec.fragments import FragmentedExecutor
+
+    real = FragmentedExecutor._run_fragment
+    frag_peaks = {}
+
+    def run(self, frag, results, names_holder):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(self, frag, results, names_holder)
+        torch.cuda.synchronize()
+        frag_peaks[frag.id] = torch.cuda.max_memory_allocated()
+        return out
+
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python", max_entries=2_000_000
+    )
+    FragmentedExecutor._run_fragment = run
+    try:
+        runner.engine.execute_statement(sql, runner.session)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        FragmentedExecutor._run_fragment = real
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = snap["device_traces"][torch.cuda.current_device()]
+
+    def replay(stop=None):
+        alive, total, best, best_i = {}, 0, 0, -1
+        for i, e in enumerate(events):
+            if e["action"] == "alloc":
+                alive[e["addr"]] = e
+                total += e["size"]
+            elif e["action"] == "free_completed" and e["addr"] in alive:
+                total -= alive.pop(e["addr"])["size"]
+            if total > best:
+                best, best_i = total, i
+            if i == stop:
+                return alive
+        return best, best_i
+
+    peak_run, at = replay()
+    alive = replay(stop=at) if at >= 0 else {}
+
+    def site(e):
+        for f in e.get("frames") or []:
+            if "trino_tpu_torch" in f.get("filename", ""):
+                name = f["filename"].split("trino_tpu_torch/")[-1]
+                return f"{name}:{f['line']} {f['name']}"
+        return "?"
+
+    largest = sorted(alive.values(), key=lambda e: e["size"], reverse=True)[:top]
+    by_site: dict[str, int] = {}
+    for e in alive.values():
+        by_site[site(e)] = by_site.get(site(e), 0) + e["size"]
+    return {
+        "baseline_bytes": baseline,
+        "peak_bytes": baseline + peak_run,
+        "fragment_peak_bytes": frag_peaks,
+        "peak_fragment": max(frag_peaks, key=frag_peaks.get) if frag_peaks else None,
+        "largest_alive": [{"bytes": e["size"], "site": site(e)} for e in largest],
+        "alive_bytes_by_site": dict(sorted(
+            by_site.items(), key=lambda kv: kv[1], reverse=True)[:top]),
+    }
 
 
 def k2_against_plain(runner, texts: dict) -> list:
@@ -1017,7 +1115,7 @@ def phase_tpch22(smi: str) -> tuple[dict, int]:
     connector through ``LocalQueryRunner(device="cuda")`` in distributed
     mode: the eight tables generated (comments from the text pool the
     port's native loader builds) and staged on the card first, then each
-    query once cold and 3 times warm, its rows and column types held
+    query once cold and twice warm, its rows and column types held
     against the reference's answers (``tpch_sf1_answers.json``) exactly,
     in ORDER BY order (rows whose ORDER BY keys tie as a multiset).
     Every K2 build of the queries that launch it is then held against
@@ -1129,6 +1227,182 @@ def phase_tpch22(smi: str) -> tuple[dict, int]:
     three = {f"Q{q}": texts[q] for q in slowest}
     phase_profile(runner, three, card=smi)
     phase_spans(runner, three)
+    for q in TPCH22_PEAKS:
+        log("peak", card=smi, query=f"Q{q}",
+            **peak_attribution(runner, texts[q]))
+    return launches, k2_err
+
+
+def run_against_answers(runner, texts: dict, answers: dict, warm: int,
+                        phase: str, smi: str):
+    """Each query of ``texts`` once cold and ``warm`` times warm, its rows
+    and column types held against ``answers`` (one line a query: times,
+    kernel launches, overflow retries and table-cache hits and misses
+    per run, join strategies, fragment modes, peak device memory with
+    the peak reset per query). Returns warm medians, K2 launches of the
+    last run, peaks and failures, by query."""
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch.benchmarks import tpch as B
+
+    failures, warm_ms, k2_runs, peaks = [], {}, {}, {}
+    for q, sql in texts.items():
+        want = answers["queries"][str(q)]
+        times, k1, k2, cache, retries = [], [], [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(1 + warm):
+            before = dict(_kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = runner.engine.execute_statement(sql, runner.session)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            k1.append(_kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"])
+            k2.append(_kernels.LAUNCHES["dense_join_build"] - before["dense_join_build"])
+            ing = res.ingest_stats or {}
+            cache.append([ing.get("table_cache_hits", 0),
+                          ing.get("table_cache_misses", 0)])
+            retries.append((res.exchange_stats or {}).get("overflow_retries"))
+            types = [t.name for t in res.column_types]
+            bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"],
+                                   want["order_by"])
+            if bad is None and types != want["types"]:
+                bad = f"column types {types} != {want['types']}"
+            if bad is not None:
+                failures.append(f"Q{q}: {bad}")
+                break
+        warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
+        k2_runs[q] = k2[-1]
+        peaks[q] = torch.cuda.max_memory_allocated()
+        stats = res.exchange_stats or {}
+        log(
+            phase, card=smi, query=f"Q{q}", rows=len(res.rows),
+            matches_reference=bad is None, cold_ms=times[0],
+            warm_median_ms=warm_ms[q], warm_ms=times[1:],
+            k1_launches_per_run=k1, k2_launches_per_run=k2,
+            overflow_retries_per_run=retries,
+            table_cache_hits_misses_per_run=cache,
+            joinStrategy=stats.get("joinStrategy"),
+            fragment_modes={str(f): m for f, m in (res.fragment_modes or {}).items()},
+            peak_device_bytes=peaks[q],
+        )
+    return warm_ms, k2_runs, peaks, failures
+
+
+TPCDS_SCHEMA = "sf1"      # the TPC-DS phase's scale factor
+TPCDS_WARM = 2
+TPCDS_SF10_QUERIES = (64, 95)  # BASELINE.json config 3, at tpcds.sf10
+TPCDS_SF10_WARM = 1
+TPCDS_TABLE_CACHE_BYTES = 16 << 30
+
+
+def phase_tpcds(smi: str) -> tuple[dict, int]:
+    """All 64 TPC-DS queries of the port's corpus, spec text, at SF1 from
+    the port's tpcds connector through ``LocalQueryRunner(device="cuda")``
+    in distributed mode with ``join_strategy=auto``: the 24 tables
+    generated with all their columns (into the connector's host cache)
+    and staged on the card once (rows, bytes, generation and staging
+    seconds per table), then each query
+    once cold and twice warm, its rows and column types held against the
+    reference's answers (``tpcds_sf1_answers.json``) exactly, in ORDER BY
+    order (rows whose ORDER BY keys tie as a multiset). No DOUBLE column
+    needs a tolerance: each is one division of exact integer sums or
+    counts. Every K2 build of the queries that launch it is then held
+    against its plain version. Returns the kernel launches of this path's
+    run and the largest K2 error over those builds."""
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch.benchmarks import tpcds as DS
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.columnar import concat_batches
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    answers = B.load_answers(DS.ANSWERS_SF1)
+    if answers["schema"] != f"tpcds.{TPCDS_SCHEMA}":
+        raise AssertionError(f"answers are for {answers['schema']}")
+    runner = LocalQueryRunner(device="cuda")
+    runner.session.set("execution_mode", "distributed")
+    runner.session.set("join_strategy", "auto")
+    # the device table cache's default (1 GiB, the reference's) thrashes
+    # over these queries' tables (234 evictions over the 64 at SF1 on an
+    # H100) and cannot hold SF10 store_sales: a deployment on an 80 GB
+    # card sizes it up
+    runner.session.set("table_cache_max_bytes", TPCDS_TABLE_CACHE_BYTES)
+    tpcds = runner.catalogs.get("tpcds")
+    staged = {}
+    t_all = time.perf_counter()
+    for table in tpcds.list_tables(TPCDS_SCHEMA):
+        cols = tpcds.get_table(TPCDS_SCHEMA, table).column_names()
+        t0 = time.perf_counter()
+        parts = [tpcds.read_split(TPCDS_SCHEMA, table, cols, sp)
+                 for sp in tpcds.get_splits(TPCDS_SCHEMA, table, 64)]
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = concat_batches(parts).to("cuda")
+        torch.cuda.synchronize()
+        staged[table] = {
+            "rows": batch.num_rows,
+            "columns": len(cols),
+            "staged_bytes": sum(
+                c.data.numel() * c.data.element_size()
+                + (0 if c.valid is None else c.valid.numel())
+                for c in batch.columns
+            ),
+            "generate_s": gen_s,
+            "stage_s": time.perf_counter() - t0,
+        }
+        del batch, parts
+    log("tpcds", card=smi, schema=TPCDS_SCHEMA, tables=staged,
+        rows=sum(t["rows"] for t in staged.values()),
+        staged_bytes=sum(t["staged_bytes"] for t in staged.values()),
+        generate_and_stage_s=time.perf_counter() - t_all)
+    torch.cuda.empty_cache()
+    texts = DS.queries(f"tpcds.{TPCDS_SCHEMA}")
+    # the main path's run: every count starts at 0 here and is read after
+    _kernels.reset_counts()
+    warm_ms, k2_runs, peaks, failures = run_against_answers(
+        runner, texts, answers, TPCDS_WARM, "tpcds", smi
+    )
+    # BASELINE.json config 3: Q64 and Q95 at SF10, the same checks
+    answers10 = B.load_answers(DS.ANSWERS_SF10)
+    texts10 = DS.queries(answers10["schema"])
+    texts10 = {q: texts10[q] for q in TPCDS_SF10_QUERIES}
+    _, k2_runs10, _, failures10 = run_against_answers(
+        runner, texts10, answers10, TPCDS_SF10_WARM, "tpcds_sf10", smi
+    )
+    failures += failures10
+    launches = dict(_kernels.LAUNCHES)
+    log("tpcds", card=smi, launches=launches,
+        warm_total_ms=sum(warm_ms.values()), table_cache=runner.engine.table_cache.snapshot())
+    if failures:
+        raise AssertionError("rows differ from the reference: " + "; ".join(failures))
+    if launches["dense_join_build"] < 1:
+        raise AssertionError("the TPC-DS queries launched no join-build kernel")
+    # K2 against its plain version at the shapes this path gives it (its
+    # launches here come after the counts were read, and are not counted)
+    checked_texts = {f"Q{q}": texts[q] for q in texts if k2_runs[q]}
+    checked_texts.update({f"Q{q}@sf10": texts10[q] for q in texts10 if k2_runs10[q]})
+    builds = k2_against_plain(runner, checked_texts)
+    per_query = {f"Q{q}": n for q, n in k2_runs.items() if n}
+    per_query.update({f"Q{q}@sf10": n for q, n in k2_runs10.items() if n})
+    checked = {}
+    for b in builds:
+        checked[b["query"]] = checked.get(b["query"], 0) + 1
+    k2_err = max(max(b["max_abs_err"], b["unplaced_err"]) for b in builds)
+    largest = max(builds, key=lambda b: b["rows"])
+    log("tpcds", card=smi, k2_builds=len(builds), k2_max_abs_err=k2_err,
+        overflowing_builds=sum(b["unplaced"] > 0 for b in builds),
+        largest_build=largest)
+    if checked != per_query:
+        raise AssertionError(f"k2 check pass: builds {checked} != launches {per_query}")
+    if k2_err:
+        raise AssertionError(f"tpcds: K2 != plain on a query's build (max |err| {k2_err})")
+    slowest = sorted(warm_ms, key=warm_ms.get, reverse=True)[:3]
+    phase_profile(runner, {f"Q{q}": texts[q] for q in slowest}, card=smi)
+    top = max(peaks, key=peaks.get)
+    log("peak", card=smi, query=f"Q{top}", **peak_attribution(runner, texts[top]))
     return launches, k2_err
 
 
@@ -1139,6 +1413,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     smi = phase_device()
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        # a part of the script, for work on one phase: no result lines
+        for name in sys.argv[2].split(","):
+            {"tpch22": phase_tpch22, "tpcds": phase_tpcds}[name](smi)
+            gc.collect()
+            torch.cuda.empty_cache()
+        return 0
     kern = phase_kernel()
     t0 = time.perf_counter()
     tables = tpch_tables(SF, seed=7)
@@ -1162,6 +1443,9 @@ def main() -> int:
     t22, t22_k2_err = phase_tpch22(smi)
     if t22["dense_join_build"] < 1:
         raise AssertionError("the TPC-H queries launched no join-build kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds, ds_k2_err = phase_tpcds(smi)
     a, ka = kern["a"], k2["a"]
     print(json.dumps({"kernels": [{
         "name": "dense_groupby",
@@ -1169,7 +1453,7 @@ def main() -> int:
         "source": "trino_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "trino_tpu/ops/dense_groupby.py:229",
         "launches": (sql_launches["dense_groupby"] + join_launches["dense_groupby"]
-                     + tpch_launches + t22["dense_groupby"]),
+                     + tpch_launches + t22["dense_groupby"] + ds["dense_groupby"]),
         "matches_plain": True,
         "max_abs_err": kern["max_abs_err"],
         "ms": a["ms"],
@@ -1182,10 +1466,11 @@ def main() -> int:
         "route": "cuda",
         "source": "trino_tpu_torch/csrc/dense_join_build.cu",
         "replaces": "trino_tpu/ops/dense_join.py:344",
-        "launches": join_launches["dense_join_build"] + t22["dense_join_build"],
+        "launches": (join_launches["dense_join_build"] + t22["dense_join_build"]
+                     + ds["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
-                           + [t22_k2_err]),
+                           + [t22_k2_err, ds_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

@@ -294,3 +294,27 @@ def test_tpch_queries_on_the_card_equal_the_cpu(cuda, mode):
         assert bad is None, f"Q{q}: {bad}"
     if mode == "distributed":
         assert _kernels.LAUNCHES["dense_join_build"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["local", "distributed"])
+def test_tpcds_queries_on_the_card_equal_the_answers(cuda, mode):
+    """The 64 TPC-DS queries at ``tpcds.tiny`` on the card return the
+    reference's committed rows and column types; the join-build kernel
+    launches in distributed mode."""
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.benchmarks.tpcds import ANSWERS_TINY, queries
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    answers = B.load_answers(ANSWERS_TINY)["queries"]
+    runner = LocalQueryRunner(device=cuda)
+    runner.session.set("execution_mode", mode)
+    before = _kernels.LAUNCHES["dense_join_build"]
+    for q, sql in queries("tpcds.tiny").items():
+        res = runner.engine.execute_statement(sql, runner.session)
+        want = answers[str(q)]
+        assert [t.name for t in res.column_types] == want["types"], f"Q{q}"
+        bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"], want["order_by"])
+        assert bad is None, f"Q{q}: {bad}"
+    if mode == "distributed":
+        assert _kernels.LAUNCHES["dense_join_build"] > before

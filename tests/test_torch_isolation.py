@@ -45,7 +45,9 @@ def test_port_imports_neither_jax_nor_reference():
     names = names.split(",")
     assert len(names) >= 20  # every module of the package was imported
     for module in ("connectors.tpch", "connectors.dbgen", "benchmarks.tpch",
-                   "ops.decimal128", "exec.streaming", "native", "strings"):
+                   "ops.decimal128", "exec.streaming", "native", "strings",
+                   "connectors.tpcds", "benchmarks.tpcds", "ops.window",
+                   "ingest"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 

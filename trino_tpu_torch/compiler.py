@@ -106,10 +106,18 @@ def _where_pair(mask, x, y):
     return torch.where(mask, x, y.to(x.dtype))
 
 
+def div_by_number(x: torch.Tensor, divisor) -> torch.Tensor:
+    """``x / divisor`` rounded once, as IEEE division does: on a CUDA
+    tensor torch divides by a Python number as a product with its
+    reciprocal (two roundings, one unit in the last place off the CPU's
+    result at times), so the divisor goes in as a tensor."""
+    return x / torch.full_like(x, divisor)
+
+
 def _wide_to_double(data, scale: int):
     lo = data[:, 1].to(torch.float64)
     lo_u = lo + torch.where(data[:, 1] < 0, 2.0**64, 0.0)
-    return (data[:, 0].to(torch.float64) * 2.0**64 + lo_u) / (10**scale)
+    return div_by_number(data[:, 0].to(torch.float64) * 2.0**64 + lo_u, 10**scale)
 
 
 def _narrow_checked(data, what: str):
@@ -418,7 +426,7 @@ class ExprCompiler:
         if nd == 0:
             return _round_half_up(d), v
         f = 10.0**nd
-        return _round_half_up(d * f) / f, v
+        return div_by_number(_round_half_up(d * f), f), v
 
     # -- strings (dictionary first) -----------------------------------------
     def _gather(self, table: torch.Tensor, codes) -> torch.Tensor:
@@ -747,7 +755,7 @@ class ExprCompiler:
                 return _round_half_up(scaled).to(torch.int64), v
         if _is_float(rt):
             if isinstance(st, T.DecimalType):
-                out = d.to(torch.float64) / st.unscale
+                out = div_by_number(d.to(torch.float64), st.unscale)
                 return out.to(torch_dtype(rt.storage_dtype)), v
             if _numeric(st):
                 return d.to(torch_dtype(rt.storage_dtype)), v
@@ -797,7 +805,7 @@ def _cast_numeric(data, from_t: T.SqlType, to_t: T.SqlType):
             dt = torch_dtype(to_t.storage_dtype)
             if _is_wide(data):
                 return _wide_to_double(data, from_t.scale).to(dt)
-            return (data.to(torch.float64) / from_t.unscale).to(dt)
+            return div_by_number(data.to(torch.float64), from_t.unscale).to(dt)
         return data  # decimal handled by the caller
     if isinstance(from_t, T.DateType) and isinstance(to_t, T.TimestampType):
         return data.to(torch.int64) * _US_PER_DAY

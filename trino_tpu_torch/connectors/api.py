@@ -158,6 +158,13 @@ class Connector:
     ) -> Batch:
         raise NotImplementedError
 
+    def data_version(self, schema: str, table: str) -> Any:
+        """A token that changes whenever the table's data changes; keys
+        the device table cache (``ingest.py``), so a write makes cached
+        device columns unreachable. Mutable connectors bump
+        ``_version``."""
+        return getattr(self, "_version", 0)
+
     # --- optional stats (drives join distribution / sizing) -------------
     def estimate_rows(self, schema: str, table: str) -> Optional[int]:
         return None

@@ -4,15 +4,19 @@ Reference: ``execution/SqlQueryExecution.java:373`` (the DQL path) and
 ``testing/LocalQueryRunner.java``, which drives the same core in-process.
 Counterpart of ``trino_tpu/engine.py``: queries and SET SESSION are
 ported; other statements (DDL, INSERT, transactions, EXPLAIN, prepared
-statements) raise a "not yet ported" error. The ``tpch`` catalog
-generates its tables (``connectors/tpch.py``); ``memory`` tables are
-created and loaded through the memory connector's API
-(``connectors/memory.py``).
+statements) raise a "not yet ported" error. The ``tpch`` and ``tpcds``
+catalogs generate their tables (``connectors/tpch.py``,
+``connectors/tpcds.py``); ``memory`` tables are created and loaded
+through the memory connector's API (``connectors/memory.py``). The engine
+keeps what outlives one query: the capacities earlier runs of a plan grew
+to (by plan fingerprint) and the device table cache (``ingest.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import re
 from typing import Any, Optional
 
 from trino_tpu_torch import resolve_device
@@ -21,6 +25,7 @@ from trino_tpu_torch.analyzer import Analyzer, SemanticError
 from trino_tpu_torch.config import Session
 from trino_tpu_torch.connectors.api import CatalogManager
 from trino_tpu_torch.exec.local import LocalExecutor
+from trino_tpu_torch.ingest import DeviceTableCache
 from trino_tpu_torch.planner import plan as P
 from trino_tpu_torch.sql import parse_statement
 from trino_tpu_torch.sql import tree as t
@@ -51,6 +56,15 @@ class StatementResult:
     fragment_modes: Optional[dict[int, str]] = None
 
 
+def plan_fingerprint(plan: P.PlanNode) -> str:
+    """Identity of an optimized plan: its printed text with the planner's
+    symbol counters stripped (``_123`` suffixes), hashed. Two runs of one
+    query text share it; plans that differ in shape or in a literal do
+    not. Stands in for ``planner/canonicalize.py`` until that is ported."""
+    text = re.sub(r"(?:_\d+)+\b", "_#", P.plan_text(plan))
+    return hashlib.sha1(text.encode()).hexdigest()
+
+
 class Engine:
     """Catalogs + statement dispatch, on one torch device.
 
@@ -61,14 +75,20 @@ class Engine:
         self.device = resolve_device(device)
         if catalogs is None:
             from trino_tpu_torch.connectors.memory import MemoryConnector
+            from trino_tpu_torch.connectors.tpcds import TpcdsConnector
             from trino_tpu_torch.connectors.tpch import TpchConnector
 
             catalogs = CatalogManager()
             catalogs.register("tpch", TpchConnector())
+            catalogs.register("tpcds", TpcdsConnector())
             catalogs.register("memory", MemoryConnector())
         self.catalogs = catalogs
-        # streamed fragments' grown group budgets, kept across queries
-        self.stream_caps: dict = {}
+        # capacities grown by earlier runs, by (plan fingerprint, kind,
+        # fragment id): a repeat of a plan starts where its last run ended
+        self.caps_store: dict = {}
+        # scanned tables kept on the device across queries (session
+        # property ``table_cache``)
+        self.table_cache = DeviceTableCache()
 
     def execute_statement(self, sql: str, session: Session) -> StatementResult:
         """Run one statement."""
@@ -93,7 +113,7 @@ class Engine:
     def _execute_query_plan(
         self, plan: P.PlanNode, session: Session
     ) -> StatementResult:
-        executor = self._executor(session)
+        executor = self._executor(session, plan)
         batch, names = executor.execute(plan)
         return StatementResult(
             batch.to_pylist(),
@@ -104,15 +124,18 @@ class Engine:
             or None,
             fragment_modes=dict(getattr(executor, "fragment_modes", {}) or {})
             or None,
+            ingest_stats=getattr(executor, "ingest_stats", None),
         )
 
-    def _executor(self, session: Session) -> LocalExecutor:
+    def _executor(self, session: Session, plan: P.PlanNode) -> LocalExecutor:
         mode = session.get("execution_mode")
         if mode == "distributed" and session.get("fragment_execution"):
             from trino_tpu_torch.exec.fragments import FragmentedExecutor
 
             return FragmentedExecutor(
-                self.catalogs, session, self.device, stream_caps=self.stream_caps
+                self.catalogs, session, self.device,
+                caps_store=self.caps_store, fingerprint=plan_fingerprint(plan),
+                table_cache=self.table_cache,
             )
         if mode not in ("local", "distributed"):
             raise SemanticError(

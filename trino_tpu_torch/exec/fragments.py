@@ -17,9 +17,18 @@ K2) or the sort tier, with fixed output capacities. Every capacity site
 reports an overflow flag; the fragment reads all its flags in one host
 read, grows each fired site (``_Caps``) and runs again, at most 12 times.
 
-Joins the reference's fused path does not trace run the local executor's
-version inside the fragment: CROSS joins other than a scalar subquery, and
-LEFT joins with a non-equi ON filter (both through the sort tier).
+Nodes the reference's fused path does not trace run the local executor's
+version inside the fragment: CROSS joins other than a scalar subquery,
+LEFT joins with a non-equi ON filter (both through the sort tier),
+windows, DISTINCT and set operations (the reference interprets a query
+with any of them whole). FULL OUTER equi-joins trace: the probe runs as a
+LEFT join that carries each build row's id, and the build rows no probe
+row matched are appended after it.
+
+A join site sizes its output to its matches on its first run (one host
+read) and keeps that capacity; later runs of the same plan read nothing.
+Capacities and the device table cache outlive the query (see
+:class:`FragmentedExecutor`).
 
 Not ported yet: fused multi-fragment programs, cross-query program
 caching and batching, the history store, skew handling, streaming joins
@@ -40,6 +49,7 @@ from trino_tpu_torch.exec.local import (
     LocalExecutor,
     Result,
     agg_inputs_for,
+    append_unmatched_build,
     bound_filter_mask,
     check_join_ported,
     flipped_right_join,
@@ -85,12 +95,15 @@ class CapacityRetryExceeded(ExecutionError):
         )
 
 
-def grow_or_raise(name: str, caps: "_Caps") -> None:
-    """Act on one fired flag: capacity sites grow for a rerun; ``err!``
+def grow_or_raise(name: str, caps: "_Caps", needed: Optional[int] = None) -> None:
+    """Act on one fired flag: capacity sites grow for a rerun (to at
+    least ``needed`` slots when the site counted what it needed); ``err!``
     names are data-dependent runtime errors and fail the query."""
     if name.startswith("err!"):
         raise ExecutionError(name[4:])
     caps.grow(name, 4 if name.startswith(("agg", "spill", "hot")) else 2)
+    if needed is not None and needed > caps.vals[name]:
+        caps.vals[name] = bucket_capacity(needed)
 
 
 def dup_key_rows(keys, sel) -> torch.Tensor:
@@ -200,6 +213,8 @@ class _FragmentTracer(LocalExecutor):
         self.caps = caps if caps is not None else _Caps()
         self.fragment_id = fragment_id
         self.overflows: list[tuple[str, torch.Tensor]] = []
+        # output sites' match counts: an overflowed site grows to fit them
+        self.needed: dict[str, torch.Tensor] = {}
         self._ordinals: dict[int, int] = {}
         if root is not None:
             joins = [n for n in P.walk_plan(root) if isinstance(n, P.Join)]
@@ -343,6 +358,13 @@ class _FragmentTracer(LocalExecutor):
         for s in node.right.output_symbols:
             c = right.column(s)
             build_cols += [c.data, c.valid_mask()]
+        full = node.join_type == "FULL"
+        if full:
+            # the build row ids ride along, so the matched build rows
+            # scatter into a mask without a host read
+            bsel = right.batch.selection_mask()
+            rid = torch.arange(bsel.shape[0], dtype=torch.int64, device=bsel.device)
+            build_cols += [rid, torch.ones_like(bsel)]
         if node.single_row:
             # a correlated scalar subquery: a build key group of more than
             # one row that a probe row joins is an error. The duplicate
@@ -356,34 +378,42 @@ class _FragmentTracer(LocalExecutor):
             build_keys += [kd, kv]
         join_site = self._site("join", node)
         dense_site = self._site("densejoin", node)
-        cap = self.caps.get(
-            join_site, bucket_capacity(max(1024, 2 * left.batch.capacity))
-        )
         strategy = self._join_strategy(node, lkeys)
         self.caps.join_strategies[dense_site] = strategy
+        # a site's first run sizes its output to the matches (one read)
+        cap = self.caps.vals.get(join_site)
         table_cap = None
         if strategy != "sort":
             # table slots: 4x the build rows (load factor <= 0.25: linear
             # probe clusters coalesce past the static window at 0.5)
-            table_cap = self.caps.get(
-                dense_site, bucket_capacity(max(1024, 4 * right.batch.capacity))
-            )
+            table_cap = self.caps.get(dense_site, bucket_capacity(
+                max(1024, 4 * self._first_run_rows(dense_site, right))
+            ))
         res = _sharded_probe(
             probe_cols, probe_keys, ph, left.batch.selection_mask(),
             build_cols, build_keys, bh, right.batch.selection_mask(),
-            cap, node.join_type, len(lkeys),
+            cap, "LEFT" if full else node.join_type, len(lkeys),
             strategy=strategy, table_cap=table_cap,
         )
-        if strategy == "sort":
-            out_cols, out_sel, ovf = res
-        else:
-            out_cols, out_sel, ovf, table_ovf = res
+        out_cols, out_sel, ovf, table_ovf, total = res
+        if cap is None:
+            cap = self.caps.get(join_site, out_sel.shape[0])
+        if table_ovf is not None:
             # graceful overflow: the rerun doubles the table and re-hashes
             self.overflows.append((dense_site, table_ovf))
         self.overflows.append((join_site, ovf))
+        self.needed[join_site] = total
         if node.single_row:
             dup_hit = out_cols[-2] & out_cols[-1] & out_sel
             self.overflows.append((f"err!{SCALAR_ROWS_ERROR}", dup_hit.any()))
+        if full:
+            rid, rid_hit = out_cols[-2], out_cols[-1] & out_sel
+            out_cols = out_cols[:-2]
+            bcap = bsel.shape[0]
+            matched = torch.zeros(bcap + 1, dtype=torch.bool, device=bsel.device)
+            matched[torch.where(rid_hit, rid, bcap)] = True
+            result = join_output(node, left, right, out_cols, cap, out_sel)
+            return append_unmatched_build(node, result, right, bsel & ~matched[:bcap])
         result = join_output(node, left, right, out_cols, cap, out_sel)
         if node.filter is not None:  # INNER only: LEFT took the local path
             expr = self._bind(node.filter, result.layout)
@@ -392,6 +422,18 @@ class _FragmentTracer(LocalExecutor):
                 Batch(result.batch.columns, cap, mask & out_sel), result.layout
             )
         return result
+
+    def _first_run_rows(self, site: str, res: Result) -> int:
+        """The selected rows of ``res``, read from the device only when
+        ``site`` has no capacity yet: a dense table's first capacity comes
+        from the build rows that are there, as a join output's comes from
+        its matches. Inputs' capacities double along a chain of joins when
+        each output is sized from its probe's capacity, as the reference
+        sizes them; that took TPC-H Q5 at SF1 to 30.7 GB of device memory
+        on an H100. A site's later runs read nothing."""
+        if site in self.caps.vals:
+            return 0
+        return res.batch.count_rows()
 
     def _exec_scalar_cross_traced(self, node: P.Join) -> Result:
         """An uncorrelated scalar subquery (single-row CROSS): the one
@@ -453,12 +495,13 @@ class _FragmentTracer(LocalExecutor):
         for kd, kv in rkeys:
             build_keys += [kd, kv]
         site = self._site("semi", node)
-        out_cap = self.caps.get(site, bucket_capacity(max(1024, 2 * cap)))
-        out_cols, out_sel, ovf = _sharded_probe(
+        out_cols, out_sel, ovf, _, total = _sharded_probe(
             [row_ids, torch.ones_like(lsel)], probe_keys, ph, lsel,
-            [], build_keys, bh, bsel, out_cap, "INNER", len(lkeys),
+            [], build_keys, bh, bsel, self.caps.vals.get(site), "INNER", len(lkeys),
         )
+        self.caps.get(site, out_sel.shape[0])
         self.overflows.append((site, ovf))
+        self.needed[site] = total
         matched = torch.zeros(cap + 1, dtype=torch.bool, device=lsel.device)
         matched[torch.where(out_sel, out_cols[0], cap)] = True
         return with_mark(
@@ -476,20 +519,68 @@ def _post_order(sub: SubPlan) -> list[PlanFragment]:
 
 
 class FragmentedExecutor(LocalExecutor):
-    """Distributed-mode executor: one plan fragment at a time."""
+    """Distributed-mode executor: one plan fragment at a time.
+
+    Capacities live in ``caps_store`` under ``(fingerprint, "join" |
+    "stream", fragment id)``: the engine passes one store to every query
+    with the fingerprint of its optimized plan, so a repeat of a query
+    starts at the capacities its earlier runs grew to (reference: the
+    ``("caps", frag.id)`` entries of the plan fingerprint's program store,
+    ``trino_tpu/exec/fragments.py:1759``), and no other query's growth
+    leaks into it. ``table_cache`` (a :class:`DeviceTableCache`) keeps
+    scanned tables on the device across queries when the session's
+    ``table_cache`` is on."""
 
     def __init__(self, catalogs, session, device,
-                 stream_caps: Optional[dict] = None):
+                 caps_store: Optional[dict] = None, fingerprint: str = "",
+                 table_cache=None):
         super().__init__(catalogs, session, device)
         self.exchange_stats: dict = {"overflow_retries": 0, "joinStrategy": {}}
         # fragment id -> "streamed" | "materialized" (which path ran)
         self.fragment_modes: dict[int, str] = {}
+        self.caps_store: dict = caps_store if caps_store is not None else {}
+        self.fingerprint = fingerprint
+        # this query's materialized fragments' capacities, by fragment id
         self._caps: dict[int, _Caps] = {}
-        # streamed fragments' capacities by fragment id; the engine passes
-        # one dict to every query so grown budgets are kept
-        self.stream_caps: dict[int, _Caps] = (
-            stream_caps if stream_caps is not None else {}
+        self.table_cache = table_cache
+        self.ingest_stats: dict = {}
+
+    def _fragment_caps(self, kind: str, fid: int) -> _Caps:
+        return self.caps_store.setdefault((self.fingerprint, kind, fid), _Caps())
+
+    def _scan_batch(self, node: P.TableScan) -> Result:
+        """A fragment's table scan, through the device table cache when
+        the session has it on (reference:
+        ``trino_tpu/parallel/distributed.py:200-286``): a hit returns the
+        device batch of an earlier scan of the same table version, columns
+        and splits; a miss scans and admits the result."""
+        if self.table_cache is None or not self.session.get("table_cache") or (
+            node.limit is not None  # a limit hint stops reading early
+        ):
+            return LocalExecutor._exec_tablescan(self, node)
+        from trino_tpu_torch.ingest import batch_nbytes, table_cache_key
+
+        connector = self.catalogs.get(node.catalog)
+        splits = self._scan_splits(node)
+        key = table_cache_key(
+            node.catalog, node.schema, node.table,
+            connector.data_version(node.schema, node.table),
+            node.column_names, splits, self.device,
         )
+        stats = self.ingest_stats
+        cached = self.table_cache.lookup(key)
+        stats["tableCache"] = self.table_cache.snapshot()
+        if cached is not None:
+            stats["table_cache_hits"] = stats.get("table_cache_hits", 0) + 1
+            return Result(cached, {s.name: i for i, s in enumerate(node.symbols)})
+        stats["table_cache_misses"] = stats.get("table_cache_misses", 0) + 1
+        res = LocalExecutor._exec_tablescan(self, node, splits)
+        self.table_cache.admit(
+            key, res.batch, batch_nbytes(res.batch),
+            int(self.session.get("table_cache_max_bytes")),
+        )
+        stats["tableCache"] = self.table_cache.snapshot()
+        return res
 
     def execute(self, node: P.PlanNode) -> tuple[Batch, list[str]]:
         return self._execute_fragments(fragment_plan(node, self.session))
@@ -552,7 +643,7 @@ class FragmentedExecutor(LocalExecutor):
         layouts: dict[str, dict[str, int]] = {}
         for n in P.walk_plan(root):
             if isinstance(n, P.TableScan):
-                res = LocalExecutor._exec_tablescan(self, n)
+                res = self._scan_batch(n)
                 inputs[f"scan{id(n)}"] = res.batch
                 layouts[f"scan{id(n)}"] = res.layout
             elif isinstance(n, P.RemoteSource):
@@ -570,20 +661,29 @@ class FragmentedExecutor(LocalExecutor):
         """Run a fragment under the capacity-overflow protocol: all its
         overflow flags come back in one host read per run; each fired site
         grows (``grow_or_raise``) and the fragment runs again."""
-        caps = self._caps.setdefault(fid, _Caps())
+        caps = self._caps.setdefault(fid, self._fragment_caps("join", fid))
         for _ in range(MAX_ATTEMPTS):
+            sized_before = set(caps.vals)
             tracer = _FragmentTracer(self, inputs, layouts, caps, fid, root)
             res = tracer._exec(root)
             if not tracer.overflows:
                 return res
-            flags = torch.stack(
-                [f.reshape(()).to(torch.int32) for _, f in tracer.overflows]
+            needed = list(tracer.needed.items())
+            read = torch.stack(
+                [f.reshape(()).to(torch.int64) for _, f in tracer.overflows]
+                + [t.reshape(()).to(torch.int64) for _, t in needed]
             ).cpu().tolist()
+            flags, counts = read[: len(tracer.overflows)], read[len(tracer.overflows):]
             fired = [nm for (nm, _), f in zip(tracer.overflows, flags) if f]
             if not fired:
                 return res
+            totals = {nm: c for (nm, _), c in zip(needed, counts)}
+            # sites first sized in this run from rows that an overflowed
+            # site upstream may have cut short are sized again next run
+            for nm in set(caps.vals) - sized_before - set(fired):
+                del caps.vals[nm]
             for nm in fired:
-                grow_or_raise(nm, caps)
+                grow_or_raise(nm, caps, totals.get(nm))
             self.exchange_stats["overflow_retries"] += 1
         raise CapacityRetryExceeded(
             "materialized-fragment", fragment_id=fid, capacities=caps.vals,
@@ -597,8 +697,8 @@ class FragmentedExecutor(LocalExecutor):
         carried state (exec/streaming.py) instead of materializing the
         scan. An overflowed group budget grows (``grow_or_raise``) and the
         stream reruns, at most 12 times; the fragment's ``_Caps`` are kept
-        across queries (``stream_caps``). None when the shape or the table
-        does not qualify."""
+        for later runs of the same plan (``caps_store``). None when the
+        shape or the table does not qualify."""
         from trino_tpu_torch.exec.streaming import (
             StreamingAggregator,
             StreamOverflow,
@@ -617,7 +717,7 @@ class FragmentedExecutor(LocalExecutor):
             self.session.get("stream_scan_threshold_rows")
         ):
             return None
-        caps = self.stream_caps.setdefault(frag.id, _Caps())
+        caps = self._fragment_caps("stream", frag.id)
         for _ in range(MAX_ATTEMPTS):
             try:
                 res = StreamingAggregator(self, frag, agg, scan, caps).run()

@@ -6,24 +6,26 @@ evaluated to a :class:`Batch` on the executor's device plus a symbol
 layout; operator-at-a-time, eagerly.
 
 The subset of ``trino_tpu/exec/local.py`` this engine runs today:
-TableScan, Filter, Project (string-valued expressions over a unified
-dictionary), Aggregate (single, partial and final steps; DISTINCT
+TableScan, Values, Filter, Project (string-valued expressions over a
+unified dictionary), Aggregate (single, partial and final steps; DISTINCT
 aggregates), Join (INNER, LEFT with or without a non-equi ON
-filter, RIGHT as a flipped LEFT, SEMI and ANTI through the sort tier of
-``ops/join.py``, with dynamic filtering; scalar-subquery joins, CROSS
-joins; DECIMAL(38) keys), Sort, TopN, Limit
-and Output, wide (n, 2) DECIMAL columns included. String->string
-functions are lowered onto dictionary-transformed columns first
-(``strings.py``). Any other plan node raises :class:`ExecutionError`
-naming it; so do FULL joins, FILTER aggregates, floating-point join keys
-and the spill join. Gathers stay on the
-executor's device.
+filter, RIGHT as a flipped LEFT, FULL OUTER on equality criteria, SEMI
+and ANTI through the sort tier of ``ops/join.py``, with dynamic
+filtering; scalar-subquery joins, CROSS joins; DECIMAL(38) keys), Window
+(``ops/window.py``), Distinct, SetOp (UNION, INTERSECT and EXCEPT,
+DISTINCT or ALL), Sort, TopN, Limit and Output, wide (n, 2)
+DECIMAL columns included. String->string functions are lowered onto
+dictionary-transformed columns first (``strings.py``). Any other plan
+node raises :class:`ExecutionError` naming it; so do FILTER aggregates,
+min/max over VARCHAR, floating-point join keys and the spill join.
+Gathers stay on the executor's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
@@ -36,7 +38,7 @@ from trino_tpu_torch.columnar import (
     concat_batches,
     torch_dtype,
 )
-from trino_tpu_torch.compiler import ExprCompiler
+from trino_tpu_torch.compiler import ExprCompiler, div_by_number
 from trino_tpu_torch.config import Session
 from trino_tpu_torch.connectors.api import CatalogManager
 from trino_tpu_torch.ir import Call, Constant, InputRef, RowExpr, SpecialForm, bind_variables
@@ -188,11 +190,39 @@ def _not_ported(what: str) -> ExecutionError:
 
 
 def check_join_ported(node: P.Join) -> None:
-    """Raise for the join shapes this engine does not run yet."""
-    if node.join_type not in ("INNER", "LEFT", "CROSS"):
+    """Raise for the join shapes this engine does not run yet; a FULL
+    join with a non-equi ON filter raises as in the reference."""
+    if node.join_type not in ("INNER", "LEFT", "FULL", "CROSS"):
         raise _not_ported(f"{node.join_type} JOIN")
     if node.join_type != "CROSS" and not node.criteria:
         raise _not_ported("a join without equality criteria")
+    if node.join_type == "FULL" and node.filter is not None:
+        raise ExecutionError("FULL OUTER JOIN with a non-equi ON filter")
+
+
+def append_unmatched_build(node: P.Join, out: Result, right: Result,
+                           unmatched: torch.Tensor) -> Result:
+    """A FULL join's output: the probe's rows, then every build row in
+    ``unmatched`` (a mask over the build capacity) with NULL probe
+    columns, the way ``LookupJoinOperator`` replays unvisited build
+    positions (``LookupJoinOperator.java:71``). Fixed shapes: the build
+    rows are appended whole and ``unmatched`` selects them."""
+    n_left = len(node.left.output_symbols)
+    add_n = right.batch.capacity
+    cols = []
+    for j, c in enumerate(out.batch.columns):
+        if j < n_left:  # probe columns: NULL
+            add = c.data.new_zeros((add_n,) + tuple(c.data.shape[1:]))
+            addv = torch.zeros(add_n, dtype=torch.bool, device=c.data.device)
+        else:  # build columns: the build rows themselves
+            rc = right.column(node.right.output_symbols[j - n_left])
+            add, addv = rc.data.to(c.data.dtype), rc.valid_mask()
+        cols.append(Column(
+            c.type, torch.cat([c.data, add]),
+            torch.cat([c.valid_mask(), addv]), c.dictionary,
+        ))
+    keep = torch.cat([out.batch.selection_mask(), unmatched])
+    return Result(Batch(cols, keep.shape[0], keep), out.layout)
 
 
 def bound_filter_mask(expr: RowExpr, columns: list[Column], device) -> torch.Tensor:
@@ -339,12 +369,16 @@ class LocalExecutor:
         return Result(Batch(cols, 1, sel), res.layout)
 
     # === leaf nodes =====================================================
-    def _exec_tablescan(self, node: P.TableScan) -> Result:
-        connector = self.catalogs.get(node.catalog)
-        splits = connector.get_splits_with_hints(
+    def _scan_splits(self, node: P.TableScan):
+        return self.catalogs.get(node.catalog).get_splits_with_hints(
             node.schema, node.table, 64, node.constraint,
             limit=node.limit, topn=node.topn,
         )
+
+    def _exec_tablescan(self, node: P.TableScan, splits=None) -> Result:
+        connector = self.catalogs.get(node.catalog)
+        if splits is None:
+            splits = self._scan_splits(node)
         layout = {s.name: i for i, s in enumerate(node.symbols)}
         batches = []
         rows_read = 0
@@ -467,7 +501,8 @@ class LocalExecutor:
         right = self._exec(node.right)  # build first: enables dynamic filter
         left = self._exec(self._apply_dynamic_filters(node, right))  # probe
         if (
-            self.session.get("spill_enabled")
+            node.join_type != "FULL"  # the reference's FULL join never spills
+            and self.session.get("spill_enabled")
             and left.batch.count_rows() + right.batch.count_rows()
             > int(self.session.get("spill_threshold_rows"))
         ):
@@ -525,7 +560,7 @@ class LocalExecutor:
         est = max(1024, 2 * left.batch.count_rows(), right.batch.count_rows())
         ppos, bpos, osel, out_capacity = self._probe_sorted(
             lkeys, rkeys, left, right,
-            "left" if node.join_type == "LEFT" else "inner", est,
+            "left" if node.join_type in ("LEFT", "FULL") else "inner", est,
         )
         is_outer = bpos == J.MISSING
         pidx = ppos.long()
@@ -544,6 +579,12 @@ class LocalExecutor:
             c = right.column(s)
             out_cols += [c.data[bidx], c.valid_mask()[bidx] & ~is_outer]
         out = join_output(node, left, right, out_cols, out_capacity, osel)
+        if node.join_type == "FULL":
+            bcap = right.batch.capacity
+            matched = torch.zeros(bcap + 1, dtype=torch.bool, device=osel.device)
+            matched[torch.where(osel & ~is_outer, bidx, bcap)] = True
+            unmatched = right.batch.selection_mask() & ~matched[:bcap]
+            return append_unmatched_build(node, out, right, unmatched)
         if node.filter is None:
             return out
         expr = self._bind(node.filter, out.layout)
@@ -719,6 +760,232 @@ class LocalExecutor:
                 layout[s.name] = len(cols) - 1
         return Result(Batch(cols, nl * nr), layout)
 
+    # === values, windows, distinct and set operations ===================
+    def _exec_values(self, node: P.Values) -> Result:
+        n = len(node.rows)
+        cols = []
+        for j, sym in enumerate(node.symbols):
+            t = sym.type
+            vals = [row[j] for row in node.rows]
+            valid = torch.tensor([v is not None for v in vals], dtype=torch.bool)
+            if T.is_string(t):
+                d, codes = Dictionary([]), torch.zeros(0, dtype=torch.int32)
+                if n:
+                    d, codes = Dictionary.from_strings(
+                        [v if v is not None else "" for v in vals]
+                    )
+                data = torch.where(valid, as_tensor(codes), -1).to(torch.int32)
+            else:
+                data = torch.tensor(
+                    [v if v is not None else 0 for v in vals],
+                    dtype=torch_dtype(t.storage_dtype),
+                )
+            cols.append(Column(
+                t, data.to(self.device),
+                None if bool(valid.all()) else valid.to(self.device),
+                d if T.is_string(t) else None,
+            ))
+        return Result(
+            Batch(cols, n, None, self.device),
+            {s.name: i for i, s in enumerate(node.symbols)},
+        )
+
+    def _exec_window(self, node: P.Window) -> Result:
+        """Window functions over one (partition, order, frame) spec
+        (reference: ``_exec_window``/``_window_result``). The reference's
+        spill path for large partitioned inputs computes the same values
+        per hash partition; here the input is computed whole."""
+        from trino_tpu_torch.compiler import _narrow_checked
+        from trino_tpu_torch.ops.window import WindowFn, WindowSpecKernel, compute_windows
+
+        res = self._exec(node.source)
+        b = res.batch
+        sel = b.selection_mask()
+        part_pairs, part_ranks = [], []
+        for s in node.partition_by:
+            c = res.column(s)
+            part_pairs.append((c.data, c.valid_mask()))
+            part_ranks.append(c.dictionary.ranks() if c.dictionary else None)
+        order_pairs, order_specs, order_ranks = [], [], []
+        for o in node.order_by:
+            c = res.column(o.symbol)
+            order_pairs.append((c.data, c.valid_mask()))
+            order_specs.append(o.sort_key())
+            order_ranks.append(c.dictionary.ranks() if c.dictionary else None)
+
+        # frame selection (SQL defaults; ranking functions ignore it)
+        preceding = 0
+        if not node.order_by:
+            kframe = "partition"
+        elif node.frame is None:
+            kframe = "running_range"
+        else:
+            ftype, fstart, fend = node.frame
+            if fend == "UNBOUNDED FOLLOWING":
+                kframe = "partition"
+            elif (ftype == "ROWS" and fstart.endswith(" PRECEDING")
+                  and fstart.split()[0].isdigit()):
+                kframe = "rows_preceding"
+                preceding = int(fstart.split()[0])
+            elif ftype == "ROWS":
+                kframe = "running_rows"
+            else:
+                kframe = "running_range"
+
+        fns, args, defaults, out_dicts, minmax_dicts = [], [], [], [], []
+        n = b.capacity
+        for _, wf in node.functions:
+            fns.append(WindowFn(wf.kind, wf.offset, wf.default is not None))
+            out_dict = mm_dict = None
+            if wf.argument is None:
+                args.append(None)
+                defaults.append(None)
+            else:
+                c = res.column(P.Symbol(wf.argument.name, wf.argument.type))
+                data, valid = c.data, c.valid_mask()
+                if data.ndim == 2:
+                    # window scans run in int64 lanes: narrow at run time
+                    # (raises if a wide value exceeds 18 digits)
+                    data = _narrow_checked(data, "window over DECIMAL(38)")
+                if c.dictionary is not None and wf.kind in ("min", "max"):
+                    data = rank_codes(c.dictionary, data)
+                    mm_dict = c.dictionary
+                elif c.dictionary is not None:
+                    out_dict = c.dictionary
+                args.append((data, valid))
+                d = None
+                if wf.default is not None:
+                    if isinstance(wf.default, Constant):
+                        if wf.default.value is None:
+                            d = (torch.zeros_like(data), torch.zeros(n, dtype=torch.bool, device=data.device))
+                        else:
+                            value = wf.default.value
+                            if out_dict is not None:
+                                code = out_dict.encode(str(value))
+                                if code < 0:
+                                    out_dict = Dictionary(out_dict.values + [str(value)])
+                                    code = len(out_dict.values) - 1
+                                value = code
+                            d = (torch.full_like(data, value), torch.ones(n, dtype=torch.bool, device=data.device))
+                    else:
+                        dc = res.column(P.Symbol(wf.default.name, wf.default.type))
+                        d = (dc.data, dc.valid_mask())
+                defaults.append(d)
+            out_dicts.append(out_dict)
+            minmax_dicts.append(mm_dict)
+
+        results = compute_windows(
+            part_pairs, part_ranks, order_pairs, order_specs, order_ranks,
+            sel, fns, args, defaults, WindowSpecKernel(kframe, preceding),
+        )
+        cols = list(b.columns)
+        layout = dict(res.layout)
+        for (sym, _), (data, valid), odict, mmdict in zip(
+            node.functions, results, out_dicts, minmax_dicts
+        ):
+            if mmdict is not None:  # min/max over strings: ranks back to codes
+                order = as_tensor(
+                    np.argsort(mmdict.ranks(), kind="stable"), data.device
+                )
+                codes = order[torch.clamp(data, 0, max(len(order) - 1, 0)).long()]
+                col = Column(sym.type, codes.to(torch.int32), valid, mmdict)
+            elif odict is not None:
+                col = Column(sym.type, data.to(torch.int32), valid, odict)
+            else:
+                col = Column(sym.type, data.to(torch_dtype(sym.type.storage_dtype)), valid)
+            cols.append(col)
+            layout[sym.name] = len(cols) - 1
+        return Result(Batch(cols, b.num_rows, b.sel, b.device), layout)
+
+    def _exec_distinct(self, node: P.Distinct) -> Result:
+        return self._distinct(self._exec(node.source), node.output_symbols)
+
+    def _distinct(self, res: Result, syms) -> Result:
+        """The distinct rows of ``syms`` (NULLs equal), through the
+        grouping sort of ``group_aggregate`` with no aggregates."""
+        res = self._nonempty(res)
+        keys = [res.pair(s) for s in syms]
+        sel = res.batch.selection_mask()
+        max_groups = max(1 << 12, bucket_capacity(res.batch.capacity))
+        (kd, kv), _, ng, overflow = group_aggregate(keys, sel, [], [], max_groups)
+        if bool(overflow):
+            raise ExecutionError("distinct cardinality exceeded capacity")
+        ng = int(ng)
+        cols = []
+        for i, s in enumerate(syms):
+            valid = kv[i][:ng]
+            cols.append(Column(
+                s.type, kd[i][:ng].to(res.column(s).data.dtype),
+                None if bool(valid.all()) else valid, res.column(s).dictionary,
+            ))
+        return Result(
+            Batch(cols, ng, None, self.device), {s.name: i for i, s in enumerate(syms)}
+        )
+
+    def _exec_setop(self, node: P.SetOp) -> Result:
+        """UNION [ALL], INTERSECT [ALL] and EXCEPT [ALL]: every input's
+        columns in the set operation's symbol order, coerced to its
+        output types; string columns share one dictionary."""
+        parts = []
+        for inp in node.inputs:
+            r = self._exec(inp)
+            b = compact_on_device(r.batch)
+            cols = [
+                cast_column(b.columns[r.layout[s.name]], out.type)
+                for s, out in zip(inp.output_symbols, node.symbols)
+            ]
+            parts.append(Batch(cols, b.num_rows, None, b.device))
+        layout = {s.name: i for i, s in enumerate(node.symbols)}
+        if node.op == "UNION":
+            res = Result(concat_on_device(parts), layout)
+            return self._distinct(res, node.symbols) if node.distinct else res
+        if node.op in ("INTERSECT", "EXCEPT"):
+            return self._exec_setop_membership(node, parts)
+        raise _not_ported(f"set operation {node.op}")
+
+    def _exec_setop_membership(self, node: P.SetOp, parts: list[Batch]) -> Result:
+        """INTERSECT / EXCEPT over the first two inputs, NULLs equal. One
+        grouping sort over both inputs' rows (the left's first, so a
+        group's left rows lead it in their own order) gives each left
+        row its group and its rank among the group's left rows.
+        DISTINCT keeps a group's first left row when the right has
+        [none of] the group; ALL keeps the first min(l, r) left rows
+        (INTERSECT) or all but the first r (EXCEPT). Survivors keep the
+        left's row order, as the reference's host loop gives them."""
+        from trino_tpu_torch.ops import keypack as KP
+
+        both = concat_on_device(parts[:2], keep_empty=True)
+        nl = parts[0].num_rows
+        n = both.num_rows
+        dev = both.device
+        keys = [(c.data, c.valid_mask()) for c in both.columns]
+        sel = torch.ones(n, dtype=torch.bool, device=dev)
+        s_lanes, perm, _ = KP.grouping_sort(keys, sel)
+        first = torch.zeros(n, dtype=torch.bool, device=dev)
+        if n:
+            first[0] = True
+        for lane in s_lanes:
+            first[1:] |= lane[1:] != lane[:-1]
+        gid_sorted = torch.cumsum(first.to(torch.int64), 0) - 1
+        is_right = perm >= nl
+        r_count = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        r_count.index_add_(0, gid_sorted, is_right.to(torch.int64))
+        pos = torch.arange(n, dtype=torch.int64, device=dev)
+        rank = pos - _last_flag(first, pos)
+        r_in_group = r_count[gid_sorted]
+        if node.distinct:
+            keep = first & (r_in_group > 0 if node.op == "INTERSECT" else r_in_group == 0)
+        elif node.op == "INTERSECT":
+            keep = rank < r_in_group
+        else:
+            keep = rank >= r_in_group
+        keep &= ~is_right
+        left_keep = torch.zeros(n, dtype=torch.bool, device=dev)
+        left_keep[perm] = keep
+        idx = torch.nonzero(left_keep[:nl]).reshape(-1)
+        out = both.take(idx)
+        return Result(out, {s.name: i for i, s in enumerate(node.symbols)})
+
     # === aggregation ===================================================
     def _exec_aggregate(self, node: P.Aggregate) -> Result:
         res = self._exec(node.source)
@@ -842,6 +1109,106 @@ class LocalExecutor:
         cols = self._key_columns(node, res, kd, kv, ng)
         cols.extend(finalize_aggs(node, fold(raw)))
         return Result(Batch(cols, ng), layout)
+
+
+def rank_codes(dictionary, data):
+    """Dictionary codes -> lexicographic ranks; safe on an empty
+    dictionary (padding rows of an empty relation have no real codes)."""
+    if dictionary is None or len(dictionary) == 0:
+        return torch.zeros(data.shape, dtype=torch.int64, device=data.device)
+    r = as_tensor(dictionary.ranks(), data.device)
+    return r[torch.clamp(data, min=0).long()]
+
+
+def _last_flag(flag: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """For each i, the largest j <= i with flag[j]."""
+    return torch.cummax(torch.where(flag, pos, 0), 0).values
+
+
+def compact_on_device(batch: Batch) -> Batch:
+    """The selected rows of ``batch``, gathered to the front on its own
+    device (``Batch.compact`` goes through the host)."""
+    if batch.sel is None and all(c.capacity == batch.num_rows for c in batch.columns):
+        return batch
+    idx = torch.nonzero(batch.selection_mask()).reshape(-1)
+    return Batch([c.take(idx) for c in batch.columns], int(idx.shape[0]), None, batch.device)
+
+
+def concat_on_device(batches, keep_empty: bool = False) -> Batch:
+    """Row concatenation of compacted batches of one layout on their
+    device: string columns are remapped into one merged dictionary (the
+    first batch's codes stay), and a column that is wide (n, 2) in any
+    batch is widened in all. Empty batches are dropped unless
+    ``keep_empty`` (row positions must then match the inputs')."""
+    from trino_tpu_torch.ops import decimal128 as D128
+
+    live = list(batches) if keep_empty else [b for b in batches if b.num_rows > 0]
+    if not live:
+        return batches[0]
+    if len(live) == 1:
+        return live[0]
+    cols = []
+    for j in range(live[0].width):
+        parts = [b.columns[j] for b in live]
+        t = parts[0].type
+        dictionary = None
+        datas = [p.data for p in parts]
+        if any(p.dictionary is not None for p in parts):
+            dictionary = parts[0].dictionary or Dictionary([])
+            for k, p in enumerate(parts):
+                if p.dictionary is not None and p.dictionary is not dictionary:
+                    dictionary, remap = dictionary.merged(p.dictionary)
+                    r = as_tensor(remap, p.data.device)
+                    datas[k] = torch.where(
+                        p.data >= 0, r[p.data.clamp(min=0).long()], -1
+                    ).to(torch.int32)
+        elif any(d.ndim == 2 for d in datas):
+            datas = [
+                d if d.ndim == 2 else torch.stack(D128.widen_i64(d.to(torch.int64)), dim=1)
+                for d in datas
+            ]
+        valid = torch.cat([p.valid_mask() for p in parts])
+        cols.append(Column(
+            t, torch.cat(datas), None if bool(valid.all()) else valid, dictionary
+        ))
+    return Batch(cols, sum(b.num_rows for b in live), None, live[0].device)
+
+
+def cast_column(c: Column, to_t: T.SqlType) -> Column:
+    """A set operation input's column coerced to the output type
+    (reference: ``_host_cast``): DECIMAL rescaled up, integers scaled
+    into a DECIMAL, numbers converted to DOUBLE/REAL, integer widths
+    changed; strings keep their dictionary."""
+    from trino_tpu_torch.ops import decimal128 as D128
+
+    from_t = c.type
+    if from_t == to_t:
+        return c
+    data = c.data
+    if T.is_string(from_t) and T.is_string(to_t):
+        pass
+    elif isinstance(to_t, T.DecimalType) and (
+        isinstance(from_t, T.DecimalType) or T.is_integer(from_t)
+    ):
+        k = to_t.scale - (from_t.scale if isinstance(from_t, T.DecimalType) else 0)
+        if data.ndim == 2:
+            hi, lo = D128.rescale_up_wide(data[:, 0], data[:, 1], k) if k else (data[:, 0], data[:, 1])
+            data = torch.stack([hi, lo], dim=1)
+        else:
+            data = data.to(torch.int64) * (10 ** k)
+    elif isinstance(to_t, (T.DoubleType, T.RealType)):
+        dt = torch_dtype(to_t.storage_dtype)
+        if isinstance(from_t, T.DecimalType):
+            if data.ndim == 2:
+                raise _not_ported("a DECIMAL(38) set operation input cast to DOUBLE")
+            data = div_by_number(data.to(torch.float64), from_t.unscale).to(dt)
+        else:
+            data = data.to(dt)
+    elif data.ndim == 1 and not isinstance(from_t, T.DecimalType):
+        data = data.to(torch_dtype(to_t.storage_dtype))
+    else:
+        raise _not_ported(f"a set operation cast from {from_t} to {to_t}")
+    return Column(to_t, data, c.valid, c.dictionary)
 
 
 def acc_columns(node: P.Aggregate, raw, offset: int):

@@ -312,10 +312,26 @@ def div128_round(ahi, alo, bhi, blo, shift: int):
     q_hi, q_lo = zero, zero
     q_lost = torch.zeros(n, dtype=torch.bool, device=alo.device)
     top = 0
+    narrow_den = True
     if n:
-        for j, m in enumerate(num.amax(dim=0).tolist()):
+        # one host read: the limbs' maxima and whether every divisor
+        # magnitude fits 63 bits
+        den_fits = ((den_hi == 0) & (den_lo >= 0)).all().to(num.dtype).reshape(1)
+        *maxima, narrow = torch.cat([num.amax(dim=0), den_fits]).tolist()
+        narrow_den = bool(narrow)
+        for j, m in enumerate(maxima):
             if m:
                 top = 32 * j + int(m).bit_length()
+    if top <= 62 and narrow_den:
+        # every scaled dividend and divisor magnitude fits 63 bits: one
+        # int64 division gives the same quotient and remainder as the
+        # bit loop below
+        a64 = num[:, 0] | (num[:, 1] << 32)
+        d64 = torch.where(ok, den_lo, torch.ones_like(den_lo))
+        q_lo = torch.div(a64, d64, rounding_mode="floor")
+        rem_lo = a64 - q_lo * d64
+        rem_hi = q_hi = zero
+        top = 0
     for pos in range(top - 1, -1, -1):
         bit = (num[:, pos // 32] >> (pos % 32)) & 1
         rem_hi = (rem_hi << 1) | _srl(rem_lo, 63)

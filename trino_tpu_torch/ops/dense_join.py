@@ -185,13 +185,14 @@ def probe_table(
     probe_hash: torch.Tensor,
     probe_valid: torch.Tensor,
     probe_sel: torch.Tensor,
-    out_capacity: int,
+    out_capacity,
     join_type: str = "inner",
     window: int = PROBE_WINDOW,
 ):
     """Expand probe x table matches into fixed-capacity gather indices.
 
-    Same contract as ``join.probe_join``: ``(probe_pos, build_pos,
+    Same contract as ``join.probe_join`` (``out_capacity`` None sizes the
+    output to the matches): ``(probe_pos, build_pos,
     out_sel, total, overflow)`` with ``build_pos == MISSING`` for outer
     rows; the caller runs ``verify_equal`` for hash-collision exactness.
     """
@@ -229,7 +230,7 @@ def probe_table(
     # matrix is never materialized)
     ppos = probe_pos.long()
     o_base, o_hash, o_use = base64[ppos], probe_hash[ppos], use[ppos]
-    build_pos = torch.full((out_capacity,), MISSING, dtype=torch.int32,
+    build_pos = torch.full(out_sel.shape, MISSING, dtype=torch.int32,
                            device=table.device)
     r = torch.zeros_like(j)
     for d in range(window):

@@ -73,7 +73,8 @@ def build_side(key_hash: torch.Tensor, valid: torch.Tensor, sel: torch.Tensor):
     return sorted_keys, order.to(torch.int32), use.sum().to(torch.int32)
 
 
-def _empty_result(out_capacity: int, device):
+def _empty_result(out_capacity, device):
+    out_capacity = out_capacity or 1024
     return (
         torch.zeros(out_capacity, dtype=torch.int32, device=device),
         torch.full((out_capacity,), MISSING, dtype=torch.int32, device=device),
@@ -83,11 +84,13 @@ def _empty_result(out_capacity: int, device):
     )
 
 
-def expand_matches(counts, probe_sel, out_capacity: int, join_type: str):
+def expand_matches(counts, probe_sel, out_capacity, join_type: str):
     """Fixed-capacity expansion shared by both join tiers: per output slot
     ``t``, the probe row that owns it and the rank ``j`` of the slot among
     that row's matches. LEFT joins emit one slot for an unmatched selected
-    probe row. Returns (probe_pos int32, j, out_sel, total, overflow)."""
+    probe row. ``out_capacity`` None sizes the output to the matches (one
+    host read of their count; a power-of-two bucket of at least 1024).
+    Returns (probe_pos int32, j, out_sel, total, overflow)."""
     if join_type == "left":
         emit = torch.where(probe_sel, torch.clamp(counts, min=1), 0)
     elif join_type == "inner":
@@ -98,6 +101,10 @@ def expand_matches(counts, probe_sel, out_capacity: int, join_type: str):
     ends = torch.cumsum(emit, 0)  # inclusive end per probe row
     offsets = ends - emit
     total = ends[-1]
+    if out_capacity is None:
+        from trino_tpu_torch.columnar import bucket_capacity
+
+        out_capacity = bucket_capacity(int(total))
     t = torch.arange(out_capacity, dtype=torch.int64, device=emit.device)
     probe_pos = torch.searchsorted(ends, t, right=True)
     probe_pos = torch.clamp(probe_pos, max=emit.shape[0] - 1)
@@ -112,10 +119,12 @@ def probe_join(
     probe_hash: torch.Tensor,
     probe_valid: torch.Tensor,
     probe_sel: torch.Tensor,
-    out_capacity: int,
+    out_capacity,
     join_type: str = "inner",
 ):
-    """Expand probe x build matches into fixed-capacity gather indices.
+    """Expand probe x build matches into fixed-capacity gather indices
+    (``out_capacity`` None: sized to the matches, see
+    :func:`expand_matches`).
 
     Returns (probe_pos, build_pos, out_sel, total, overflow):
       probe_pos/build_pos: (out_capacity,) int32 gather indices into the
@@ -136,7 +145,7 @@ def probe_join(
         ppos, _, osel, total, ovf = expand_matches(
             zero, probe_sel, out_capacity, "left"
         )
-        bpos = torch.full((out_capacity,), MISSING, dtype=torch.int32, device=dev)
+        bpos = torch.full(osel.shape, MISSING, dtype=torch.int32, device=dev)
         return ppos, bpos, osel, total, ovf
     keys = torch.where(use, probe_hash, _INT64_MAX - 1)  # never matches maxv
     lo = torch.searchsorted(sorted_build_keys, keys, right=False)

@@ -52,9 +52,14 @@ def _sharded_probe(
     by kernel K2) or ``matmul`` (the same table addressed by identity
     binning of the single integer key column).
 
-    Returns ``(out_cols, out_sel, overflow)``; non-sort strategies add a
-    fourth element, the table-overflow flag whose ``densejoin`` capacity
-    site the executor's retry ladder doubles.
+    ``per_shard_cap`` None sizes the output to the matches (one host
+    read; ``out_sel.shape[0]`` is then the capacity chosen).
+
+    Returns ``(out_cols, out_sel, overflow, table_overflow, total)``:
+    ``table_overflow`` is the flag whose ``densejoin`` capacity site the
+    executor's retry ladder doubles (None for the sort strategy), and
+    ``total`` the count of matches the output needed, so an overflowed
+    output grows to fit them at once.
     """
     probe_cols, probe_keys, ph, probe_sel = _pad_side(
         probe_cols, probe_keys, ph, probe_sel
@@ -75,7 +80,7 @@ def _sharded_probe(
     tovf = None
     if strategy == "sort":
         sbk, sbi, bcount = J.build_side(bh, bv, build_sel)
-        ppos, bpos, osel, _, ovf = J.probe_join(
+        ppos, bpos, osel, total, ovf = J.probe_join(
             sbk, sbi, bcount, ph, pv, probe_sel, per_shard_cap, jt,
         )
     else:
@@ -91,7 +96,7 @@ def _sharded_probe(
             bbase = DJ.slot_base_hash(bh, table_cap)
             pbase = DJ.slot_base_hash(ph, table_cap)
         table, tovf = DJ.build_table(bbase, bv, build_sel, table_cap)
-        ppos, bpos, osel, _, ovf = DJ.probe_table(
+        ppos, bpos, osel, total, ovf = DJ.probe_table(
             table, bh, pbase, ph, pv, probe_sel, per_shard_cap, jt,
         )
     osel = J.verify_equal(pk_pairs, bk_pairs, ppos, bpos, osel)
@@ -105,6 +110,4 @@ def _sharded_probe(
     for k in range(0, len(build_cols), 2):
         outs.append(build_cols[k][bidx])
         outs.append(build_cols[k + 1][bidx] & ~is_outer)
-    if tovf is None:
-        return outs, osel, ovf
-    return outs, osel, ovf, tovf
+    return outs, osel, ovf, tovf, total
