@@ -15,9 +15,10 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    and library-call times are CUDA-event medians of 10 runs; each plan
    logs its launch plan (lane slices, blocks per slice, copies);
 3. k2: the dense hash-join build kernel against its plain PyTorch version
-   on the card in four plans (the orders build of Q-J2 at SF10, the same
-   rows keyed on ``o_custkey`` so that duplicate chains overflow the probe
-   window, a small build, and the build of Q-J1's second join); the table
+   on the card in four plans over the SF10 tables (the orders before Q-J2's
+   date cut, the same rows keyed on ``o_custkey`` so that duplicate chains
+   overflow the probe window, a small build, and the order keys that
+   Q-J1's second join builds on, each in a table of fixed size); the table
    must be equal elementwise and the count of unplaced rows equal. Each
    plan also logs its worklist lengths, its launches and the rounds they
    skipped (the later rounds stop at the first empty worklist), the device
@@ -33,7 +34,17 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    LEFT join) and Q-J3 (TPC-H Q4, an EXISTS semi join) through the same
    runner in distributed mode, once cold and 3 times warm; rows must equal
    a numpy oracle exactly, and the join-build kernel's launch count must
-   rise on every run of Q-J1 and Q-J2.
+   rise on every run of Q-J1 and Q-J2 (their lineitem fragments stream
+   through the joins: one build a join site an attempt). Every K2 build
+   of the three queries, the streamed ones included, is then held against
+   its plain version at the shapes the executor gives it;
+5b. spill: the same three queries over the same memory tables through the
+   interpreter (``execution_mode=local``) under the reference's spill
+   defaults, once cold and once warm, against the oracle; Q-J1's and
+   Q-J2's joins must run partitioned, Q-J3's semi join must not. Each
+   line gives the spilled operators by kind, partitions, host
+   partitioning seconds, the allocator's and the accounted peak and the
+   K2 launches.
 
 6. tpch: TPC-H Q1 (Q-T1) and Q6 (Q-T6), spec text, over ``tpch.sf10``
    generated by the port's tpch connector (the generate-and-stage seconds
@@ -70,9 +81,15 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    column types held against ``tpcds_sf1_answers.json`` exactly; then
    Q64 and Q95 over ``tpcds.sf10`` (``BASELINE.json`` config 3), once cold
    and once warm, against ``tpcds_sf10_answers.json`` the same way. Each query's line adds its
-   table-cache hits and misses per run. Every K2 build of these queries
-   is held against its plain version, the three slowest are profiled,
-   and the query with the largest peak is attributed.
+   table-cache hits and misses per run; the table cache runs at its
+   default budget and must evict nothing at SF1. Every K2 build of these
+   queries is held against its plain version, the three slowest are
+   profiled, and the query with the largest peak and Q95 at SF10 (warm,
+   then with its capacities forgotten) are attributed.
+
+Every query line of phases 5, 7 and 8 gives its streamed join fragments
+(chunks and builds) and the streams that fell back to materialized;
+TPC-H Q3/5/7/10/17/19 and TPC-DS Q21/37/82 must stream one.
 
 Phases 4, 5, 6, 7 and 8 each end with one warm run of each query (of the
 three slowest in phases 7 and 8) under ``torch.profiler`` (phase ``profile``);
@@ -84,9 +101,9 @@ object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
-``python3 chip_smoke.py --only tpch22,tpcds`` runs the device phase and
-the named phases alone (``tpch22``, ``tpcds``), for work on one of them;
-it prints no result lines.
+``python3 chip_smoke.py --only tpch22,tpcds,spill`` runs the device phase
+and the named phases alone (``spill`` generates the SF10 tables first),
+for work on one of them; it prints no result lines.
 """
 
 from __future__ import annotations
@@ -407,9 +424,12 @@ def phase_kernel():
 
 
 def phase_k2(tables, dev="cuda"):
-    """The join-build kernel vs its plain version in four plans; returns
-    them by name. Plans (a) and (d) are the builds of Q-J2 and of Q-J1's
-    second join at SF10, at the shapes the executor gives them."""
+    """The join-build kernel vs its plain version in four plans of fixed
+    table size over the SF10 tables; returns them by name. Plan (a) is the
+    rows of Q-J2's build and plan (d) the keys of Q-J1's second build, in
+    tables larger than the executor sizes from the live rows (it holds its
+    own builds against the plain version in phase ``join``); plan (a)'s
+    times are the ones the kernels line reports."""
     import torch
 
     from trino_tpu_torch.columnar import bucket_capacity
@@ -418,7 +438,7 @@ def phase_k2(tables, dev="cuda"):
 
     c, o = tables["customer"], tables["orders"]
     n_ord = len(o["o_orderkey"])
-    # the executor sizes a table at 4x the build side's capacity
+    # 4x the orders rows, at a load factor of at most 0.25
     ord_cap = bucket_capacity(4 * n_ord)
     # Q-J1's second build is the customer-orders join output: its matches
     # first, in orders row order, in bucket_capacity(2 x orders) slots
@@ -619,9 +639,31 @@ def load_tpch(runner, tables) -> None:
 JOIN_QUERIES = {"Q-J1": Q_J1, "Q-J2": Q_J2, "Q-J3": Q_J3}
 
 
+def stream_fields(res) -> dict:
+    """What a run's fragments streamed: per streamed join fragment its
+    chunk count and its join builds (one K2 launch a dense site), and the
+    streams that met a shape the step does not take (``FusedUnsupported``)
+    and ran materialized. ``accounted_peak_bytes`` is the query memory
+    context's peak: the bytes of the batches the interpreter held, node by
+    node (``memory.py``). It is not the allocator's peak: temporaries
+    inside an operator, the allocator's cache and the cached tables are
+    not in it, and the fragment executor's traced nodes are not accounted
+    at all (as in the reference), so a distributed run shows 0."""
+    stats = res.exchange_stats or {}
+    return {
+        "fragment_modes": {str(f): m for f, m in (res.fragment_modes or {}).items()},
+        "join_streams": stats.get("join_streams", []),
+        "stream_fallbacks": stats.get("stream_fallbacks", 0),
+        "accounted_peak_bytes": res.peak_memory_bytes,
+    }
+
+
 def phase_join(tables, oracle):
     """Q-J1..3 at SF10 through the port in distributed mode, against the
-    numpy oracle; returns the launch counts of this path's run."""
+    numpy oracle, then every K2 build of one more run of each held against
+    its plain version; returns the launch counts of this path's run, the
+    largest K2 error and the runner, whose memory tables phase ``spill``
+    reuses."""
     import torch
 
     from trino_tpu_torch import _kernels
@@ -633,6 +675,7 @@ def phase_join(tables, oracle):
     n_line = len(tables["lineitem"]["l_orderkey"])
     # the main path's run: every count starts at 0 here and is read after
     _kernels.reset_counts()
+    last_run = {}
     for name, sql in JOIN_QUERIES.items():
         times, per_run = [], []
         torch.cuda.reset_peak_memory_stats()
@@ -658,14 +701,100 @@ def phase_join(tables, oracle):
             k2_launches_per_run=per_run,
             joinStrategy=stats.get("joinStrategy"),
             overflow_retries=stats.get("overflow_retries"),
-            fragment_modes={str(f): m for f, m in (res.fragment_modes or {}).items()},
             peak_device_bytes=torch.cuda.max_memory_allocated(),
             matches_oracle=True,
+            **stream_fields(res),
         )
+        if stats.get("stream_fallbacks"):
+            log("join", query=name, stream_fallbacks=stats["stream_fallbacks"])
+        last_run[name] = per_run[-1]
     launches = dict(_kernels.LAUNCHES)
     log("join", launches=launches)
+    # K2 against its plain version at the shapes this path gives it, the
+    # streamed builds included (these launches come after the counts were
+    # read, and are not counted)
+    builds = k2_against_plain(runner, JOIN_QUERIES)
+    checked = {}
+    for b in builds:
+        checked[b["query"]] = checked.get(b["query"], 0) + 1
+    k2_err = max(max(b["max_abs_err"], b["unplaced_err"]) for b in builds)
+    log("join", k2_vs_plain_builds=builds, k2_max_abs_err=k2_err)
+    if checked != {q: n for q, n in last_run.items() if n}:
+        raise AssertionError(f"join: K2 builds checked {checked} != launches {last_run}")
+    if k2_err:
+        raise AssertionError(f"join: K2 != plain on a query's build (max |err| {k2_err})")
     phase_profile(runner, JOIN_QUERIES)
     phase_spans(runner, JOIN_QUERIES)
+    log("join", table_cache=runner.engine.table_cache.snapshot())
+    return launches, k2_err, runner
+
+
+# the reference's spill defaults (trino_tpu/config.py), which phase spill
+# runs under
+SPILL_DEFAULTS = {"spill_enabled": True, "spill_threshold_rows": 1 << 23,
+                  "spill_partitions": 8}
+
+
+def phase_spill(runner, oracle, smi: str) -> dict:
+    """Q-J1..3 over phase ``join``'s SF10 memory tables (``runner`` holds
+    them) through the port's interpreter (``execution_mode=local``) under
+    the reference's spill defaults, once cold and once warm, against the
+    numpy oracle. Q-J1's and Q-J2's joins see about 75M input rows, past
+    the threshold of 2^23, and must run partitioned; Q-J3's EXISTS is a
+    semi join, which the reference never spills, and must not. Per run:
+    the spilled operators by kind, partitions, host partitioning seconds,
+    the allocator's peak and the accounted peak, K2 launches (the
+    interpreter joins through the sort tier, as the reference's does).
+    Returns the kernel launches of this path's run."""
+    import torch
+
+    from trino_tpu_torch import _kernels
+
+    session = runner.session
+    for k, v in SPILL_DEFAULTS.items():
+        if session.get(k) != v:
+            raise AssertionError(f"spill: {k}={session.get(k)!r}, the reference's is {v!r}")
+    session.set("execution_mode", "local")
+    # the path's run: every count starts at 0 here and is read after
+    _kernels.reset_counts()
+    try:
+        for name, sql in JOIN_QUERIES.items():
+            runs = []
+            for label in ("cold", "warm"):
+                before = _kernels.LAUNCHES["dense_join_build"]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = runner.engine.execute_statement(sql, session)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                rows = res.rows if name == "Q-J1" else sorted(res.rows)
+                if rows != oracle[name]:
+                    raise AssertionError(f"spill: {name} ({label}) rows differ from the oracle")
+                sp = res.spill_stats or {}
+                runs.append({
+                    "run": label, "ms": ms,
+                    "spilled_operators": sp.get("operators", {}),
+                    "partitions": sp.get("partitions", 0),
+                    "host_partition_s": sp.get("host_partition_s", 0.0),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                    # the interpreter's held batches, node by node: no
+                    # operator temporaries, no allocator cache (see
+                    # stream_fields)
+                    "accounted_peak_bytes": res.peak_memory_bytes,
+                    "k2_launches": _kernels.LAUNCHES["dense_join_build"] - before,
+                })
+            joins = [r["spilled_operators"].get("join", 0) for r in runs]
+            if name != "Q-J3" and not all(joins):
+                raise AssertionError(f"spill: {name}'s join did not spill")
+            if name == "Q-J3" and any(joins):
+                raise AssertionError("spill: Q-J3's semi join spilled; the reference's never does")
+            log("spill", card=smi, query=name, rows=len(res.rows), matches_oracle=True,
+                runs=runs)
+    finally:
+        session.set("execution_mode", "distributed")
+    launches = dict(_kernels.LAUNCHES)
+    log("spill", card=smi, launches=launches)
     return launches
 
 
@@ -712,10 +841,11 @@ def timed_spans(runner, queries, spans) -> dict:
 
 def phase_spans(runner, queries) -> None:
     """Where a warm join query's wall time goes: the table scans (split
-    concatenation and host-to-device copies), the dynamic filters, the
-    join steps and, inside them, the K2 builds, and the grouped
-    aggregations. ``probe_ms`` is the join steps less their builds: the
-    probe, the exactness pass and the payload gathers."""
+    concatenation and host-to-device copies, or table-cache hits), the
+    dynamic filters, the join builds (``join_build_ms``: hashing, sorting
+    or slot bases, less the K2 builds inside them), the K2 builds, the
+    probes (``probe_ms``: the probe, the exactness pass and the payload
+    gathers) and the grouped aggregations."""
     from trino_tpu_torch import dynfilter
     from trino_tpu_torch.exec import local
     from trino_tpu_torch.ops import dense_join as DJ
@@ -723,12 +853,13 @@ def phase_spans(runner, queries) -> None:
 
     spans = [(local.LocalExecutor, "_exec_tablescan", "scan_ms"),
              (dynfilter, "fragment_dynamic_filters", "dynamic_filter_ms"),
-             (distributed, "_sharded_probe", "join_ms"),
+             (distributed, "build_join", "join_build_ms"),
+             (distributed, "probe_build", "probe_ms"),
              (DJ, "build_table", "k2_build_ms"),
              (local, "group_aggregate", "group_by_ms")]
     for name, out in timed_spans(runner, queries, spans).items():
-        # the K2 builds run inside the join steps: counted once, in k2
-        out["probe_ms"] = out.pop("join_ms") - out["k2_build_ms"]
+        # the K2 builds run inside the join builds: counted once, in k2
+        out["join_build_ms"] -= out["k2_build_ms"]
         out["rest_ms"] += out["k2_build_ms"]
         log("spans", query=name, **out)
 
@@ -869,6 +1000,7 @@ def phase_tpch(smi: str) -> int:
     from trino_tpu_torch.benchmarks.tpch import queries
     from trino_tpu_torch.columnar import Batch, Column
     from trino_tpu_torch.connectors.api import ColumnSchema, TableSchema
+    from trino_tpu_torch.exec.streaming import slab_stage_rows
     from trino_tpu_torch.ops import dense_groupby as DG
     from trino_tpu_torch.testing import LocalQueryRunner
 
@@ -876,7 +1008,7 @@ def phase_tpch(smi: str) -> int:
     runner.session.set("execution_mode", "distributed")
     tpch = runner.catalogs.get("tpch")
     schema = f"sf{SF}"
-    cap = int(runner.session.get("stream_device_chunk_rows"))
+    cap = slab_stage_rows(runner.session)
     t0 = time.perf_counter()
     slab, n_line = tpch.device_slab(
         schema, "lineitem", Q1_COLUMNS, cap,
@@ -997,22 +1129,30 @@ def tpch_spans(runner, queries, smi: str) -> None:
 TPCH22_SCHEMA = "sf1"     # the all-22 phase's scale factor
 TPCH22_WARM = 2
 TPCH22_PEAKS = (5, 6)     # queries whose peak device memory is attributed
+# queries with a join fragment that streams on the lineitem probe spine
+TPCH22_STREAMED = (3, 5, 7, 10, 17, 19)
 
 
-def peak_attribution(runner, sql: str, top: int = 8) -> dict:
+def peak_attribution(runner, sql: str, top: int = 8, with_joins: bool = False) -> dict:
     """Where one more run of ``sql`` peaks in device memory: each
     fragment's own peak (the peak counter reset as it starts), and the
     largest allocations alive at the query's peak, each with the
     innermost frame of the port that made it, from the caching
     allocator's history (``torch.cuda.memory._record_memory_history``),
     replayed event by event. Memory allocated before the run (cached
-    tables, staged columns) is the ``baseline``."""
+    tables, staged columns) is the ``baseline``. ``with_joins`` adds each
+    traced join of the peak fragment: its probe and build rows and
+    capacities and its output rows and capacity (host reads, so only in
+    this extra run)."""
     import torch
 
     from trino_tpu_torch.exec.fragments import FragmentedExecutor
 
+    from trino_tpu_torch.exec.fragments import _FragmentTracer
+
     real = FragmentedExecutor._run_fragment
-    frag_peaks = {}
+    real_join = _FragmentTracer._exec_join
+    frag_peaks, joins = {}, []
 
     def run(self, frag, results, names_holder):
         torch.cuda.synchronize()
@@ -1022,18 +1162,34 @@ def peak_attribution(runner, sql: str, top: int = 8) -> dict:
         frag_peaks[frag.id] = torch.cuda.max_memory_allocated()
         return out
 
+    def join(self, node):
+        out = real_join(self, node)
+        left, right = self._exec(node.left), self._exec(node.right)
+        joins.append({
+            "fragment": self.fragment_id, "site": self._site("join", node),
+            "type": node.join_type,
+            "strategy": self.caps.join_strategies.get(self._site("densejoin", node), "sort"),
+            "probe_rows": left.batch.count_rows(), "probe_capacity": left.batch.capacity,
+            "build_rows": right.batch.count_rows(), "build_capacity": right.batch.capacity,
+            "output_rows": out.batch.count_rows(), "output_capacity": out.batch.capacity,
+        })
+        return out
+
     torch.cuda.synchronize()
     baseline = torch.cuda.memory_allocated()
     torch.cuda.memory._record_memory_history(
         enabled="all", context="alloc", stacks="python", max_entries=2_000_000
     )
     FragmentedExecutor._run_fragment = run
+    if with_joins:
+        _FragmentTracer._exec_join = join
     try:
         runner.engine.execute_statement(sql, runner.session)
         torch.cuda.synchronize()
         snap = torch.cuda.memory._snapshot()
     finally:
         FragmentedExecutor._run_fragment = real
+        _FragmentTracer._exec_join = real_join
         torch.cuda.memory._record_memory_history(enabled=None)
     events = snap["device_traces"][torch.cuda.current_device()]
 
@@ -1065,11 +1221,13 @@ def peak_attribution(runner, sql: str, top: int = 8) -> dict:
     by_site: dict[str, int] = {}
     for e in alive.values():
         by_site[site(e)] = by_site.get(site(e), 0) + e["size"]
+    peak_fragment = max(frag_peaks, key=frag_peaks.get) if frag_peaks else None
     return {
         "baseline_bytes": baseline,
         "peak_bytes": baseline + peak_run,
         "fragment_peak_bytes": frag_peaks,
-        "peak_fragment": max(frag_peaks, key=frag_peaks.get) if frag_peaks else None,
+        "peak_fragment": peak_fragment,
+        "peak_fragment_joins": [j for j in joins if j["fragment"] == peak_fragment],
         "largest_alive": [{"bytes": e["size"], "site": site(e)} for e in largest],
         "alive_bytes_by_site": dict(sorted(
             by_site.items(), key=lambda kv: kv[1], reverse=True)[:top]),
@@ -1127,6 +1285,7 @@ def phase_tpch22(smi: str) -> tuple[dict, int]:
     from trino_tpu_torch.benchmarks import tpch as B
     from trino_tpu_torch.connectors import dbgen
     from trino_tpu_torch.connectors.tpch import _SCHEMAS, TpchConnector
+    from trino_tpu_torch.exec.streaming import slab_stage_rows
     from trino_tpu_torch.testing import LocalQueryRunner
 
     answers = B.load_answers()
@@ -1143,7 +1302,7 @@ def phase_tpch22(smi: str) -> tuple[dict, int]:
     runner.session.set("execution_mode", "distributed")
     tpch = TpchConnector()
     runner.catalogs.register("tpch", tpch)
-    cap = int(runner.session.get("stream_device_chunk_rows"))
+    cap = slab_stage_rows(runner.session)
     max_bytes = int(runner.session.get("stream_device_cache_bytes"))
     staged = {}
     t_all = time.perf_counter()
@@ -1198,9 +1357,11 @@ def phase_tpch22(smi: str) -> tuple[dict, int]:
             k1_launches_per_run=k1, k2_launches_per_run=k2,
             joinStrategy=stats.get("joinStrategy"),
             overflow_retries=stats.get("overflow_retries"),
-            fragment_modes={str(f): m for f, m in (res.fragment_modes or {}).items()},
             peak_device_bytes=torch.cuda.max_memory_allocated(),
+            **stream_fields(res),
         )
+        if q in TPCH22_STREAMED and not stats.get("join_streams"):
+            failures.append(f"Q{q}: no join fragment streamed")
     launches = dict(_kernels.LAUNCHES)
     log("tpch22", card=smi, launches=launches,
         warm_total_ms=sum(warm_ms.values()))
@@ -1234,13 +1395,14 @@ def phase_tpch22(smi: str) -> tuple[dict, int]:
 
 
 def run_against_answers(runner, texts: dict, answers: dict, warm: int,
-                        phase: str, smi: str):
+                        phase: str, smi: str, streamed=()):
     """Each query of ``texts`` once cold and ``warm`` times warm, its rows
     and column types held against ``answers`` (one line a query: times,
     kernel launches, overflow retries and table-cache hits and misses
-    per run, join strategies, fragment modes, peak device memory with
-    the peak reset per query). Returns warm medians, K2 launches of the
-    last run, peaks and failures, by query."""
+    per run, join strategies, fragment modes, peak device memory of each
+    run and of the query, the streamed join fragments). A query of
+    ``streamed`` that streams no join fragment is a failure. Returns warm
+    medians, K2 launches of the last run, peaks and failures, by query."""
     import torch
 
     from trino_tpu_torch import _kernels
@@ -1249,15 +1411,16 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
     failures, warm_ms, k2_runs, peaks = [], {}, {}, {}
     for q, sql in texts.items():
         want = answers["queries"][str(q)]
-        times, k1, k2, cache, retries = [], [], [], [], []
-        torch.cuda.reset_peak_memory_stats()
+        times, k1, k2, cache, retries, run_peaks = [], [], [], [], [], []
         for _ in range(1 + warm):
             before = dict(_kernels.LAUNCHES)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = runner.engine.execute_statement(sql, runner.session)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+            run_peaks.append(torch.cuda.max_memory_allocated())
             k1.append(_kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"])
             k2.append(_kernels.LAUNCHES["dense_join_build"] - before["dense_join_build"])
             ing = res.ingest_stats or {}
@@ -1274,7 +1437,7 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
                 break
         warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
         k2_runs[q] = k2[-1]
-        peaks[q] = torch.cuda.max_memory_allocated()
+        peaks[q] = max(run_peaks)
         stats = res.exchange_stats or {}
         log(
             phase, card=smi, query=f"Q{q}", rows=len(res.rows),
@@ -1284,9 +1447,11 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
             overflow_retries_per_run=retries,
             table_cache_hits_misses_per_run=cache,
             joinStrategy=stats.get("joinStrategy"),
-            fragment_modes={str(f): m for f, m in (res.fragment_modes or {}).items()},
-            peak_device_bytes=peaks[q],
+            peak_device_bytes=peaks[q], peak_device_bytes_per_run=run_peaks,
+            **stream_fields(res),
         )
+        if q in streamed and not stats.get("join_streams"):
+            failures.append(f"Q{q}: no join fragment streamed")
     return warm_ms, k2_runs, peaks, failures
 
 
@@ -1294,7 +1459,8 @@ TPCDS_SCHEMA = "sf1"      # the TPC-DS phase's scale factor
 TPCDS_WARM = 2
 TPCDS_SF10_QUERIES = (64, 95)  # BASELINE.json config 3, at tpcds.sf10
 TPCDS_SF10_WARM = 1
-TPCDS_TABLE_CACHE_BYTES = 16 << 30
+# queries with a join fragment that streams on the inventory probe spine
+TPCDS_STREAMED = (21, 37, 82)
 
 
 def phase_tpcds(smi: str) -> tuple[dict, int]:
@@ -1317,6 +1483,7 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     from trino_tpu_torch.benchmarks import tpcds as DS
     from trino_tpu_torch.benchmarks import tpch as B
     from trino_tpu_torch.columnar import concat_batches
+    from trino_tpu_torch.engine import table_cache_budget
     from trino_tpu_torch.testing import LocalQueryRunner
 
     answers = B.load_answers(DS.ANSWERS_SF1)
@@ -1325,11 +1492,8 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     runner = LocalQueryRunner(device="cuda")
     runner.session.set("execution_mode", "distributed")
     runner.session.set("join_strategy", "auto")
-    # the device table cache's default (1 GiB, the reference's) thrashes
-    # over these queries' tables (234 evictions over the 64 at SF1 on an
-    # H100) and cannot hold SF10 store_sales: a deployment on an 80 GB
-    # card sizes it up
-    runner.session.set("table_cache_max_bytes", TPCDS_TABLE_CACHE_BYTES)
+    # the device table cache keeps its default budget: a quarter of the
+    # card's memory (engine.table_cache_budget)
     tpcds = runner.catalogs.get("tpcds")
     staged = {}
     t_all = time.perf_counter()
@@ -1363,8 +1527,14 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     # the main path's run: every count starts at 0 here and is read after
     _kernels.reset_counts()
     warm_ms, k2_runs, peaks, failures = run_against_answers(
-        runner, texts, answers, TPCDS_WARM, "tpcds", smi
+        runner, texts, answers, TPCDS_WARM, "tpcds", smi, TPCDS_STREAMED
     )
+    sf1_cache = runner.engine.table_cache.snapshot()
+    log("tpcds", card=smi, schema=TPCDS_SCHEMA, table_cache=sf1_cache,
+        table_cache_budget_bytes=table_cache_budget(
+            runner.session, runner.engine.memory_pool, runner.engine.device))
+    if sf1_cache["evictions"]:
+        failures.append(f"the table cache evicted {sf1_cache['evictions']} times at SF1")
     # BASELINE.json config 3: Q64 and Q95 at SF10, the same checks
     answers10 = B.load_answers(DS.ANSWERS_SF10)
     texts10 = DS.queries(answers10["schema"])
@@ -1403,7 +1573,36 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     phase_profile(runner, {f"Q{q}": texts[q] for q in slowest}, card=smi)
     top = max(peaks, key=peaks.get)
     log("peak", card=smi, query=f"Q{top}", **peak_attribution(runner, texts[top]))
+    log("peak", card=smi, query="Q95@sf10",
+        **peak_attribution(runner, texts10[95], top=12, with_joins=True))
+    # and its cold run (its cold peak is its query peak): the same run with
+    # the capacities it grew forgotten, the cached tables kept
+    for key in [k for k in runner.engine.caps_store if k[0] == fingerprint_of(runner, texts10[95])]:
+        del runner.engine.caps_store[key]
+    log("peak", card=smi, query="Q95@sf10-cold",
+        **peak_attribution(runner, texts10[95], top=12, with_joins=True))
     return launches, k2_err
+
+
+def fingerprint_of(runner, sql: str) -> str:
+    from trino_tpu_torch.engine import plan_fingerprint
+
+    return plan_fingerprint(runner.plan(sql))
+
+
+def phase_spill_alone(smi: str) -> None:
+    """Phase ``spill`` on its own: the SF10 tables and their oracle, the
+    memory tables of phase ``join``, then the spilled runs."""
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    t0 = time.perf_counter()
+    tables = tpch_tables(SF, seed=7)
+    oracle = tpch_oracle(tables)
+    log("tpch", sf=SF, generate_and_oracle_s=time.perf_counter() - t0)
+    runner = LocalQueryRunner(device="cuda")
+    runner.session.set("execution_mode", "distributed")
+    load_tpch(runner, tables)
+    phase_spill(runner, oracle, smi)
 
 
 def main() -> int:
@@ -1412,11 +1611,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     smi = phase_device()
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         # a part of the script, for work on one phase: no result lines
         for name in sys.argv[2].split(","):
-            {"tpch22": phase_tpch22, "tpcds": phase_tpcds}[name](smi)
+            {"tpch22": phase_tpch22, "tpcds": phase_tpcds,
+             "spill": phase_spill_alone}[name](smi)
             gc.collect()
             torch.cuda.empty_cache()
         return 0
@@ -1430,11 +1631,12 @@ def main() -> int:
     sql_launches = phase_sql()
     if sql_launches["dense_groupby"] < 1:
         raise AssertionError("the group-by path launched no dense group-by kernel")
-    join_launches = phase_join(tables, oracle)
+    join_launches, join_k2_err, join_runner = phase_join(tables, oracle)
     if join_launches["dense_join_build"] < 1:
         raise AssertionError("the join path launched no join-build kernel")
+    spill_launches = phase_spill(join_runner, oracle, smi)
     # release the join phase's tables and device memory first
-    del tables, oracle
+    del tables, oracle, join_runner
     gc.collect()
     torch.cuda.empty_cache()
     tpch_launches = phase_tpch(smi)
@@ -1447,13 +1649,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     ds, ds_k2_err = phase_tpcds(smi)
     a, ka = kern["a"], k2["a"]
+    log("run", card=smi, seconds=time.perf_counter() - t_run)
     print(json.dumps({"kernels": [{
         "name": "dense_groupby",
         "route": "cuda",
         "source": "trino_tpu_torch/csrc/dense_groupby.cu",
         "replaces": "trino_tpu/ops/dense_groupby.py:229",
         "launches": (sql_launches["dense_groupby"] + join_launches["dense_groupby"]
-                     + tpch_launches + t22["dense_groupby"] + ds["dense_groupby"]),
+                     + spill_launches["dense_groupby"] + tpch_launches
+                     + t22["dense_groupby"] + ds["dense_groupby"]),
         "matches_plain": True,
         "max_abs_err": kern["max_abs_err"],
         "ms": a["ms"],
@@ -1466,11 +1670,11 @@ def main() -> int:
         "route": "cuda",
         "source": "trino_tpu_torch/csrc/dense_join_build.cu",
         "replaces": "trino_tpu/ops/dense_join.py:344",
-        "launches": (join_launches["dense_join_build"] + t22["dense_join_build"]
-                     + ds["dense_join_build"]),
+        "launches": (join_launches["dense_join_build"] + spill_launches["dense_join_build"]
+                     + t22["dense_join_build"] + ds["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
-                           + [t22_k2_err, ds_k2_err]),
+                           + [join_k2_err, t22_k2_err, ds_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

@@ -318,3 +318,14 @@ def test_tpcds_queries_on_the_card_equal_the_answers(cuda, mode):
         assert bad is None, f"Q{q}: {bad}"
     if mode == "distributed":
         assert _kernels.LAUNCHES["dense_join_build"] > before
+
+
+@pytest.mark.cuda
+def test_table_cache_budget_is_a_quarter_of_the_card(cuda):
+    from trino_tpu_torch.config import Session
+    from trino_tpu_torch.engine import Engine, table_cache_budget
+
+    engine = Engine(device=cuda)
+    total = torch.cuda.get_device_properties(engine.device).total_memory
+    assert engine.memory_pool.capacity == total
+    assert table_cache_budget(Session(), engine.memory_pool, engine.device) == total // 4

@@ -47,7 +47,7 @@ def test_port_imports_neither_jax_nor_reference():
     for module in ("connectors.tpch", "connectors.dbgen", "benchmarks.tpch",
                    "ops.decimal128", "exec.streaming", "native", "strings",
                    "connectors.tpcds", "benchmarks.tpcds", "ops.window",
-                   "ingest"):
+                   "ingest", "memory", "spill"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 

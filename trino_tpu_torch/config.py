@@ -75,13 +75,14 @@ class Session:
         # accumulators instead of materializing the table on device
         ("stream_scan_threshold_rows", 1 << 22),
         ("stream_chunk_rows", 1 << 20),
-        # device-resident streaming: connectors that can stage a table
-        # into HBM (memory connector) stream it via in-program
-        # dynamic_slice chunks; cap on staged bytes per table
+        # device-resident streaming: connectors that can stage a table on
+        # the card (memory, tpch, tpcds: ``device_slab``) stream views of
+        # it; cap on staged bytes per table
         ("stream_device_cache_bytes", 4 << 30),
-        # 2M rows: the in-loop int64 cumsum's reduce-window must fit
-        # scoped vmem (16MB on v5e; 4M-row chunks exceed it)
-        ("stream_device_chunk_rows", 1 << 21),
+        # rows a chunk of the device slab holds; None: the whole slab when
+        # the fragment's working set fits the card's free memory, else the
+        # largest power of two that does (exec/streaming.py)
+        ("stream_device_chunk_rows", None),
         # initial per-shard group budget for streamed aggregation (grows
         # on overflow)
         ("stream_group_budget", 1 << 12),
@@ -204,7 +205,9 @@ class Session:
         # across queries keyed by (catalog, table, version, projection,
         # splits); warm repeat scans issue zero H2D bytes
         ("table_cache", True),
-        ("table_cache_max_bytes", 1 << 30),
+        # None: a quarter of the engine's memory pool on a card (the card's
+        # memory), the reference's 1 GiB on the CPU (engine.py)
+        ("table_cache_max_bytes", None),
         # --- semantic result cache (trino_tpu/cache/result_cache.py) -------
         # coordinator-level final-result reuse keyed by (canonical plan
         # fingerprint, hoisted-param vector, per-catalog data versions,

@@ -256,6 +256,44 @@ def stage_device_slab(host_batches: Sequence[Batch], cap: int, device):
     return Batch(cols, padded.capacity), total_rows
 
 
+class DeviceColumnStore:
+    """A generating connector's columns staged on a device, one per
+    (schema, table, column, device) and kept across queries: a query that
+    reads some of an earlier query's columns generates and copies only the
+    missing ones. Device memory is the connector's page store; the tpch
+    and tpcds connectors' ``device_slab`` stage through it."""
+
+    def __init__(self):
+        self._cols: dict[tuple, tuple] = {}
+
+    def slab(self, schema, table, columns: Sequence[str], types: Sequence,
+             rows: int, cap: int, max_bytes: int, device, generate):
+        """(slab_batch, num_rows) of ``columns``, or None when they would
+        take more than ``max_bytes`` staged. ``generate(missing)`` returns
+        the host batches, in split order, of the columns not yet staged at
+        a capacity that ``cap`` divides."""
+        if not rows or not columns:
+            return None
+        if slab_bytes_estimate(types, rows, cap) > max_bytes:
+            return None
+
+        def key(c):
+            return (schema, table, c, str(device))
+
+        missing = []
+        for c in columns:
+            hit = self._cols.get(key(c))
+            if hit is None or hit[0].capacity % cap:
+                missing.append(c)
+        if missing:
+            slab, num_rows = stage_device_slab(generate(missing), cap, device)
+            for c, col in zip(missing, slab.columns):
+                self._cols[key(c)] = (col, num_rows)
+        staged = [self._cols[key(c)] for c in columns]
+        cols = [col for col, _ in staged]
+        return Batch(cols, cols[0].capacity, placement=device), staged[0][1]
+
+
 def batch_column_stats(columns, batch) -> dict:
     """Per-column (min, max, has_null) for a compacted batch — shared by
     stats-collecting connectors (the stripe-footer computation)."""

@@ -29,7 +29,13 @@ import numpy as np
 from trino_tpu_torch import types as T
 from trino_tpu_torch.civil import days_from_civil
 from trino_tpu_torch.columnar import Batch, Column, Dictionary, as_tensor
-from trino_tpu_torch.connectors.api import ColumnSchema, Connector, Split, TableSchema
+from trino_tpu_torch.connectors.api import (
+    ColumnSchema,
+    Connector,
+    DeviceColumnStore,
+    Split,
+    TableSchema,
+)
 
 DEC = T.decimal(7, 2)
 
@@ -307,6 +313,8 @@ class TpcdsConnector(Connector):
         self._batch_cache: OrderedDict[tuple, dict[str, Column]] = OrderedDict()
         self._batch_cache_bytes = 0
         self._batch_cache_limit = cache_bytes
+        # staged device columns (see device_slab)
+        self._device_cols = DeviceColumnStore()
 
     # --- metadata --------------------------------------------------------
 
@@ -386,6 +394,37 @@ class TpcdsConnector(Connector):
                 self._batch_cache_bytes += nbytes
         out = [cols[c] for c in columns]
         return Batch(out, out[0].data.shape[0] if out else 0)
+
+    def device_slab(self, schema, table, columns, cap: int, max_bytes: int,
+                    device):
+        """Stage a generated table's columns onto ``device``, for the
+        streamed scan (``exec/streaming.py``). Returns (slab_batch,
+        num_rows), or None when the columns exceed ``max_bytes``.
+
+        The rows are those of the splits a table scan reads
+        (``LocalExecutor._scan_splits``: 64 targeted, before pruning), in
+        split order, generated directly so staging never evicts the host
+        split cache. Each column is staged once per device and kept
+        (``DeviceColumnStore``)."""
+        ts = self.get_table(schema, table)
+        if ts is None:
+            return None
+        sf = scale_factor(schema)
+        by_name = {c.name: c for c in ts.columns}
+
+        def generate(missing):
+            gen = getattr(self, f"_gen_{table}")
+            parts = []
+            for s in self.get_splits(schema, table, 64):
+                cols = gen(sf, s.index, s.total)
+                out = [_host_column(cols[c]) for c in missing]
+                parts.append(Batch(out, out[0].data.shape[0]))
+            return parts
+
+        return self._device_cols.slab(
+            schema, table, columns, [by_name[c].type for c in columns],
+            self.estimate_rows(schema, table), cap, max_bytes, device, generate,
+        )
 
     def _rng(self, table: str, index: int) -> np.random.Generator:
         return np.random.default_rng(_stable_seed("tpcds", table, index))

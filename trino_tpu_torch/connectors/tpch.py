@@ -22,7 +22,13 @@ import numpy as np
 from trino_tpu_torch import types as T
 from trino_tpu_torch.civil import days_from_civil
 from trino_tpu_torch.columnar import Batch, Column, Dictionary, as_tensor
-from trino_tpu_torch.connectors.api import ColumnSchema, Connector, Split, TableSchema
+from trino_tpu_torch.connectors.api import (
+    ColumnSchema,
+    Connector,
+    DeviceColumnStore,
+    Split,
+    TableSchema,
+)
 
 DEC = T.decimal(12, 2)
 
@@ -151,10 +157,8 @@ class TpchConnector(Connector):
         self._batch_cache: OrderedDict[tuple, Batch] = OrderedDict()
         self._batch_cache_bytes = 0
         self._batch_cache_limit = cache_bytes
-        # staged device columns, one per (schema, table, column, device):
-        # a query reading a subset of an earlier query's columns stages
-        # nothing new (see device_slab)
-        self._device_cols: dict[tuple, tuple[Column, int]] = {}
+        # staged device columns (see device_slab)
+        self._device_cols = DeviceColumnStore()
 
     # --- metadata --------------------------------------------------------
     def list_schemas(self):
@@ -308,36 +312,14 @@ class TpchConnector(Connector):
         or None when the columns exceed ``max_bytes``; the caller then
         streams host chunks.
 
-        Each column is staged once per device and kept: a later query
-        that reads some of the same columns generates and copies only the
-        missing ones. Quantum padding lets every power-of-two chunk size
-        up to it slice the slab (``connectors/api.py``)."""
-        scale_factor(schema)  # validates the schema name
+        Each column is staged once per device and kept
+        (``DeviceColumnStore``). Quantum padding lets every power-of-two
+        chunk size up to it slice the slab (``connectors/api.py``)."""
+        sf = scale_factor(schema)  # validates the schema name
         rows = self.estimate_rows(schema, table)
-        if rows is None or not columns:
-            return None
-        from trino_tpu_torch.connectors.api import (
-            slab_bytes_estimate,
-            stage_device_slab,
-        )
+        by_name = {c.name: c for c in self.get_table(schema, table).columns}
 
-        ts = self.get_table(schema, table)
-        by_name = {c.name: c for c in ts.columns}
-        if slab_bytes_estimate(
-            [by_name[c].type for c in columns], rows, cap
-        ) > max_bytes:
-            return None
-
-        def key(c):
-            return (schema, table, c, str(device))
-
-        missing = []
-        for c in columns:
-            hit = self._device_cols.get(key(c))
-            if hit is None or hit[0].capacity % cap:
-                missing.append(c)
-        if missing:
-            sf = scale_factor(schema)
+        def generate(missing):
             n_splits = max(1, (rows + self.split_rows - 1) // self.split_rows)
             gen = getattr(self, f"_gen_{table}")
             parts = []
@@ -347,12 +329,12 @@ class TpchConnector(Connector):
                 cols = gen(sf, i, n_splits, columns=set(missing))
                 out = [cols[c] for c in missing]
                 parts.append(Batch(out, out[0].data.shape[0]))
-            slab, num_rows = stage_device_slab(parts, cap, device)
-            for c, col in zip(missing, slab.columns):
-                self._device_cols[key(c)] = (col, num_rows)
-        staged = [self._device_cols[key(c)] for c in columns]
-        cols = [col for col, _ in staged]
-        return Batch(cols, cols[0].capacity, placement=device), staged[0][1]
+            return parts
+
+        return self._device_cols.slab(
+            schema, table, columns, [by_name[c].type for c in columns], rows,
+            cap, max_bytes, device, generate,
+        )
 
     def read_split(self, schema, table, columns, split):
         key = (schema, table, tuple(columns), split.index, split.total)

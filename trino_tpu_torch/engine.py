@@ -9,15 +9,20 @@ catalogs generate their tables (``connectors/tpch.py``,
 ``connectors/tpcds.py``); ``memory`` tables are created and loaded
 through the memory connector's API (``connectors/memory.py``). The engine
 keeps what outlives one query: the capacities earlier runs of a plan grew
-to (by plan fingerprint) and the device table cache (``ingest.py``).
+to (by plan fingerprint), the device table cache (``ingest.py``) and the
+memory pool (``memory.py``) that each query's memory context reserves
+from.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import re
 from typing import Any, Optional
+
+import torch
 
 from trino_tpu_torch import resolve_device
 from trino_tpu_torch import types as T
@@ -26,6 +31,7 @@ from trino_tpu_torch.config import Session
 from trino_tpu_torch.connectors.api import CatalogManager
 from trino_tpu_torch.exec.local import LocalExecutor
 from trino_tpu_torch.ingest import DeviceTableCache
+from trino_tpu_torch.memory import MemoryPool, QueryMemoryContext, device_pool_bytes
 from trino_tpu_torch.planner import plan as P
 from trino_tpu_torch.sql import parse_statement
 from trino_tpu_torch.sql import tree as t
@@ -54,6 +60,8 @@ class StatementResult:
     ingest_stats: Optional[dict[str, Any]] = None
     # fragment id -> "streamed" | "materialized" for distributed runs
     fragment_modes: Optional[dict[int, str]] = None
+    # spilled operators by kind, partitions and host partitioning seconds
+    spill_stats: Optional[dict[str, Any]] = None
 
 
 def plan_fingerprint(plan: P.PlanNode) -> str:
@@ -65,11 +73,31 @@ def plan_fingerprint(plan: P.PlanNode) -> str:
     return hashlib.sha1(text.encode()).hexdigest()
 
 
+# the reference's table-cache budget, sized for its 16 GiB pool; kept on
+# the CPU so that the CPU runs count as the reference's do
+CPU_TABLE_CACHE_BYTES = 1 << 30
+
+
+def table_cache_budget(session: Session, pool: MemoryPool, device) -> int:
+    """The device table cache's byte budget: the session's
+    ``table_cache_max_bytes`` when it sets one; otherwise a quarter of the
+    engine's memory pool on a card (21.25 GB on an H100 80GB, where the
+    reference's 1 GiB evicted 234 times over the 64 TPC-DS queries at SF1),
+    and the reference's 1 GiB on the CPU."""
+    value = session.get("table_cache_max_bytes")
+    if value is not None:
+        return int(value)
+    if torch.device(device).type == "cuda":
+        return pool.capacity // 4
+    return CPU_TABLE_CACHE_BYTES
+
+
 class Engine:
     """Catalogs + statement dispatch, on one torch device.
 
     ``device`` defaults to ``cuda``; without a GPU the engine raises
-    unless the caller passes ``device="cpu"``."""
+    unless the caller passes ``device="cpu"``. The memory pool holds the
+    card's memory, or the reference's 16 GiB on the CPU."""
 
     def __init__(self, catalogs: Optional[CatalogManager] = None, device=None):
         self.device = resolve_device(device)
@@ -89,6 +117,8 @@ class Engine:
         # scanned tables kept on the device across queries (session
         # property ``table_cache``)
         self.table_cache = DeviceTableCache()
+        self.memory_pool = MemoryPool(device_pool_bytes(self.device))
+        self._query_ids = itertools.count(1)
 
     def execute_statement(self, sql: str, session: Session) -> StatementResult:
         """Run one statement."""
@@ -113,21 +143,31 @@ class Engine:
     def _execute_query_plan(
         self, plan: P.PlanNode, session: Session
     ) -> StatementResult:
-        executor = self._executor(session, plan)
-        batch, names = executor.execute(plan)
+        ctx = QueryMemoryContext(
+            self.memory_pool, f"q{next(self._query_ids)}",
+            max_bytes=int(session.get("query_max_memory_bytes")),
+        )
+        try:
+            executor = self._executor(session, plan, ctx)
+            batch, names = executor.execute(plan)
+        finally:
+            ctx.close()
         return StatementResult(
             batch.to_pylist(),
             names,
             [c.type for c in batch.columns],
+            peak_memory_bytes=ctx.peak_bytes,
             dynamic_filters=len(executor.dynamic_filters),
             exchange_stats=dict(getattr(executor, "exchange_stats", {}) or {})
             or None,
             fragment_modes=dict(getattr(executor, "fragment_modes", {}) or {})
             or None,
             ingest_stats=getattr(executor, "ingest_stats", None),
+            spill_stats=dict(executor.spill_stats) or None,
         )
 
-    def _executor(self, session: Session, plan: P.PlanNode) -> LocalExecutor:
+    def _executor(self, session: Session, plan: P.PlanNode,
+                  ctx: Optional[QueryMemoryContext] = None) -> LocalExecutor:
         mode = session.get("execution_mode")
         if mode == "distributed" and session.get("fragment_execution"):
             from trino_tpu_torch.exec.fragments import FragmentedExecutor
@@ -136,12 +176,16 @@ class Engine:
                 self.catalogs, session, self.device,
                 caps_store=self.caps_store, fingerprint=plan_fingerprint(plan),
                 table_cache=self.table_cache,
+                table_cache_bytes=table_cache_budget(
+                    session, self.memory_pool, self.device
+                ),
+                memory_ctx=ctx,
             )
         if mode not in ("local", "distributed"):
             raise SemanticError(
                 f"execution_mode={mode!r} is not yet ported to trino_tpu_torch"
             )
-        return LocalExecutor(self.catalogs, session, self.device)
+        return LocalExecutor(self.catalogs, session, self.device, memory_ctx=ctx)
 
     # === session control ==================================================
 

@@ -23,6 +23,7 @@ def classify_error(e: BaseException) -> Tuple[int, str, str]:
     and the analyzer/planner modules this touches are heavyweight.
     """
     from trino_tpu_torch.analyzer import SemanticError
+    from trino_tpu_torch.memory import ExceededMemoryLimitError
     from trino_tpu_torch.planner.sanity import PlanValidationError
     from trino_tpu_torch.sql.lexer import SqlSyntaxError
 
@@ -34,6 +35,8 @@ def classify_error(e: BaseException) -> Tuple[int, str, str]:
         # a sanity checker rejected the plan: an engine bug, not a
         # user error — name the checker in the /v1/query error
         return (65537, "PLAN_VALIDATION_ERROR", "INTERNAL_ERROR")
+    if isinstance(e, ExceededMemoryLimitError):
+        return (131075, "EXCEEDED_MEMORY_LIMIT", "INSUFFICIENT_RESOURCES")
     if isinstance(e, KeyError):
         return (2, "SEMANTIC_ERROR", "USER_ERROR")
     return GENERIC_INTERNAL_ERROR

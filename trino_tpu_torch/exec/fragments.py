@@ -6,10 +6,11 @@ run leaves first, each consumer reading its producers' results through
 ``RemoteSource`` nodes. This engine runs on a mesh of one device, so
 every exchange (hash, broadcast, gather) is the identity.
 
-A scan→(filter|project)*→aggregate fragment over a large table streams
+A scan→(filter|project|join)*→aggregate fragment over a large table streams
 (``exec/streaming.py``: the dense group-by kernel over the device-resident
 slab, else the sort-based chunk step over the slab or host chunks, under
-its own overflow retry). Otherwise the fragment runs
+its own overflow retry; the joins on its probe spine build their tables
+once and probe them with every chunk). Otherwise the fragment runs
 materialized through :class:`_FragmentTracer`: completed build fragments
 first prune its probe scans (dynamic filtering), then its joins run the
 dense open-addressing tier (``ops/dense_join.py``, whose build is kernel
@@ -31,8 +32,8 @@ Capacities and the device table cache outlive the query (see
 :class:`FragmentedExecutor`).
 
 Not ported yet: fused multi-fragment programs, cross-query program
-caching and batching, the history store, skew handling, streaming joins
-on the probe spine (``_prebuild``), and operator counters.
+caching and batching, the history store, skew handling and operator
+counters.
 """
 
 from __future__ import annotations
@@ -205,7 +206,8 @@ class _FragmentTracer(LocalExecutor):
 
     def __init__(self, base: LocalExecutor, inputs, input_layouts,
                  caps: Optional[_Caps] = None, fragment_id: int = 0,
-                 root: Optional[P.PlanNode] = None):
+                 root: Optional[P.PlanNode] = None,
+                 builds: Optional[dict] = None):
         super().__init__(base.catalogs, base.session, base.device)
         self._inputs = inputs
         self._input_layouts = input_layouts
@@ -219,6 +221,12 @@ class _FragmentTracer(LocalExecutor):
         if root is not None:
             joins = [n for n in P.walk_plan(root) if isinstance(n, P.Join)]
             self._ordinals = {id(n): k for k, n in enumerate(joins)}
+        # join builds by node, shared by the chunk tracers of one stream
+        # attempt (exec/streaming.py) so each join builds its table once;
+        # None: every join builds its own. Shared builds keep their key
+        # codes: a string key's probe codes are remapped onto the build's
+        # dictionary, whatever the probe chunk's dictionary holds.
+        self.builds = builds
 
     def _site(self, kind: str, node: P.PlanNode) -> str:
         return f"{kind}@{self.fragment_id}#{self._ordinals.get(id(node), 0)}"
@@ -330,7 +338,7 @@ class _FragmentTracer(LocalExecutor):
         return "dense"
 
     def _exec_join(self, node: P.Join) -> Result:
-        from trino_tpu_torch.parallel.distributed import _sharded_probe
+        from trino_tpu_torch.parallel.distributed import probe_build
 
         if node.join_type in ("SEMI", "ANTI"):
             return self._exec_semi_join_traced(node)
@@ -348,65 +356,37 @@ class _FragmentTracer(LocalExecutor):
             return LocalExecutor._exec_join(self, node)
         right = self._exec(node.right)
         left = self._exec(node.left)
-        lkeys, rkeys = self._join_keys(left, right, node.criteria)
+        lkeys, rkeys = self._join_keys(
+            left, right, node.criteria, remap_probe=self.builds is not None
+        )
         ph, _ = J.hash_keys(lkeys)
-        bh, _ = J.hash_keys(rkeys)
-        probe_cols, build_cols, probe_keys, build_keys = [], [], [], []
+        probe_cols, probe_keys = [], []
         for s in node.left.output_symbols:
             c = left.column(s)
             probe_cols += [c.data, c.valid_mask()]
-        for s in node.right.output_symbols:
-            c = right.column(s)
-            build_cols += [c.data, c.valid_mask()]
-        full = node.join_type == "FULL"
-        if full:
-            # the build row ids ride along, so the matched build rows
-            # scatter into a mask without a host read
-            bsel = right.batch.selection_mask()
-            rid = torch.arange(bsel.shape[0], dtype=torch.int64, device=bsel.device)
-            build_cols += [rid, torch.ones_like(bsel)]
-        if node.single_row:
-            # a correlated scalar subquery: a build key group of more than
-            # one row that a probe row joins is an error. The duplicate
-            # flag rides along as a synthetic build column, so duplicate
-            # groups no probe row joins do not fire.
-            dup = dup_key_rows(rkeys, right.batch.selection_mask())
-            build_cols += [dup, torch.ones_like(dup)]
         for kd, kv in lkeys:
             probe_keys += [kd, kv]
-        for kd, kv in rkeys:
-            build_keys += [kd, kv]
+        full = node.join_type == "FULL"
         join_site = self._site("join", node)
         dense_site = self._site("densejoin", node)
         strategy = self._join_strategy(node, lkeys)
         self.caps.join_strategies[dense_site] = strategy
+        build = self._join_build(node, right, rkeys, strategy, dense_site, full)
         # a site's first run sizes its output to the matches (one read)
         cap = self.caps.vals.get(join_site)
-        table_cap = None
-        if strategy != "sort":
-            # table slots: 4x the build rows (load factor <= 0.25: linear
-            # probe clusters coalesce past the static window at 0.5)
-            table_cap = self.caps.get(dense_site, bucket_capacity(
-                max(1024, 4 * self._first_run_rows(dense_site, right))
-            ))
-        res = _sharded_probe(
-            probe_cols, probe_keys, ph, left.batch.selection_mask(),
-            build_cols, build_keys, bh, right.batch.selection_mask(),
-            cap, "LEFT" if full else node.join_type, len(lkeys),
-            strategy=strategy, table_cap=table_cap,
+        out_cols, out_sel, ovf, _, total = probe_build(
+            build, probe_cols, probe_keys, ph, left.batch.selection_mask(),
+            cap, "LEFT" if full else node.join_type,
         )
-        out_cols, out_sel, ovf, table_ovf, total = res
         if cap is None:
             cap = self.caps.get(join_site, out_sel.shape[0])
-        if table_ovf is not None:
-            # graceful overflow: the rerun doubles the table and re-hashes
-            self.overflows.append((dense_site, table_ovf))
         self.overflows.append((join_site, ovf))
         self.needed[join_site] = total
         if node.single_row:
             dup_hit = out_cols[-2] & out_cols[-1] & out_sel
             self.overflows.append((f"err!{SCALAR_ROWS_ERROR}", dup_hit.any()))
         if full:
+            bsel = right.batch.selection_mask()
             rid, rid_hit = out_cols[-2], out_cols[-1] & out_sel
             out_cols = out_cols[:-2]
             bcap = bsel.shape[0]
@@ -422,6 +402,51 @@ class _FragmentTracer(LocalExecutor):
                 Batch(result.batch.columns, cap, mask & out_sel), result.layout
             )
         return result
+
+    def _join_build(self, node: P.Join, right: Result, rkeys, strategy: str,
+                    dense_site: str, full: bool):
+        """The build side of one join node (``parallel/distributed.py::
+        build_join``): made here, or taken from :attr:`builds` when an
+        earlier chunk of the same stream attempt made it. A dense table's
+        overflow flag is reported by the run that built it."""
+        from trino_tpu_torch.parallel.distributed import build_join
+
+        if self.builds is not None and id(node) in self.builds:
+            return self.builds[id(node)]
+        bh, _ = J.hash_keys(rkeys)
+        build_cols, build_keys = [], []
+        for s in node.right.output_symbols:
+            c = right.column(s)
+            build_cols += [c.data, c.valid_mask()]
+        bsel = right.batch.selection_mask()
+        if full:
+            # the build row ids ride along, so the matched build rows
+            # scatter into a mask without a host read
+            rid = torch.arange(bsel.shape[0], dtype=torch.int64, device=bsel.device)
+            build_cols += [rid, torch.ones_like(bsel)]
+        if node.single_row:
+            # a correlated scalar subquery: a build key group of more than
+            # one row that a probe row joins is an error. The duplicate
+            # flag rides along as a synthetic build column, so duplicate
+            # groups no probe row joins do not fire.
+            dup = dup_key_rows(rkeys, bsel)
+            build_cols += [dup, torch.ones_like(dup)]
+        for kd, kv in rkeys:
+            build_keys += [kd, kv]
+        table_cap = None
+        if strategy != "sort":
+            # table slots: 4x the build rows (load factor <= 0.25: linear
+            # probe clusters coalesce past the static window at 0.5)
+            table_cap = self.caps.get(dense_site, bucket_capacity(
+                max(1024, 4 * self._first_run_rows(dense_site, right))
+            ))
+        build = build_join(build_cols, build_keys, bh, bsel, len(rkeys), strategy, table_cap)
+        if build.table_overflow is not None:
+            # graceful overflow: the rerun doubles the table and re-hashes
+            self.overflows.append((dense_site, build.table_overflow))
+        if self.builds is not None:
+            self.builds[id(node)] = build
+        return build
 
     def _first_run_rows(self, site: str, res: Result) -> int:
         """The selected rows of ``res``, read from the device only when
@@ -472,7 +497,7 @@ class _FragmentTracer(LocalExecutor):
         boolean mark column (reference: ``HashSemiJoinOperator.java`` —
         mark semantics incl. 3-valued IN). A residual correlated filter
         runs the local executor's version."""
-        from trino_tpu_torch.parallel.distributed import _sharded_probe
+        from trino_tpu_torch.parallel.distributed import build_join, probe_build
 
         if node.filter is not None:
             return LocalExecutor._exec_semi_join(self, node)
@@ -485,19 +510,29 @@ class _FragmentTracer(LocalExecutor):
             nonempty = bsel.any()
             mark = nonempty if node.join_type == "SEMI" else ~nonempty
             return with_mark(node, left, Column(T.BOOLEAN, mark.expand(cap).clone()))
-        lkeys, rkeys = self._join_keys(left, right, node.criteria)
+        lkeys, rkeys = self._join_keys(
+            left, right, node.criteria, remap_probe=self.builds is not None
+        )
         ph, _ = J.hash_keys(lkeys)
-        bh, bv_all = J.hash_keys(rkeys)
+        bv_all = rkeys[0][1]
+        for _, kv in rkeys[1:]:
+            bv_all = bv_all & kv
         row_ids = torch.arange(cap, dtype=torch.int64, device=lsel.device)
-        probe_keys, build_keys = [], []
+        probe_keys = []
         for kd, kv in lkeys:
             probe_keys += [kd, kv]
-        for kd, kv in rkeys:
-            build_keys += [kd, kv]
+        build = None if self.builds is None else self.builds.get(id(node))
+        if build is None:
+            build_keys = []
+            for kd, kv in rkeys:
+                build_keys += [kd, kv]
+            build = build_join([], build_keys, J.hash_keys(rkeys)[0], bsel, len(rkeys))
+            if self.builds is not None:
+                self.builds[id(node)] = build
         site = self._site("semi", node)
-        out_cols, out_sel, ovf, _, total = _sharded_probe(
-            [row_ids, torch.ones_like(lsel)], probe_keys, ph, lsel,
-            [], build_keys, bh, bsel, self.caps.vals.get(site), "INNER", len(lkeys),
+        out_cols, out_sel, ovf, _, total = probe_build(
+            build, [row_ids, torch.ones_like(lsel)], probe_keys, ph, lsel,
+            self.caps.vals.get(site), "INNER",
         )
         self.caps.get(site, out_sel.shape[0])
         self.overflows.append((site, ovf))
@@ -529,12 +564,15 @@ class FragmentedExecutor(LocalExecutor):
     ``trino_tpu/exec/fragments.py:1759``), and no other query's growth
     leaks into it. ``table_cache`` (a :class:`DeviceTableCache`) keeps
     scanned tables on the device across queries when the session's
-    ``table_cache`` is on."""
+    ``table_cache`` is on, within ``table_cache_bytes`` (the engine
+    resolves the session's ``table_cache_max_bytes`` against the card,
+    ``engine.table_cache_budget``)."""
 
     def __init__(self, catalogs, session, device,
                  caps_store: Optional[dict] = None, fingerprint: str = "",
-                 table_cache=None):
-        super().__init__(catalogs, session, device)
+                 table_cache=None, table_cache_bytes: int = 1 << 30,
+                 memory_ctx=None):
+        super().__init__(catalogs, session, device, memory_ctx=memory_ctx)
         self.exchange_stats: dict = {"overflow_retries": 0, "joinStrategy": {}}
         # fragment id -> "streamed" | "materialized" (which path ran)
         self.fragment_modes: dict[int, str] = {}
@@ -543,6 +581,7 @@ class FragmentedExecutor(LocalExecutor):
         # this query's materialized fragments' capacities, by fragment id
         self._caps: dict[int, _Caps] = {}
         self.table_cache = table_cache
+        self.table_cache_bytes = table_cache_bytes
         self.ingest_stats: dict = {}
 
     def _fragment_caps(self, kind: str, fid: int) -> _Caps:
@@ -576,8 +615,7 @@ class FragmentedExecutor(LocalExecutor):
         stats["table_cache_misses"] = stats.get("table_cache_misses", 0) + 1
         res = LocalExecutor._exec_tablescan(self, node, splits)
         self.table_cache.admit(
-            key, res.batch, batch_nbytes(res.batch),
-            int(self.session.get("table_cache_max_bytes")),
+            key, res.batch, batch_nbytes(res.batch), self.table_cache_bytes
         )
         stats["tableCache"] = self.table_cache.snapshot()
         return res
@@ -627,7 +665,7 @@ class FragmentedExecutor(LocalExecutor):
         results: dict[int, Result],
         names_holder: dict[int, list[str]],
     ) -> Result:
-        streamed = self._try_streaming(frag, names_holder)
+        streamed = self._try_streaming(frag, names_holder, results)
         if streamed is not None:
             self.fragment_modes[frag.id] = "streamed"
             return streamed
@@ -685,20 +723,31 @@ class FragmentedExecutor(LocalExecutor):
             for nm in fired:
                 grow_or_raise(nm, caps, totals.get(nm))
             self.exchange_stats["overflow_retries"] += 1
+            # the failed attempt's output and intermediates (the tracer's
+            # memo of every node's output) die before the rerun allocates
+            # its own
+            del tracer, res
         raise CapacityRetryExceeded(
             "materialized-fragment", fragment_id=fid, capacities=caps.vals,
             attempts=MAX_ATTEMPTS,
         )
 
     def _try_streaming(
-        self, frag: PlanFragment, names_holder: dict[int, list[str]]
+        self, frag: PlanFragment, names_holder: dict[int, list[str]],
+        results: dict[int, Result],
     ) -> Optional[Result]:
-        """Scan→agg fragments over large tables run as a chunk loop with
-        carried state (exec/streaming.py) instead of materializing the
-        scan. An overflowed group budget grows (``grow_or_raise``) and the
-        stream reruns, at most 12 times; the fragment's ``_Caps`` are kept
-        for later runs of the same plan (``caps_store``). None when the
-        shape or the table does not qualify."""
+        """Scan→(join)→agg fragments over large tables run as a chunk loop
+        with carried state (exec/streaming.py) instead of materializing
+        the probe scan. The build sides' inputs materialize first: scans
+        through the table cache (a build scan past
+        ``spill_threshold_rows`` keeps the fragment materialized, as in
+        the reference), remote sources from the completed upstream
+        fragments. An overflowed group budget or join site grows
+        (``grow_or_raise``) and the stream reruns, at most 12 times; the
+        fragment's ``_Caps`` are kept for later runs of the same plan
+        (``caps_store``). None when the shape or the table does not
+        qualify, or the step meets a shape it does not take
+        (``FusedUnsupported``, counted in ``stream_fallbacks``)."""
         from trino_tpu_torch.exec.streaming import (
             StreamingAggregator,
             StreamOverflow,
@@ -709,30 +758,60 @@ class FragmentedExecutor(LocalExecutor):
         if chain is None:
             return None
         agg, scan, build_roots = chain
-        if build_roots:
-            return None  # joins on the probe spine: not ported yet
         connector = self.catalogs.get(scan.catalog)
         est = connector.estimate_rows(scan.schema, scan.table)
         if est is None or est <= int(
             self.session.get("stream_scan_threshold_rows")
         ):
             return None
+        build_inputs: dict[str, Batch] = {}
+        build_layouts: dict[str, dict[str, int]] = {}
+        bound = int(self.session.get("spill_threshold_rows"))
+        for root in build_roots:
+            for n in P.walk_plan(root):
+                if isinstance(n, P.TableScan):
+                    best = self.catalogs.get(n.catalog).estimate_rows(n.schema, n.table)
+                    if best is not None and best > bound:
+                        return None
+                    res = self._scan_batch(n)
+                    build_inputs[f"scan{id(n)}"] = res.batch
+                    build_layouts[f"scan{id(n)}"] = res.layout
+                elif isinstance(n, P.RemoteSource):
+                    upstream = results[n.fragment_id]
+                    build_inputs[f"remote{n.fragment_id}"] = upstream.batch
+                    build_layouts[f"remote{n.fragment_id}"] = upstream.layout
         caps = self._fragment_caps("stream", frag.id)
         for _ in range(MAX_ATTEMPTS):
+            stream = StreamingAggregator(
+                self, frag, agg, scan, caps, build_roots=build_roots,
+                build_inputs=build_inputs, build_layouts=build_layouts,
+            )
             try:
-                res = StreamingAggregator(self, frag, agg, scan, caps).run()
+                res = stream.run()
                 break
             except FusedUnsupported:
+                self.exchange_stats["stream_fallbacks"] = (
+                    self.exchange_stats.get("stream_fallbacks", 0) + 1
+                )
                 return None
             except StreamOverflow as e:
+                for nm in e.fresh - set(e.names):
+                    caps.vals.pop(nm, None)
                 for nm in e.names:
-                    grow_or_raise(nm, caps)
+                    grow_or_raise(nm, caps, e.needed.get(nm))
                 self.exchange_stats["overflow_retries"] += 1
         else:
             raise CapacityRetryExceeded(
                 "streaming", fragment_id=frag.id, capacities=caps.vals,
                 attempts=MAX_ATTEMPTS,
             )
+        if build_roots:
+            self.exchange_stats.setdefault("join_streams", []).append(
+                {"fragment": frag.id, "chunks": stream.chunks,
+                 "builds": len(stream.builds)}
+            )
+        for nm, strategy in caps.join_strategies.items():
+            self.exchange_stats["joinStrategy"][nm] = strategy
         if isinstance(frag.root, P.Output):
             names_holder[frag.id] = list(frag.root.column_names)
             cols = [res.column(s) for s in frag.root.symbols]

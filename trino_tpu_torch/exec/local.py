@@ -16,14 +16,18 @@ filtering; scalar-subquery joins, CROSS joins; DECIMAL(38) keys), Window
 DISTINCT or ALL), Sort, TopN, Limit and Output, wide (n, 2)
 DECIMAL columns included. String->string functions are lowered onto
 dictionary-transformed columns first (``strings.py``). Any other plan
-node raises :class:`ExecutionError` naming it; so do FILTER aggregates,
-min/max over VARCHAR, floating-point join keys and the spill join.
-Gathers stay on the executor's device.
+node raises :class:`ExecutionError` naming it; so do FILTER aggregates
+and min/max over VARCHAR. Joins on DOUBLE and REAL keys match on the
+float64 bit pattern. Past ``spill_threshold_rows`` a join, a GROUP BY, a
+sort (TopN included) and a partitioned window run partition by partition
+(``spill.py``), and each node's output is reserved in the query's memory
+context (``memory.py``). Gathers stay on the executor's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -51,6 +55,12 @@ from trino_tpu_torch.ops.aggregation import (
 )
 from trino_tpu_torch.ops.sort import sort_indices
 from trino_tpu_torch.planner import plan as P
+from trino_tpu_torch.spill import (
+    host_assignments,
+    pad_to_one_unselected,
+    partitioned_run,
+    slice_rows,
+)
 from trino_tpu_torch.strings import lower_string_calls
 
 SCALAR_ROWS_ERROR = "Scalar sub-query has returned multiple rows"
@@ -319,12 +329,19 @@ def with_mark(node: P.Join, left: Result, mark: Column) -> Result:
 
 
 class LocalExecutor:
-    def __init__(self, catalogs: CatalogManager, session: Session, device):
+    def __init__(self, catalogs: CatalogManager, session: Session, device,
+                 memory_ctx=None):
         self.catalogs = catalogs
         self.session = session
         self.device = torch.device(device)
         # dynamic filters collected while executing (dynfilter.py)
         self.dynamic_filters: list = []
+        # the query's memory context (memory.py): each node's output is
+        # reserved, its children's freed once it has materialized
+        self.memory_ctx = memory_ctx
+        self._reservations: dict[int, int] = {}
+        # spilled operators by kind, their partitions and host seconds
+        self.spill_stats: dict = {}
 
     # === entry ==========================================================
     def execute(self, node: P.PlanNode) -> tuple[Batch, list[str]]:
@@ -345,7 +362,18 @@ class LocalExecutor:
             raise ExecutionError(
                 f"plan node {type(node).__name__} is not yet ported to trino_tpu_torch"
             )
-        return method(node)
+        res = method(node)
+        if self.memory_ctx is not None:
+            from trino_tpu_torch.memory import batch_nbytes
+
+            nbytes = batch_nbytes(res.batch)
+            self.memory_ctx.reserve(nbytes, what=type(node).__name__)
+            self._reservations[id(node)] = nbytes
+            # the children's intermediates are dead once this node has
+            # materialized
+            for s in node.sources:
+                self.memory_ctx.free(self._reservations.pop(id(s), 0))
+        return res
 
     def _bind(self, expr: RowExpr, layout: dict[str, int]) -> RowExpr:
         return bind_variables(expr, layout)
@@ -484,10 +512,97 @@ class LocalExecutor:
         return Result(res.batch.take(perm[:take]), res.layout)
 
     def _exec_sort(self, node: P.Sort) -> Result:
-        return self._sorted_result(self._exec(node.source), node.order_by, None)
+        res = self._exec(node.source)
+        if self._should_spill_sort(res, node.order_by):
+            return self._spill_sort(res, node.order_by, None)
+        return self._sorted_result(res, node.order_by, None)
 
     def _exec_topn(self, node: P.TopN) -> Result:
-        return self._sorted_result(self._exec(node.source), node.order_by, node.count)
+        res = self._exec(node.source)
+        if self._should_spill_sort(res, node.order_by):
+            return self._spill_sort(res, node.order_by, node.count)
+        return self._sorted_result(res, node.order_by, node.count)
+
+    def _should_spill(self, rows) -> bool:
+        """Spill an operator of ``rows()`` input rows? Only the interpreter
+        of a query spills (the executor that holds its memory context; the
+        fragment tracer runs at fixed capacities and never spills, as the
+        reference's traced fragments do not), and ``rows`` (a host read
+        for a row count) is called only then."""
+        return (
+            self.memory_ctx is not None
+            and bool(self.session.get("spill_enabled"))
+            and rows() > int(self.session.get("spill_threshold_rows"))
+        )
+
+    def _spilled(self, kind: str) -> dict:
+        """Count one spilled operator of ``kind``; the stats dict that
+        ``spill.partitioned_run`` adds partitions and host seconds to."""
+        ops = self.spill_stats.setdefault("operators", {})
+        ops[kind] = ops.get(kind, 0) + 1
+        return self.spill_stats
+
+    def _should_spill_sort(self, res: Result, order_by) -> bool:
+        if not order_by or not self._should_spill(lambda: res.batch.capacity):
+            return False
+        # a wide-DECIMAL (two-lane) leading key has no scalar range domain
+        return res.column(order_by[0].symbol).data.ndim == 1
+
+    def _spill_sort(self, res: Result, order_by, keep) -> Result:
+        """Bounded-memory external sort (reference: ``_spill_sort``,
+        ``OrderByOperator``/``TopNOperator`` revocation): range-partition
+        the rows on the host by a sample of the leading key, sort each
+        range on the device, concatenate the ranges in order. Rows with
+        equal leading keys share a range, so later keys still order them;
+        NULLs form a range of their own at the end the ordering puts
+        them."""
+        stats = self._spilled("sort")
+        t0 = time.perf_counter()
+        b = res.batch
+        o0 = order_by[0]
+        c0 = res.column(o0.symbol)
+        data, valid = c0.to_numpy()
+        if c0.dictionary is not None:
+            ranks = np.asarray(c0.dictionary.ranks())
+            data = ranks[np.clip(data, 0, max(len(ranks) - 1, 0))]
+        sel = b.selection_mask().cpu().numpy()
+        n_part = max(2, int(self.session.get("spill_partitions")))
+        live = sel & valid
+        vals = data[live]
+        if vals.size == 0:
+            return self._sorted_result(res, order_by, keep)
+        sample = np.sort(vals[:: max(1, vals.size // 65536)])
+        bounds = sample[np.linspace(0, sample.size - 1, n_part + 1)[1:-1].astype(np.int64)]
+        part = np.searchsorted(np.unique(bounds), data, side="right")
+        n_ranges = int(part.max(initial=0)) + 1
+        null_rows = np.nonzero(sel & ~valid)[0]
+        # the ranges in output order: ascending or descending, NULLs at
+        # the end the ordering puts them
+        order = list(range(n_ranges) if o0.ascending else range(n_ranges - 1, -1, -1))
+        buckets = ["null", *order] if o0.nulls_first else [*order, "null"]
+        ranges = [
+            null_rows if bk == "null" else np.nonzero(live & (part == bk))[0]
+            for bk in buckets
+        ]
+        stats["partitions"] = stats.get("partitions", 0) + len(buckets)
+        stats["host_partition_s"] = stats.get("host_partition_s", 0.0) + (
+            time.perf_counter() - t0
+        )
+        pieces: list[Batch] = []
+        total = 0
+        for rows in ranges:
+            if rows.size == 0:
+                continue
+            sub = Result(slice_rows(b, rows), dict(res.layout))
+            piece = self._sorted_result(sub, order_by, keep).batch
+            pieces.append(piece)
+            total += piece.num_rows
+            if keep is not None and total >= keep:
+                break
+        out = concat_on_device(pieces)
+        if keep is not None and out.num_rows > keep:
+            out = out.take(torch.arange(keep, device=out.device))
+        return Result(out, dict(res.layout))
 
     # === joins ==========================================================
     def _exec_join(self, node: P.Join) -> Result:
@@ -499,15 +614,54 @@ class LocalExecutor:
         if node.join_type == "CROSS":
             return self._exec_cross_join(node)
         right = self._exec(node.right)  # build first: enables dynamic filter
-        left = self._exec(self._apply_dynamic_filters(node, right))  # probe
-        if (
-            node.join_type != "FULL"  # the reference's FULL join never spills
-            and self.session.get("spill_enabled")
-            and left.batch.count_rows() + right.batch.count_rows()
-            > int(self.session.get("spill_threshold_rows"))
+        left_plan = self._apply_dynamic_filters(node, right)
+        left = self._exec(left_plan)  # probe
+        if left_plan is not node.left and id(left_plan) in self._reservations:
+            # the parent frees what its children reserved by node.sources
+            self._reservations[id(node.left)] = self._reservations.pop(id(left_plan))
+        # a FULL join never spills: the partitioned join drops the
+        # partitions without probe rows, and their build rows with them
+        if node.join_type != "FULL" and self._should_spill(
+            lambda: left.batch.count_rows() + right.batch.count_rows()
         ):
-            raise _not_ported("the partitioned (spill) join")
+            return self._spill_join(node, left, right)
         return self._join_result(node, left, right)
+
+    def _spill_join(self, node: P.Join, left: Result, right: Result) -> Result:
+        """Partitioned join (reference: ``_spill_join``,
+        HashBuilderOperator spill states + GenericPartitioningSpiller):
+        both sides hash-partitioned on their join keys, each partition
+        joined on its own, the outputs concatenated. A partition without
+        probe rows gives nothing, for INNER and LEFT joins alike."""
+        lkeys, rkeys = self._join_keys(left, right, node.criteria)
+        ph, _ = J.hash_keys(lkeys)
+        bh, _ = J.hash_keys(rkeys)
+
+        def run(subs, p):
+            if subs[0].num_rows == 0:
+                return None
+            rb = subs[1] if subs[1].num_rows > 0 else pad_to_one_unselected(subs[1])
+            out = self._join_result(
+                node, Result(subs[0], dict(left.layout)), Result(rb, dict(right.layout))
+            )
+            return compact_on_device(out.batch)
+
+        parts = partitioned_run(
+            [(left.batch, ph), (right.batch, bh)],
+            int(self.session.get("spill_partitions")), run, self._spilled("join"),
+        )
+        sides = ((node.left, left), (node.right, right))
+        layout = {s.name: i for i, s in enumerate(
+            s for side_node, _ in sides for s in side_node.output_symbols
+        )}
+        if parts:
+            return Result(concat_on_device(parts), layout)
+        cols = [
+            Column(c.type, c.data[:0], c.valid_mask()[:0], c.dictionary)
+            for side_node, side in sides
+            for c in (side.column(s) for s in side_node.output_symbols)
+        ]
+        return Result(Batch(cols, 0, None, self.device), layout)
 
     def _apply_dynamic_filters(self, node: P.Join, build: Result) -> P.PlanNode:
         """Collect build-side key domains and push them into the probe plan
@@ -626,23 +780,32 @@ class LocalExecutor:
             keep = torch.cat([keep, torch.ones_like(need_outer, dtype=torch.bool)])
         return Result(Batch(cols, keep.shape[0], keep), out.layout)
 
-    def _join_keys(self, left: Result, right: Result, criteria):
+    def _join_keys(self, left: Result, right: Result, criteria,
+                   remap_probe: bool = False):
         """Per criterion, int64 (data, valid) key pairs for both sides:
         dictionary codes remapped to one dictionary, DECIMAL scales
-        aligned, DECIMAL(38) keys as two lanes (hi, lo)."""
+        aligned, DECIMAL(38) keys as two lanes (hi, lo), DOUBLE and REAL
+        keys (and a number joined to one) as float64 bit patterns
+        (``f64_key``). NULL keys never match: their valid lane is false."""
         from trino_tpu_torch.ops import decimal128 as D128
 
         lkeys, rkeys = [], []
         for ls, rs in criteria:
             lc = left.column(ls)
             rc = right.column(rs)
-            if isinstance(ls.type, (T.DoubleType, T.RealType)) or isinstance(
-                rs.type, (T.DoubleType, T.RealType)
-            ):
-                raise _not_ported("a join on floating-point keys")
+            l_float = isinstance(ls.type, (T.DoubleType, T.RealType))
+            r_float = isinstance(rs.type, (T.DoubleType, T.RealType))
             ls_scale = ls.type.scale if isinstance(ls.type, T.DecimalType) else 0
             rs_scale = rs.type.scale if isinstance(rs.type, T.DecimalType) else 0
             lv, rv = lc.valid_mask(), rc.valid_mask()
+            if l_float or r_float:
+                if lc.data.ndim == 2 or rc.data.ndim == 2:
+                    raise ExecutionError("join between DECIMAL(38) and floating point")
+                # a number against a DOUBLE compares in double space, keyed
+                # on the float64 bit pattern (exact per-value equality)
+                lkeys.append((f64_key(lc.data, ls_scale), lv))
+                rkeys.append((f64_key(rc.data, rs_scale), rv))
+                continue
             if lc.data.ndim == 2 or rc.data.ndim == 2:
                 sc = max(ls_scale, rs_scale)
 
@@ -663,11 +826,19 @@ class LocalExecutor:
             ld, rd = lc.data, rc.data
             if lc.dictionary is not None or rc.dictionary is not None:
                 if lc.dictionary is not rc.dictionary:
-                    _, remap = lc.dictionary.merged(rc.dictionary)
-                    remap_t = torch.from_numpy(remap).to(rd.device)
-                    rd = torch.where(
-                        rd >= 0, remap_t[torch.clamp(rd, min=0).long()], -1
+                    # one side's codes remapped onto the other's dictionary
+                    # (the probe's when a build is shared across chunks)
+                    keep, other = (rc, lc) if remap_probe else (lc, rc)
+                    _, remap = keep.dictionary.merged(other.dictionary)
+                    remap_t = torch.from_numpy(remap).to(other.data.device)
+                    codes = torch.where(
+                        other.data >= 0,
+                        remap_t[torch.clamp(other.data, min=0).long()], -1,
                     )
+                    if remap_probe:
+                        ld = codes
+                    else:
+                        rd = codes
             ld, rd = ld.to(torch.int64), rd.to(torch.int64)
             if ls_scale != rs_scale:
                 # align scales: equal values must compare equal
@@ -792,13 +963,70 @@ class LocalExecutor:
 
     def _exec_window(self, node: P.Window) -> Result:
         """Window functions over one (partition, order, frame) spec
-        (reference: ``_exec_window``/``_window_result``). The reference's
-        spill path for large partitioned inputs computes the same values
-        per hash partition; here the input is computed whole."""
+        (reference: ``_exec_window``/``_window_result``); a partitioned
+        input past ``spill_threshold_rows`` is computed per hash partition
+        of its PARTITION BY keys (``_spill_window``)."""
+        res = self._exec(node.source)
+        if node.partition_by and self._should_spill(lambda: res.batch.capacity):
+            return self._spill_window(node, res)
+        return self._window_result(node, res)
+
+    def _spill_window(self, node: P.Window, res: Result) -> Result:
+        """Partitioned windows (reference: ``_spill_window``, the
+        WindowOperator's revocation): rows hash-partitioned on the
+        PARTITION BY keys, whose frames never cross them, so each spill
+        partition computes exact values; the values scatter back to their
+        rows. A wide (two-lane) output, or one whose dictionary differs
+        between spill partitions, is computed whole instead."""
+        b = res.batch
+        stats = self._spilled("window")
+        n_part = int(self.session.get("spill_partitions"))
+        kh = spill_hash([res.pair(s) for s in node.partition_by])
+        t0 = time.perf_counter()
+        assign = host_assignments([(b, kh)], n_part)[0]
+        stats["partitions"] = stats.get("partitions", 0) + n_part
+        n_fns = len(node.functions)
+        out_data: list = [None] * n_fns
+        out_valid = [torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
+                     for _ in range(n_fns)]
+        protos: list = [None] * n_fns
+        host_s = time.perf_counter() - t0
+        for p in range(n_part):
+            t0 = time.perf_counter()
+            rows = np.nonzero(assign == p)[0]
+            host_s += time.perf_counter() - t0
+            if rows.size == 0:
+                continue
+            sub = self._window_result(node, Result(slice_rows(b, rows), dict(res.layout)))
+            idx = torch.from_numpy(rows).to(b.device)
+            for j in range(n_fns):
+                col = sub.batch.columns[b.width + j]
+                if col.data.ndim != 1:
+                    return self._window_result(node, res)
+                if out_data[j] is None:
+                    out_data[j] = torch.zeros(b.capacity, dtype=col.data.dtype, device=b.device)
+                    protos[j] = col
+                elif col.dictionary is not protos[j].dictionary or col.data.dtype != out_data[j].dtype:
+                    return self._window_result(node, res)
+                out_data[j][idx] = col.data
+                out_valid[j][idx] = col.valid_mask()
+        stats["host_partition_s"] = stats.get("host_partition_s", 0.0) + host_s
+        cols = list(b.columns)
+        layout = dict(res.layout)
+        for j, (sym, _) in enumerate(node.functions):
+            if protos[j] is None:  # no selected rows at all
+                data = torch.zeros(b.capacity, dtype=torch_dtype(sym.type.storage_dtype),
+                                   device=b.device)
+                cols.append(Column(sym.type, data, out_valid[j]))
+            else:
+                cols.append(Column(sym.type, out_data[j], out_valid[j], protos[j].dictionary))
+            layout[sym.name] = len(cols) - 1
+        return Result(Batch(cols, b.num_rows, b.sel, b.device), layout)
+
+    def _window_result(self, node: P.Window, res: Result) -> Result:
         from trino_tpu_torch.compiler import _narrow_checked
         from trino_tpu_torch.ops.window import WindowFn, WindowSpecKernel, compute_windows
 
-        res = self._exec(node.source)
         b = res.batch
         sel = b.selection_mask()
         part_pairs, part_ranks = [], []
@@ -1023,7 +1251,10 @@ class LocalExecutor:
             )
         return cols
 
-    def _aggregate_single(self, node: P.Aggregate, res: Result) -> Result:
+    def _aggregate_single(self, node: P.Aggregate, res: Result,
+                          allow_spill: bool = True) -> Result:
+        if allow_spill and node.group_keys and self._should_spill(res.batch.count_rows):
+            return self._spill_aggregate(node, res)
         sel = res.batch.selection_mask()
         agg_inputs, specs = agg_inputs_for(node, res)
         layout = {s.name: i for i, s in enumerate(node.output_symbols)}
@@ -1039,6 +1270,39 @@ class LocalExecutor:
         cols = self._key_columns(node, res, kd, kv, ng)
         cols.extend(finalize_aggs(node, raw))
         return Result(Batch(cols, ng), layout)
+
+    def _spill_aggregate(self, node: P.Aggregate, res: Result) -> Result:
+        """Partitioned GROUP BY (reference: ``_spill_aggregate``, the
+        HashAggregationOperator's revocable state): rows hash-partitioned
+        by their group keys, each partition aggregated on its own; the
+        partitions' key sets are disjoint, so their groups concatenate."""
+        kh = spill_hash([res.pair(k) for k in node.group_keys])
+
+        def run(subs, p):
+            if subs[0].num_rows == 0:
+                return None
+            out = self._aggregate_single(node, Result(subs[0], dict(res.layout)), False)
+            return compact_on_device(out.batch)
+
+        parts = partitioned_run(
+            [(res.batch, kh)], int(self.session.get("spill_partitions")), run,
+            self._spilled("aggregate"),
+        )
+        layout = {s.name: i for i, s in enumerate(node.output_symbols)}
+        if not parts:
+            cols = [
+                Column(
+                    s.type,
+                    torch.zeros((0, 2) if isinstance(s.type, T.DecimalType) and s.type.wide else 0,
+                                dtype=torch_dtype(s.type.storage_dtype), device=self.device),
+                    None,
+                    (res.column(s).dictionary if s.name in res.layout else Dictionary([]))
+                    if T.is_string(s.type) else None,
+                )
+                for s in node.output_symbols
+            ]
+            return Result(Batch(cols, 0, None, self.device), layout)
+        return Result(concat_on_device(parts), layout)
 
     def _aggregate_partial(self, node: P.Aggregate, res: Result) -> Result:
         """PARTIAL step: emit accumulator columns (value, count) per agg —
@@ -1109,6 +1373,34 @@ class LocalExecutor:
         cols = self._key_columns(node, res, kd, kv, ng)
         cols.extend(finalize_aggs(node, fold(raw)))
         return Result(Batch(cols, ng), layout)
+
+
+def f64_key(data: torch.Tensor, scale: int = 0) -> torch.Tensor:
+    """Exact int64 equality key of a number as a float64 (reference:
+    ``_f64_key``): DECIMAL values unscaled first, +0 and -0 made one,
+    then the float64's bits. The reference recombines two int32 halves
+    (an x64 bitcast workaround of its TPU stack); a view of the float64
+    as int64 gives the same bits."""
+    x = data.to(torch.float64)
+    if scale:
+        x = div_by_number(x, 10**scale)
+    x = torch.where(x == 0, torch.zeros_like(x), x)
+    return x.contiguous().view(torch.int64)
+
+
+def spill_hash(pairs) -> torch.Tensor:
+    """The int64 hash that partitions rows for spilling: ``J.hash_keys``
+    over the key columns with NULL keys' data zeroed (so every NULL key
+    lands in one partition and one group) and wide (hi, lo) keys as two
+    lanes."""
+    lanes = []
+    for data, valid in pairs:
+        if data.ndim == 2:
+            lanes += [(torch.where(valid, data[:, 0], 0), valid),
+                      (torch.where(valid, data[:, 1], 0), valid)]
+        else:
+            lanes.append((torch.where(valid, data, torch.zeros_like(data)), valid))
+    return J.hash_keys(lanes)[0]
 
 
 def rank_codes(dictionary, data):

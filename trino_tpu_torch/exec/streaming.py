@@ -13,7 +13,10 @@ PyTorch ops on the engine's device:
 
 - the connector stages the table on the device once (``device_slab``)
   and each chunk is a view ``column[off:off + cap]`` of the slab with a
-  live mask from the row count; the loop runs over live rows only;
+  live mask from the row count; the loop runs over live rows only. With
+  ``stream_device_chunk_rows`` unset the chunk is the whole slab when the
+  fragment's estimated working set fits the device's free memory, so a
+  fragment that fits pays the step's per-chunk host work once;
 - a table the device slab refuses streams host chunks: splits read one
   after another, string codes remapped onto one running dictionary per
   column (``_canonicalize_dicts``), each piece padded to the chunk
@@ -31,11 +34,15 @@ CPU slab runs its plain version, so the CPU tests walk the same path),
 and its key statistics are computed per query, with sentinels from the
 key dtype's own bounds.
 
-Not ported: joins on the probe spine (their fragments run materialized),
-the connector-generated device chunks of the synthetic connector, and
-the reference's compile-failure chunk halving (an XLA workaround). On a
-mesh of one the per-shard partitioning and ``pmax`` of the reference are
-plain calls.
+Joins on the probe spine (INNER, LEFT, SEMI, ANTI) run inside the step:
+their build sides are materialized once before the chunks, each join
+builds its table once per attempt and probes it with every chunk at a
+fixed output capacity (see :class:`StreamingAggregator`).
+
+Not ported: the connector-generated device chunks of the synthetic
+connector, and the reference's compile-failure chunk halving (an XLA
+workaround). On a mesh of one the per-shard partitioning and ``pmax`` of
+the reference are plain calls.
 """
 
 from __future__ import annotations
@@ -56,12 +63,29 @@ _MAX_BINS = 8192
 _MAX_M = 4096
 
 
-class StreamOverflow(Exception):
-    """A capacity overflowed mid-stream; retry with grown caps."""
+def slab_stage_rows(session) -> int:
+    """The chunk rows a device slab is staged for: the session's
+    ``stream_device_chunk_rows``, or the staging quantum when it is unset
+    (the chunk is then chosen from the device's free memory)."""
+    from trino_tpu_torch.connectors.api import SLAB_PAD_QUANTUM
 
-    def __init__(self, names):
+    rows = session.get("stream_device_chunk_rows")
+    return bucket_capacity(max(1, int(rows))) if rows else SLAB_PAD_QUANTUM
+
+
+class StreamOverflow(Exception):
+    """A capacity overflowed mid-stream; retry with grown caps.
+
+    ``needed`` holds, per fired join site, the most matches one chunk
+    needed; ``fresh`` the sites this attempt sized first, which the next
+    attempt sizes again (an overflowed site upstream may have cut the
+    rows they were sized from short)."""
+
+    def __init__(self, names, needed=None, fresh=()):
         super().__init__(f"stream capacity overflow: {names}")
         self.names = names
+        self.needed = dict(needed or {})
+        self.fresh = set(fresh)
 
 
 def streamable_chain(frag_root: P.PlanNode):
@@ -103,20 +127,73 @@ def streamable_chain(frag_root: P.PlanNode):
 
 
 class StreamingAggregator:
-    """Runs one streamable fragment as a chunk loop with carried state."""
+    """Runs one streamable fragment as a chunk loop with carried state.
 
-    def __init__(self, executor, frag, agg_node, scan_node, caps):
+    Joins on the probe spine stream too (reference: ``_prebuild``,
+    build-once ``HashBuilderOperator``, probe-streamed
+    ``LookupJoinOperator``): the build sides (``build_roots``, over
+    ``build_inputs``) are materialized once per attempt, each join builds
+    its table once (``_FragmentTracer.builds``, one K2 launch a dense
+    site), and every probe chunk flows through join→aggregate. A join
+    site's output capacity per chunk is fixed: sized from the first
+    chunk's matches, then kept. The overflow flags of the joins, of the
+    build sides and of the group budget stay on the device and are read
+    once, at the stream's end."""
+
+    def __init__(self, executor, frag, agg_node, scan_node, caps,
+                 build_roots=(), build_inputs=None, build_layouts=None):
         self.executor = executor
+        self.frag = frag
         self.agg = agg_node
         self.scan = scan_node
+        self.caps = caps
+        self.build_roots = list(build_roots)
+        self.build_inputs = build_inputs or {}
+        self.build_layouts = build_layouts or {}
         self.nkeys = len(agg_node.group_keys)
         self.site = f"agg@{frag.id}"
         self.G = caps.get(
             self.site, int(executor.session.get("stream_group_budget"))
         )
+        self._sized_before = set(caps.vals)
+        # the build sides' results by root, and the joins' builds by node
+        self._prememo: dict = {}
+        self.builds: dict = {}
+        # overflow flags and match counts over every run of the attempt
+        self._flags: dict[str, torch.Tensor] = {}
+        self._needed: dict[str, torch.Tensor] = {}
+        self.chunks = 0
         # one running dictionary per string column of the host chunk
         # stream (see _canonicalize_dicts)
         self._running_dicts: Optional[list] = None
+
+    def _prebuild(self) -> None:
+        """Materialize the build sides of the probe-spine joins once,
+        device resident for the whole stream; their overflow flags join
+        the stream's deferred check."""
+        from trino_tpu_torch.exec.fragments import _FragmentTracer
+
+        if not self.build_roots:
+            return
+        tracer = _FragmentTracer(
+            self.executor, self.build_inputs, self.build_layouts, self.caps,
+            self.frag.id, self.frag.root,
+        )
+        for root in self.build_roots:
+            self._prememo[id(root)] = tracer._exec(root)
+        self._absorb(tracer)
+
+    def _absorb(self, tracer) -> None:
+        """Fold one run's overflow flags (OR) and match counts (max) into
+        the attempt's, on the device."""
+        for name, flag in tracer.overflows:
+            flag = flag.reshape(()).to(torch.bool)
+            prev = self._flags.get(name)
+            self._flags[name] = flag if prev is None else prev | flag
+        for name, total in tracer.needed.items():
+            total = total.reshape(()).to(torch.int64)
+            prev = self._needed.get(name)
+            self._needed[name] = total if prev is None else torch.maximum(prev, total)
 
     @property
     def device(self):
@@ -127,7 +204,8 @@ class StreamingAggregator:
     def run(self) -> Result:
         """Stream the fragment: the device slab when the connector stages
         the table, host chunks otherwise. Raises :class:`StreamOverflow`
-        when the group budget overflowed."""
+        when the group budget or a join's capacity overflowed."""
+        self._prebuild()
         res = self._run_device_slab()
         if res is not None:
             return res
@@ -137,7 +215,10 @@ class StreamingAggregator:
     def _run_chunks(self, chunks) -> Result:
         state = meta = None
         for chunk in chunks:
-            prep = self._chunk_prep(self._tracer_for(chunk))
+            tracer = self._tracer_for(chunk)
+            prep = self._chunk_prep(tracer)
+            self._absorb(tracer)
+            self.chunks += 1
             if meta is None:
                 meta = self._collect_meta(prep)
                 state = self._init_state(meta)
@@ -150,37 +231,74 @@ class StreamingAggregator:
         return self._finish(state, meta)
 
     def _check_overflow(self, state) -> None:
-        """One host read of the carried overflow flag per run."""
-        if bool(state["overflow"]):
-            raise StreamOverflow([self.site])
+        """One host read per attempt: the carried group-budget flag, the
+        joins' flags and their largest per-chunk match counts."""
+        names = [self.site] + list(self._flags)
+        counted = list(self._needed)
+        read = torch.stack(
+            [state["overflow"].reshape(()).to(torch.int64)]
+            + [self._flags[n].to(torch.int64) for n in names[1:]]
+            + [self._needed[n] for n in counted]
+        ).cpu().tolist()
+        fired = [n for n, f in zip(names, read) if f]
+        if fired:
+            raise StreamOverflow(
+                fired, dict(zip(counted, read[len(names):])),
+                set(self.caps.vals) - self._sized_before,
+            )
 
     # === device-resident slab source =====================================
 
     def _run_device_slab(self) -> Optional[Result]:
         """Stage the table on the executor's device (the connector keeps
         it across queries), try the dense path, then run the sort-based
-        step over views of the slab, ``cap`` rows a chunk, over the live
-        rows only. None when the connector cannot stage the table."""
+        step over views of the slab, over the live rows only. None when
+        the connector cannot stage the table."""
         connector = self.executor.catalogs.get(self.scan.catalog)
         stage = getattr(connector, "device_slab", None)
         if stage is None:
             return None
-        cap = bucket_capacity(
-            max(1, int(self.executor.session.get("stream_device_chunk_rows")))
-        )
-        limit = int(self.executor.session.get("stream_device_cache_bytes"))
+        session = self.executor.session
+        cap = slab_stage_rows(session)
         staged = stage(
-            self.scan.schema, self.scan.table, self.scan.column_names,
-            cap, limit, device=self.device,
+            self.scan.schema, self.scan.table, self.scan.column_names, cap,
+            int(session.get("stream_device_cache_bytes")), device=self.device,
         )
         if staged is None:
             return None
         slab, num_rows = staged
-        dense = self._try_dense(slab, num_rows)
+        dense = None if self.build_roots else self._try_dense(slab, num_rows)
         if dense is not None:
             return dense
-        cap = min(cap, slab.capacity)
+        if session.get("stream_device_chunk_rows"):
+            cap = min(cap, slab.capacity)
+        else:
+            cap = self._fitting_chunk_rows(slab, num_rows)
         return self._run_chunks(self._slab_chunks(slab, num_rows, cap))
+
+    def _fitting_chunk_rows(self, slab: Batch, num_rows: int) -> int:
+        """Rows a slab chunk holds when the session leaves
+        ``stream_device_chunk_rows`` unset: the slab's ``num_rows`` live
+        rows in one chunk when the fragment's working set fits half the
+        device's free memory, else the largest power of two that fits,
+        within [2^16, the staging quantum] so that it divides the slab
+        (padded to a multiple of the quantum). The working set is estimated
+        at 8x the bytes a row of the scanned columns takes (filters, the
+        grouping sorts and gathers), plus 64 bytes a row for each join on
+        the spine (its hashes, match ranges and output gathers)."""
+        from trino_tpu_torch.connectors.api import SLAB_PAD_QUANTUM
+        from trino_tpu_torch.memory import device_free_bytes
+
+        row_bytes = sum(
+            c.data[:1].numel() * c.data.element_size() + 1 for c in slab.columns
+        )
+        per_row = 8 * row_bytes + 64 * len(self.build_roots)
+        ctx = self.executor.memory_ctx
+        free = device_free_bytes(self.device, None if ctx is None else ctx.pool)
+        rows = free // (2 * per_row)
+        if rows >= num_rows:
+            return max(1, num_rows)
+        return max(1 << 16, min(SLAB_PAD_QUANTUM, 1 << max(0, rows.bit_length() - 1)))
 
     def _slab_chunks(self, slab: Batch, num_rows: int, cap: int):
         """Chunk i: views of rows [i*cap, (i+1)*cap) of every slab column,
@@ -416,11 +534,17 @@ class StreamingAggregator:
         from trino_tpu_torch.exec.fragments import _FragmentTracer
 
         key = f"scan{id(self.scan)}"
-        return _FragmentTracer(
+        tracer = _FragmentTracer(
             self.executor,
             {key: chunk},
             {key: {s.name: i for i, s in enumerate(self.scan.symbols)}},
+            self.caps, self.frag.id, self.frag.root,
+            builds=self.builds if self.build_roots else None,
         )
+        # the build sides are already materialized: every chunk's joins
+        # read them instead of executing the build subtrees again
+        tracer._memo.update(self._prememo)
+        return tracer
 
     def _chunk_prep(self, tracer):
         res = tracer._exec(self.agg.source)
@@ -517,6 +641,8 @@ class StreamingAggregator:
         def packed(vals, cnts):
             lanes = [vals[j].reshape(G, -1).to(torch.int64) for j in packs]
             lanes += [c.reshape(G, 1).to(torch.int64) for c in cnts]
+            if not lanes:  # a GROUP BY without aggregates: keys alone
+                lanes = [torch.zeros((G, 1), dtype=torch.int64, device=self.device)]
             return torch.cat(lanes, dim=1)
 
         minputs = [(torch.cat([packed(state["values"], state["counts"]),

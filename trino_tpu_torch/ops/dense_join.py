@@ -238,3 +238,34 @@ def probe_table(
         build_pos = torch.where(m & (r == j), e, build_pos)
         r += m
     return probe_pos, build_pos, out_sel, total, overflow
+
+
+def matmul_join_counts(
+    probe_bins: torch.Tensor,
+    build_bins: torch.Tensor,
+    probe_use: torch.Tensor,
+    build_use: torch.Tensor,
+    domain: int,
+    chunk: int = 2048,
+) -> torch.Tensor:
+    """Per-probe match counts as a contraction (reference:
+    ``matmul_join_counts``): ``counts[i] = sum_g 1[probe_bin_i = g] *
+    hist_g``, computed as one ``onehot @ hist`` product per ``chunk``
+    probe rows, where ``hist`` counts the live build rows per bin. Equal to
+    the gather ``hist[probe_bins]`` on live probe rows, 0 elsewhere; the
+    join tier uses the gather, and this form stands for the join-project
+    shapes of the benchmarks. int32 counts."""
+    dev = probe_bins.device
+    hist = torch.zeros(domain, dtype=torch.float32, device=dev)
+    hist.index_add_(
+        0, torch.where(build_use, build_bins, domain - 1).long(),
+        build_use.to(torch.float32),
+    )
+    g = torch.arange(domain, dtype=probe_bins.dtype, device=dev)
+    out = torch.empty(probe_bins.shape[0], dtype=torch.float32, device=dev)
+    for lo in range(0, probe_bins.shape[0], chunk):
+        b = probe_bins[lo : lo + chunk]
+        u = probe_use[lo : lo + chunk]
+        onehot = ((b[:, None] == g[None, :]) & u[:, None]).to(torch.float32)
+        out[lo : lo + chunk] = onehot @ hist
+    return out.to(torch.int32)
