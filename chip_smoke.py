@@ -58,7 +58,8 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    names the card and its power limit.
 
 7. tpch22: all 22 TPC-H queries, spec text, over ``tpch.sf1``: the port's
-   native loader builds ``native/columnar.cpp`` and the comment text pool,
+   native loader builds ``trino_tpu_torch/csrc/columnar.cpp`` and the
+   comment text pool,
    the connector generates the eight tables and stages them on the card
    (seconds and staged bytes per table on a line), then each query runs
    through the same runner in distributed mode once cold and twice
@@ -72,6 +73,27 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    peaks are then attributed (phase ``peak``): each fragment's own peak
    and the largest allocations alive at the query's peak, with the line
    of the port that made them, from the allocator's history.
+
+7b. surface: the statement surface over the same staged ``tpch.sf1``
+   tables, one engine: SHOW CATALOGS/SCHEMAS/TABLES/COLUMNS against the
+   expected lists; CREATE TABLE AS of 11 lineitem columns into
+   ``memory.default.li1`` (6,001,215 rows), TPC-H Q1 and Q6 over it
+   against the committed answers, and a GROUP BY over it that must launch
+   K1, each launch equal to its plain version on the same tensors, and
+   whose rows must equal numpy sums over the staged source columns;
+   INSERT and DELETE of the 1998
+   rows, ROLLBACK of an INSERT and of a DROP, a committed INSERT, each
+   followed by a count and a sum (cold and warm) checked against the
+   source; PREPARE/EXECUTE of Q6 (its five literals as parameters)
+   against its answer; ROLLUP, GROUPING SETS and CUBE over lineitem ⋈
+   orders with a FILTER count and ``max(o_clerk)``, held against one plain
+   GROUP BY a grouping set and a numpy ``max(o_clerk)``, their joins
+   launching K2 with every build equal to plain; UNNEST of
+   ``array[1, 2, 3]`` over orders (4.5M rows, with the host ms its runs
+   spend in the tpch connector's split reads) and ``array_agg`` against
+   counts; EXPLAIN and EXPLAIN ANALYZE of Q3. A line a step: cold and
+   warm ms, peak device memory and K1/K2 launches per run, rows/s for
+   CTAS, the joins and UNNEST.
 
 8. tpcds: all 64 TPC-DS queries of the port's corpus, spec text, over
    ``tpcds.sf1`` from the port's tpcds connector: the 24 tables generated
@@ -101,19 +123,22 @@ object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
-``python3 chip_smoke.py --only tpch22,tpcds,spill`` runs the device phase
-and the named phases alone (``spill`` generates the SF10 tables first),
-for work on one of them; it prints no result lines.
+``python3 chip_smoke.py --only tpch22,surface,tpcds,spill`` runs the device
+phase and the named phases alone (``tpch22`` and ``surface`` stage the SF1
+tables first, ``spill`` generates the SF10 tables first), for work on one
+of them; it prints no result lines.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from decimal import Decimal
 
 import numpy as np
 
@@ -1268,29 +1293,19 @@ def k2_against_plain(runner, texts: dict) -> list:
     return builds
 
 
-def phase_tpch22(smi: str) -> tuple[dict, int]:
-    """All 22 TPC-H queries, spec text, at SF1 from the port's tpch
-    connector through ``LocalQueryRunner(device="cuda")`` in distributed
-    mode: the eight tables generated (comments from the text pool the
-    port's native loader builds) and staged on the card first, then each
-    query once cold and twice warm, its rows and column types held
-    against the reference's answers (``tpch_sf1_answers.json``) exactly,
-    in ORDER BY order (rows whose ORDER BY keys tie as a multiset).
-    Every K2 build of the queries that launch it is then held against
-    its plain version. Returns the kernel launches of this path's run and
-    the largest K2 error over those builds."""
+def tpch_sf1_runner(smi: str):
+    """A ``LocalQueryRunner(device="cuda")`` in distributed mode whose tpch
+    connector has the eight ``tpch.sf1`` tables generated (comments from
+    the text pool the port's native loader builds) and staged on the
+    card, with a line of seconds and staged bytes per table."""
     import torch
 
-    from trino_tpu_torch import _kernels, native
-    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch import native
     from trino_tpu_torch.connectors import dbgen
     from trino_tpu_torch.connectors.tpch import _SCHEMAS, TpchConnector
     from trino_tpu_torch.exec.streaming import slab_stage_rows
     from trino_tpu_torch.testing import LocalQueryRunner
 
-    answers = B.load_answers()
-    if answers["schema"] != f"tpch.{TPCH22_SCHEMA}":
-        raise AssertionError(f"answers are for {answers['schema']}")
     t0 = time.perf_counter()
     native.load()
     native_s = time.perf_counter() - t0
@@ -1322,6 +1337,26 @@ def phase_tpch22(smi: str) -> tuple[dict, int]:
         }
     log("tpch22", card=smi, schema=TPCH22_SCHEMA, tables=staged,
         generate_and_stage_s=time.perf_counter() - t_all)
+    return runner
+
+
+def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
+    """All 22 TPC-H queries, spec text, at SF1 from the port's tpch
+    connector through ``runner`` (:func:`tpch_sf1_runner`), each query
+    once cold and twice warm, its rows and column types held against the
+    reference's answers (``tpch_sf1_answers.json``) exactly, in ORDER BY
+    order (rows whose ORDER BY keys tie as a multiset). Every K2 build of
+    the queries that launch it is then held against its plain version.
+    Returns the kernel launches of this path's run and the largest K2
+    error over those builds."""
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch.benchmarks import tpch as B
+
+    answers = B.load_answers()
+    if answers["schema"] != f"tpch.{TPCH22_SCHEMA}":
+        raise AssertionError(f"answers are for {answers['schema']}")
     texts = B.queries(f"tpch.{TPCH22_SCHEMA}")
     failures, warm_ms, k2_runs = [], {}, {}
     # the main path's run: every count starts at 0 here and is read after
@@ -1392,6 +1427,350 @@ def phase_tpch22(smi: str) -> tuple[dict, int]:
         log("peak", card=smi, query=f"Q{q}",
             **peak_attribution(runner, texts[q]))
     return launches, k2_err
+
+
+SURFACE_LI1_COLUMNS = ("l_orderkey, l_partkey, l_suppkey, l_linenumber, l_quantity,"
+                       " l_extendedprice, l_discount, l_tax, l_returnflag,"
+                       " l_linestatus, l_shipdate")
+SURFACE_LATE = "l_shipdate >= date '1998-01-01'"
+SURFACE_JOIN = ("from tpch.sf1.lineitem join tpch.sf1.orders"
+                " on l_orderkey = o_orderkey")
+# the grouping of step 6 and its grouping sets, each answered by a plain
+# GROUP BY for the oracle
+SURFACE_GROUPINGS = {
+    "rollup": ("rollup(o_orderpriority, l_returnflag)",
+               [("o_orderpriority", "l_returnflag"), ("o_orderpriority",), ()]),
+    "grouping_sets": ("grouping sets ((o_orderpriority, l_returnflag),"
+                      " (l_returnflag), ())",
+                      [("o_orderpriority", "l_returnflag"), ("l_returnflag",), ()]),
+    "cube": ("cube(o_orderpriority, l_returnflag)",
+             [("o_orderpriority", "l_returnflag"), ("o_orderpriority",),
+              ("l_returnflag",), ()]),
+}
+
+
+@contextlib.contextmanager
+def host_time_in(owner, attr: str):
+    """Host-clock ms of each call to ``owner.attr`` while the block runs
+    (a list, filled as the calls return)."""
+    real, spent = getattr(owner, attr), []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            spent.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(owner, attr, timed)
+    try:
+        yield spent
+    finally:
+        setattr(owner, attr, real)
+
+
+def surface_step(runner, step: str, sql: str, smi: str, warm: int = 1,
+                 rows_in: int | None = None, **extra):
+    """One statement of phase ``surface``, cold and then ``warm`` times
+    (host clock ending in ``torch.cuda.synchronize()``), with its peak
+    device memory and K1/K2 launches per run, and rows/s over ``rows_in``
+    input rows; a line a step. Returns the last run's result."""
+    import torch
+
+    from trino_tpu_torch import _kernels
+
+    times, k1, k2, peaks, rows, cache = [], [], [], [], [], []
+    for _ in range(1 + warm):
+        before = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = runner.engine.execute_statement(sql, runner.session)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated())
+        k1.append(_kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"])
+        k2.append(_kernels.LAUNCHES["dense_join_build"] - before["dense_join_build"])
+        rows.append(res.rows)
+        ing = res.ingest_stats or {}
+        cache.append([ing.get("table_cache_hits", 0), ing.get("table_cache_misses", 0)])
+    fields = dict(
+        card=smi, step=step, rows=len(res.rows), update_count=res.update_count,
+        cold_ms=times[0], warm_ms=times[1:], k1_launches_per_run=k1,
+        k2_launches_per_run=k2, peak_device_bytes_per_run=peaks,
+        table_cache_hits_misses_per_run=cache,
+        fragment_modes=res.fragment_modes,
+        overflow_retries=(res.exchange_stats or {}).get("overflow_retries"), **extra,
+    )
+    if rows_in is not None:
+        fields["rows_per_s_cold"] = rows_in / (times[0] / 1e3)
+        if warm:
+            fields["rows_per_s_warm"] = rows_in / (min(times[1:]) / 1e3)
+    log("surface", **fields)
+    res.k1 = sum(k1)
+    res.k2 = sum(k2)
+    res.runs_rows = rows  # every run's rows: warm repeats are checked too
+    return res
+
+
+def surface_host_columns(runner, table: str, cols: list) -> list:
+    """Host copies of columns of ``tpch.sf1`` ``table`` as the tpch
+    connector staged them: (numpy values of the live rows, dictionary)
+    a column."""
+    from trino_tpu_torch.exec.streaming import slab_stage_rows
+
+    slab, n = runner.catalogs.get("tpch").device_slab(
+        "sf1", table, cols, slab_stage_rows(runner.session),
+        int(runner.session.get("stream_device_cache_bytes")), device="cuda",
+    )
+    return [(c.data[:n].cpu().numpy(), c.dictionary) for c in slab.columns]
+
+
+def surface_linenumber_oracle(runner) -> list:
+    """``l_linenumber, sum(l_quantity), count(*)`` over ``tpch.sf1.lineitem``
+    in numpy over the host copies of the staged columns (exact: the
+    quantities' unscaled integers summed in int64)."""
+    (line, _), (qty, _) = surface_host_columns(
+        runner, "lineitem", ["l_linenumber", "l_quantity"])
+    keys, at = np.unique(line, return_inverse=True)
+    sums = np.zeros(len(keys), dtype=np.int64)
+    np.add.at(sums, at, qty.astype(np.int64))
+    counts = np.bincount(at, minlength=len(keys))
+    return [(int(k), Decimal(int(s)).scaleb(-2), int(c))
+            for k, s, c in zip(keys, sums, counts)]
+
+
+def surface_clerk_oracle(runner, sets) -> dict:
+    """max(o_clerk) of each group of each grouping set over lineitem ⋈
+    orders, in numpy over the host copies of the staged columns: key
+    (priority or None, flag or None) -> clerk."""
+    (okey, _), (prio, pdict), (clerk, cdict) = surface_host_columns(
+        runner, "orders", ["o_orderkey", "o_orderpriority", "o_clerk"])
+    (lkey, _), (flag, fdict) = surface_host_columns(
+        runner, "lineitem", ["l_orderkey", "l_returnflag"])
+    order = np.argsort(okey)
+    at = order[np.searchsorted(okey[order], lkey)]
+    assert (okey[at] == lkey).all()
+    ranks = np.asarray(cdict.ranks())[clerk[at]]
+    by_rank = np.argsort(np.asarray(cdict.ranks()))
+    p, f = prio[at].astype(np.int64), flag.astype(np.int64)
+    out = {}
+    for keys in sets:
+        use_p, use_f = "o_orderpriority" in keys, "l_returnflag" in keys
+        gid = np.broadcast_to((p if use_p else 0) * 64 + (f if use_f else 0),
+                              ranks.shape)
+        best = np.full(64 * 64, -1, dtype=np.int64)
+        np.maximum.at(best, gid, ranks)
+        for g in np.flatnonzero(best >= 0):
+            key = (pdict.values[g // 64] if use_p else None,
+                   fdict.values[g % 64] if use_f else None)
+            out[key] = cdict.values[by_rank[best[g]]]
+    return out
+
+
+def phase_surface(smi: str, runner) -> dict:
+    """The statement surface at TPC-H SF1 on the card, through ``runner``
+    (its tpch connector holds the staged ``tpch.sf1`` tables): SHOW;
+    CREATE TABLE AS of lineitem into ``memory.default.li1`` with TPC-H Q1
+    and Q6 over it against the committed SF1 answers; K1 over the table
+    made by SQL; INSERT, DELETE and transactions (ROLLBACK of an INSERT
+    and of a DROP, a committed INSERT), each checked against the source;
+    PREPARE/EXECUTE of Q6; ROLLUP, GROUPING SETS and CUBE over lineitem ⋈
+    orders with a FILTER count and ``max(o_clerk)`` (K2 held against its
+    plain version) against plain GROUP BYs and a numpy oracle; UNNEST and
+    ``array_agg`` over orders; EXPLAIN and EXPLAIN ANALYZE of Q3. Every
+    failed check raises. Returns the kernel launches of the phase and the
+    largest K1 and K2 differences from their plain versions."""
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch.benchmarks import tpch as B
+
+    answers = B.load_answers()
+    texts = B.queries("tpch.sf1")
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"surface: {what}")
+
+    def rows_of(sql):
+        return runner.engine.execute_statement(sql, runner.session).rows
+
+    def against(q: int, res, what: str) -> None:
+        want = answers["queries"][str(q)]
+        bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"], want["order_by"])
+        check(bad is None, f"{what} differs from Q{q}'s answer: {bad}")
+
+    runner.engine.execute_statement("drop table if exists memory.default.li1",
+                                    runner.session)
+    t_phase = time.perf_counter()
+    # the main path's run: every count starts at 0 here and is read after;
+    # the K2 launches made to hold builds against plain are taken out
+    _kernels.reset_counts()
+    compare = {k: 0 for k in _kernels.LAUNCHES}
+    # 1. SHOW
+    res = surface_step(runner, "show_catalogs", "show catalogs", smi)
+    check(res.rows == [("blackhole",), ("memory",), ("tpcds",), ("tpch",)], f"catalogs {res.rows}")
+    res = surface_step(runner, "show_schemas", "show schemas from tpch", smi)
+    check([r[0] for r in res.rows] == ["tiny", "sf1", "sf10", "sf100"], f"schemas {res.rows}")
+    res = surface_step(runner, "show_tables", "show tables from tpch.sf1", smi)
+    check([r[0] for r in res.rows] == ["customer", "lineitem", "nation", "orders",
+                                       "part", "partsupp", "region", "supplier"],
+          f"tables {res.rows}")
+    res = surface_step(runner, "show_columns", "show columns from tpch.sf1.lineitem", smi)
+    check(len(res.rows) == 16 and res.rows[0][:2] == ("l_orderkey", "bigint")
+          and res.rows[4][:2] == ("l_quantity", "decimal(12,2)"), f"columns {res.rows}")
+    # 2. CREATE TABLE AS (cold, then dropped and made again: warm)
+    ctas = f"create table memory.default.li1 as select {SURFACE_LI1_COLUMNS} from tpch.sf1.lineitem"
+    for run in ("cold", "warm"):
+        if run == "warm":
+            runner.engine.execute_statement("drop table memory.default.li1", runner.session)
+        res = surface_step(runner, f"ctas_{run}", ctas, smi, warm=0, rows_in=6001215)
+        check(res.update_count == 6001215, f"CTAS wrote {res.update_count} rows")
+    for q in (1, 6):
+        res = surface_step(runner, f"q{q}_over_li1",
+                           texts[q].replace("tpch.sf1.lineitem", "memory.default.li1"), smi)
+        against(q, res, f"Q{q} over memory.default.li1")
+    # 3. K1 over the table made by SQL: each launch held against the plain
+    # version on the same tensors, the rows against numpy sums over the
+    # staged source columns
+    from trino_tpu_torch.ops import dense_groupby as DG
+
+    real_dense, k1_errs = DG.dense_groupby_device, []
+
+    def checked_dense(plan, bins, vals):
+        lt = real_dense(plan, bins, vals)
+        k1_errs.append(int((lt - DG.dense_groupby_plain(plan, bins, vals)).abs().max()))
+        return lt
+
+    DG.dense_groupby_device = checked_dense
+    try:
+        res = surface_step(runner, "k1_over_li1", "select l_linenumber, sum(l_quantity),"
+                           " count(*) from memory.default.li1 group by l_linenumber", smi)
+    finally:
+        DG.dense_groupby_device = real_dense
+    k1_err = max(k1_errs, default=0)
+    log("surface", card=smi, step="k1_vs_plain", launches=len(k1_errs), k1_max_abs_err=k1_err)
+    check(res.k1 >= 1, "the GROUP BY over memory.default.li1 launched no K1")
+    check(len(k1_errs) == res.k1 and not k1_err, f"K1 differs from plain: {k1_errs}")
+    want = surface_linenumber_oracle(runner)
+    for rows in res.runs_rows:
+        check(sorted(rows) == want, f"the GROUP BY over li1: {sorted(rows)} != {want}")
+    # 4. writes and transactions, each checked against the source
+    count_sql = "select count(*), sum(l_quantity) from memory.default.li1"
+    (base,) = rows_of("select count(*), sum(l_quantity) from tpch.sf1.lineitem")
+    (late,) = rows_of(f"select count(*), sum(l_quantity) from tpch.sf1.lineitem where {SURFACE_LATE}")
+    insert = (f"insert into memory.default.li1 select {SURFACE_LI1_COLUMNS}"
+              f" from tpch.sf1.lineitem where {SURFACE_LATE}")
+
+    def expect(step, n, total):
+        # the cold run right after a write and its warm repeat: neither may
+        # read a stale table-cache entry or device slab
+        res = surface_step(runner, step, count_sql, smi)
+        for rows in res.runs_rows:
+            check(rows == [(n, total)], f"{step}: {rows} != {[(n, total)]}")
+
+    expect("count_base", base[0], base[1])
+    res = surface_step(runner, "insert", insert, smi, warm=0)
+    check(res.update_count == late[0], f"INSERT wrote {res.update_count}")
+    expect("count_after_insert", base[0] + late[0], base[1] + late[1])
+    res = surface_step(runner, "delete", f"delete from memory.default.li1 where {SURFACE_LATE}",
+                       smi, warm=0)
+    check(res.update_count == 2 * late[0], f"DELETE removed {res.update_count}")
+    expect("count_after_delete", base[0] - late[0], base[1] - late[1])
+    for stmt in ("start transaction", insert, "rollback"):
+        surface_step(runner, "txn_insert_rollback", stmt, smi, warm=0)
+    expect("count_after_rollback", base[0] - late[0], base[1] - late[1])
+    for stmt in ("start transaction", "drop table memory.default.li1"):
+        surface_step(runner, "txn_drop_rollback", stmt, smi, warm=0)
+    check(runner.catalogs.get("memory").get_table("default", "li1") is None,
+          "DROP in the transaction left the table")
+    surface_step(runner, "txn_drop_rollback", "rollback", smi, warm=0)
+    expect("count_after_drop_rollback", base[0] - late[0], base[1] - late[1])
+    for stmt in ("start transaction", insert, "commit"):
+        surface_step(runner, "txn_insert_commit", stmt, smi, warm=0)
+    expect("count_after_commit", base[0], base[1])
+    # 5. PREPARE / EXECUTE of Q6 with its five literals as parameters
+    surface_step(runner, "prepare", (
+        "prepare q6 from select sum(l_extendedprice * l_discount) as revenue"
+        " from tpch.sf1.lineitem where l_shipdate >= ?"
+        " and l_shipdate < ? + interval '1' year"
+        " and l_discount between ? and ? and l_quantity < ?"), smi, warm=0)
+    res = surface_step(runner, "execute", "execute q6 using date '1994-01-01',"
+                       " date '1994-01-01', 0.05, 0.07, 24", smi)
+    against(6, res, "EXECUTE q6")
+    surface_step(runner, "deallocate", "deallocate prepare q6", smi, warm=0)
+    check("q6" not in runner.session.prepared, "DEALLOCATE kept q6")
+    # 6. grouping sets with a FILTER count and a VARCHAR max over a join
+    from trino_tpu_torch.ops import dense_join as DJ
+
+    aggs = ("count(*), sum(l_quantity), count(*) filter (where l_discount > 0.05),"
+            " max(o_clerk)")
+    builds_before, k2_err = 0, 0
+    for name, (grouping, sets) in SURFACE_GROUPINGS.items():
+        sql = f"select o_orderpriority, l_returnflag, {aggs} {SURFACE_JOIN} group by {grouping}"
+        res = surface_step(runner, f"{name}_join", sql, smi, rows_in=6001215)
+        check(res.k2 >= 1, f"{name}: the join launched no K2")
+        want = {}
+        for keys in sets:
+            cols = ", ".join(keys)
+            plain = (f"select {cols + ', ' if cols else ''}count(*), sum(l_quantity),"
+                     f" sum(case when l_discount > 0.05 then 1 else 0 end) {SURFACE_JOIN}"
+                     + (f" group by {cols}" if cols else ""))
+            for row in rows_of(plain):
+                vals = dict(zip(keys, row))
+                key = (vals.get("o_orderpriority"), vals.get("l_returnflag"))
+                want[key] = tuple(row[len(keys):])
+        clerks = surface_clerk_oracle(runner, sets)
+        got = {(r[0], r[1]): tuple(r[2:5]) for r in res.rows}
+        check(len(res.rows) == len(want) and got == want,
+              f"{name}: counts and sums differ from the plain GROUP BYs")
+        check({(r[0], r[1]): r[5] for r in res.rows} == clerks,
+              f"{name}: max(o_clerk) differs from the numpy oracle")
+        before = dict(_kernels.LAUNCHES)
+        builds = k2_against_plain(runner, {name: sql})
+        for k in compare:
+            compare[k] += _kernels.LAUNCHES[k] - before[k]
+        err = max(max(b["max_abs_err"], b["unplaced_err"]) for b in builds)
+        log("surface", card=smi, step=f"{name}_k2_vs_plain", builds=len(builds),
+            k2_max_abs_err=err)
+        check(builds and not err, f"{name}: a K2 build differs from plain")
+        builds_before += len(builds)
+        k2_err = max(k2_err, err)
+    # 7. UNNEST and ARRAY at scale; the host time its runs spend in the
+    # tpch connector's split reads (generation) is its own line
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    (total,) = rows_of("select sum(o_totalprice) from tpch.sf1.orders")
+    with host_time_in(TpchConnector, "read_split") as read_ms:
+        res = surface_step(
+            runner, "unnest",
+            "select x, count(*), sum(o_totalprice) from tpch.sf1.orders"
+            " cross join unnest(array[1, 2, 3]) t(x) group by x", smi, rows_in=4500000,
+        )
+    log("surface", card=smi, step="unnest_read_split", calls=len(read_ms),
+        ms=sum(read_ms))
+    check(sorted(res.rows) == [(x, 1500000, total[0]) for x in (1, 2, 3)],
+          f"UNNEST rows {res.rows}")
+    res = surface_step(runner, "array_agg",
+                       "select o_orderstatus, cardinality(array_agg(o_orderkey))"
+                       " from tpch.sf1.orders group by 1", smi, rows_in=1500000)
+    check(sorted(res.rows) == sorted(rows_of(
+        "select o_orderstatus, count(*) from tpch.sf1.orders group by 1")),
+          f"array_agg cardinalities {res.rows}")
+    # 8. EXPLAIN and EXPLAIN ANALYZE of Q3
+    res = surface_step(runner, "explain", f"explain {texts[3]}", smi)
+    log("surface", card=smi, step="explain_text", plan=[r[0] for r in res.rows])
+    res = surface_step(runner, "explain_analyze", f"explain analyze {texts[3]}", smi)
+    lines = [r[0] for r in res.rows]
+    log("surface", card=smi, step="explain_analyze_text", plan=lines)
+    n_q3 = len(answers["queries"]["3"]["rows"])
+    check(f"output rows: {n_q3}" in lines, f"EXPLAIN ANALYZE does not count {n_q3} rows")
+    launches = {k: _kernels.LAUNCHES[k] - compare[k] for k in compare}
+    log("surface", card=smi, launches=launches, k2_builds_checked=builds_before,
+        seconds=time.perf_counter() - t_phase)
+    check(launches["dense_groupby"] >= 1 and launches["dense_join_build"] >= 1,
+          f"launches {launches}")
+    runner.engine.execute_statement("drop table memory.default.li1", runner.session)
+    return launches, k1_err, k2_err
 
 
 def run_against_answers(runner, texts: dict, answers: dict, warm: int,
@@ -1616,8 +1995,9 @@ def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         # a part of the script, for work on one phase: no result lines
         for name in sys.argv[2].split(","):
-            {"tpch22": phase_tpch22, "tpcds": phase_tpcds,
-             "spill": phase_spill_alone}[name](smi)
+            {"tpch22": lambda smi: phase_tpch22(smi, tpch_sf1_runner(smi)),
+             "surface": lambda smi: phase_surface(smi, tpch_sf1_runner(smi)),
+             "tpcds": phase_tpcds, "spill": phase_spill_alone}[name](smi)
             gc.collect()
             torch.cuda.empty_cache()
         return 0
@@ -1642,9 +2022,12 @@ def main() -> int:
     tpch_launches = phase_tpch(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    t22, t22_k2_err = phase_tpch22(smi)
+    sf1_runner = tpch_sf1_runner(smi)
+    t22, t22_k2_err = phase_tpch22(smi, sf1_runner)
     if t22["dense_join_build"] < 1:
         raise AssertionError("the TPC-H queries launched no join-build kernel")
+    surface, surface_k1_err, surface_k2_err = phase_surface(smi, sf1_runner)
+    del sf1_runner
     gc.collect()
     torch.cuda.empty_cache()
     ds, ds_k2_err = phase_tpcds(smi)
@@ -1657,9 +2040,10 @@ def main() -> int:
         "replaces": "trino_tpu/ops/dense_groupby.py:229",
         "launches": (sql_launches["dense_groupby"] + join_launches["dense_groupby"]
                      + spill_launches["dense_groupby"] + tpch_launches
-                     + t22["dense_groupby"] + ds["dense_groupby"]),
+                     + t22["dense_groupby"] + surface["dense_groupby"]
+                     + ds["dense_groupby"]),
         "matches_plain": True,
-        "max_abs_err": kern["max_abs_err"],
+        "max_abs_err": max(kern["max_abs_err"], surface_k1_err),
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"],
@@ -1671,10 +2055,11 @@ def main() -> int:
         "source": "trino_tpu_torch/csrc/dense_join_build.cu",
         "replaces": "trino_tpu/ops/dense_join.py:344",
         "launches": (join_launches["dense_join_build"] + spill_launches["dense_join_build"]
-                     + t22["dense_join_build"] + ds["dense_join_build"]),
+                     + t22["dense_join_build"] + surface["dense_join_build"]
+                     + ds["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
-                           + [join_k2_err, t22_k2_err, ds_k2_err]),
+                           + [join_k2_err, t22_k2_err, surface_k2_err, ds_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

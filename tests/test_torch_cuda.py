@@ -329,3 +329,93 @@ def test_table_cache_budget_is_a_quarter_of_the_card(cuda):
     total = torch.cuda.get_device_properties(engine.device).total_memory
     assert engine.memory_pool.capacity == total
     assert table_cache_budget(Session(), engine.memory_pool, engine.device) == total // 4
+
+
+@pytest.mark.cuda
+def test_ctas_table_group_by_launches_the_kernel(cuda):
+    """A memory table made by CREATE TABLE AS from the tpch connector, then
+    a small-domain GROUP BY over it: the dense path launches K1 over the
+    staged slab, each launch equal to its plain version on the same
+    tensors, and the rows equal the same query over the source and the
+    CPU's (where the engine runs the plain version)."""
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    runners = [LocalQueryRunner(device=d) for d in ("cpu", cuda)]
+    q = ("select l_linenumber, sum(l_quantity), count(*) from {} group by"
+         " l_linenumber")
+    real, errs = D.dense_groupby_device, []
+
+    def checked(plan, bins, vals):
+        lt = real(plan, bins, vals)
+        errs.append(int((lt - D.dense_groupby_plain(plan, bins, vals)).abs().max()))
+        return lt
+
+    out = []
+    for r in runners:
+        r.session.set("execution_mode", "distributed")
+        r.session.set("stream_scan_threshold_rows", 1 << 14)
+        res = r.engine.execute_statement(
+            "create table memory.default.li1 as select l_orderkey, l_linenumber,"
+            " l_quantity from tpch.tiny.lineitem", r.session,
+        )
+        assert res.update_count == 60175
+        before = _kernels.LAUNCHES["dense_groupby"]
+        D.dense_groupby_device = checked
+        try:
+            rows = sorted(r.execute(q.format("memory.default.li1"))[0])
+        finally:
+            D.dense_groupby_device = real
+        launched = _kernels.LAUNCHES["dense_groupby"] - before
+        assert rows == sorted(r.execute(q.format("tpch.tiny.lineitem"))[0])
+        out.append((rows, launched))
+    assert out[0][0] == out[1][0] and len(out[0][0]) == 7
+    assert out[1][1] == 1  # K1 on the card (the CPU runs its plain version)
+    assert len(errs) == 2 and max(errs) == 0
+
+
+@pytest.mark.cuda
+def test_rollup_over_a_join_launches_the_build_kernel(cuda):
+    """ROLLUP over lineitem ⋈ orders with a FILTER count and a VARCHAR max
+    on the card: the join builds through K2, every build equals
+    ``build_table_plain`` on the same inputs, and the rows equal the
+    CPU's and the reference's. The reference's rows are committed as their
+    count and the SHA-256 of their canonical text (the reference needs JAX,
+    which a GPU machine need not have); ``tests/test_torch_grouping.py``
+    holds the same digest, case ``surface_rollup``, and its ``slow`` test
+    recomputes it with the reference."""
+    import hashlib
+
+    from trino_tpu_torch.ops import dense_join as DJ
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    sql = ("select o_orderpriority, l_returnflag, count(*), sum(l_quantity),"
+           " count(*) filter (where l_discount > 0.05), max(o_clerk)"
+           " from tpch.tiny.lineitem join tpch.tiny.orders on l_orderkey = o_orderkey"
+           " group by rollup(o_orderpriority, l_returnflag)")
+    real, errs = DJ.build_table_cuda, []
+
+    def checked(slot_base, use, capacity, window):
+        out = real(slot_base, use, capacity, window)
+        ptable, punplaced = DJ.build_table_plain(slot_base, use, capacity, window)
+        errs.append(int((out[0].to(torch.int64) - ptable.to(torch.int64)).abs().max())
+                    + abs(int(out[1]) - int(punplaced)))
+        return out
+
+    rows = []
+    for d in ("cpu", cuda):
+        r = LocalQueryRunner(device=d)
+        r.session.set("execution_mode", "distributed")
+        before = _kernels.LAUNCHES["dense_join_build"]
+        DJ.build_table_cuda = checked
+        try:
+            rows.append(sorted(r.execute(sql)[0], key=repr))
+        finally:
+            DJ.build_table_cuda = real
+        if d == cuda:
+            assert _kernels.LAUNCHES["dense_join_build"] > before
+    assert rows[0] == rows[1] and len(rows[0]) == 21
+    assert errs and max(errs) == 0
+    canonical = sorted(rows[1], key=lambda row: tuple(
+        (0, "") if v is None else (1, repr(v)) for v in row))
+    assert hashlib.sha256(repr(canonical).encode()).hexdigest() == (
+        "2e9e3c00d5bddbff422e7e452d63e200abd3f6a0357ea7cd10b7d7354d3323fe")

@@ -1,6 +1,6 @@
 """trino_tpu_torch's native loader against the JAX reference's, on the CPU.
 
-The port builds the shared ``native/columnar.cpp`` itself, with ``g++``,
+The port builds its own ``trino_tpu_torch/csrc/columnar.cpp`` with ``g++``,
 into ``.kernel_build/native/``: the TPC-H text pool it generates equals
 the reference's byte for byte, and its dictionary encoder gives the
 reference's codes and values. Unlike the reference it has no Python

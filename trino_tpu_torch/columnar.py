@@ -44,11 +44,14 @@ class Dictionary:
 
     Codes are dense int32; a NULL string has code -1."""
 
-    __slots__ = ("values", "_index")
+    __slots__ = ("values", "_index", "_ranks")
 
     def __init__(self, values: Sequence[str]):
         self.values: list[str] = list(values)
         self._index: dict[str, int] | None = None
+        # (length, ranks, order) of the last ranking: values only ever
+        # append (``absorb``), so an unchanged length means unchanged ranks
+        self._ranks: tuple | None = None
 
     def __len__(self) -> int:
         return len(self.values)
@@ -69,10 +72,23 @@ class Dictionary:
 
     def ranks(self) -> np.ndarray:
         """rank[code] gives the lexicographic rank of each dictionary entry."""
-        order = np.argsort(np.asarray(self.values, dtype=object), kind="stable")
-        ranks = np.empty(len(self.values), dtype=np.int64)
-        ranks[order] = np.arange(len(self.values), dtype=np.int64)
-        return ranks
+        return self._ranking()[0]
+
+    def order(self) -> np.ndarray:
+        """order[rank] gives the code of each rank (the inverse of
+        :meth:`ranks`)."""
+        return self._ranking()[1]
+
+    def _ranking(self) -> tuple[np.ndarray, np.ndarray]:
+        n = len(self.values)
+        if self._ranks is None or self._ranks[0] != n:
+            values = np.empty(n, dtype=object)
+            values[:] = self.values  # tuples (pool values) stay elements
+            order = np.argsort(values, kind="stable")
+            ranks = np.empty(n, dtype=np.int64)
+            ranks[order] = np.arange(n, dtype=np.int64)
+            self._ranks = (n, ranks, order)
+        return self._ranks[1], self._ranks[2]
 
     @staticmethod
     def from_strings(strings: Iterable[str]) -> tuple["Dictionary", np.ndarray]:
@@ -319,10 +335,7 @@ def concat_batches(batches: Sequence[Batch]) -> Batch:
                 data = p.data
                 if p.dictionary is not None and p.dictionary is not dictionary:
                     dictionary, remap = dictionary.merged(p.dictionary)
-                    remap_t = as_tensor(remap)
-                    data = torch.where(
-                        data >= 0, remap_t[data.clamp(min=0).long()], -1
-                    ).to(torch.int32)
+                    data = remap_codes(data, remap)
                 datas.append(data)
         else:
             datas = [p.data for p in parts]
@@ -332,6 +345,14 @@ def concat_batches(batches: Sequence[Batch]) -> Batch:
             Column(t, data, None if bool(valid.all()) else valid, dictionary)
         )
     return Batch(cols, sum(b.num_rows for b in batches), None)
+
+
+def remap_codes(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
+    """Dictionary codes through ``remap`` (old code -> new code); a NULL
+    code (-1) stays -1, also when the old dictionary is empty."""
+    table = as_tensor(np.append(remap, -1).astype(np.int64), codes.device)
+    idx = torch.where(codes >= 0, codes.long(), len(remap))
+    return table[idx].to(torch.int32)
 
 
 def pad_batch(batch: Batch, capacity: int) -> Batch:

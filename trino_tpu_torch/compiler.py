@@ -21,8 +21,15 @@ column's dictionary, two columns through a unified one), ``LIKE``,
 ``length``/``strpos``/``starts_with``/``regexp_like``/``codepoint``, each
 computed once per dictionary value on the host and gathered on the
 device. String->string functions are lowered before evaluation
-(:func:`trino_tpu_torch.strings.lower_string_calls`). Any other expression
-(ARRAY/MAP/ROW accessors among them) raises
+(:func:`trino_tpu_torch.strings.lower_string_calls`); math, bitwise and
+hash functions (``checksum``'s ``hash64``), ``width_bucket``, NULLIF,
+month arithmetic on dates, and the ARRAY/MAP/ROW accessors over
+pool-coded values (``cardinality``, ``element_at``, ``contains``,
+``map[k]``, ``row(...)[i]``: a per-code table computed on the host,
+gathered on the device). The forms the reference refuses (a non-literal
+LIKE or regexp pattern, string argument, ``round`` digits or
+``date_trunc`` unit; a DECIMAL(38) downscale; DECIMAL(38) * DECIMAL(38))
+are refused with the reference's error class. Any other expression raises
 :class:`NotImplementedError` naming it.
 
 Reference semantics kept: integer ``+ - *`` raise on overflow instead of
@@ -88,7 +95,7 @@ def _as_pair128(data, scale: int, target_scale: int):
     if target_scale > scale:
         hi, lo = D128.rescale_up_wide(hi, lo, target_scale - scale)
     elif target_scale < scale:
-        raise _not_ported("a DECIMAL(38) downscale")
+        raise NotImplementedError("DECIMAL(38) downscale")  # as the reference
     return hi, lo
 
 
@@ -285,7 +292,29 @@ class ExprCompiler:
             ge = self._compare(Call(type=T.BOOLEAN, name="ge", args=(val, lo)))
             le = self._compare(Call(type=T.BOOLEAN, name="le", args=(val, hi)))
             return _kleene_and(ge, le)
+        if form == "null_if":
+            return self._null_if(expr)
         raise _not_ported(f"special form {form!r}")
+
+    def _null_if(self, expr: SpecialForm) -> Pair:
+        """NULLIF(a, b): ``a``, NULL where it equals ``b``; DECIMAL operands
+        compare at their common scale, in 128-bit lanes when either is
+        wide (reference: the ``null_if`` form)."""
+        a, b = self._eval(expr.args[0]), self._eval(expr.args[1])
+        sa = _dec_scale(expr.args[0].type)
+        sb = _dec_scale(expr.args[1].type)
+        s = max(sa, sb)
+        if _is_wide(a[0]) or _is_wide(b[0]):
+            same = D128.compare128(
+                *_as_pair128(a[0], sa, s), *_as_pair128(b[0], sb, s)
+            ) == 0
+        elif sa != sb:
+            same = _rescale(a[0].to(torch.int64), sa, s) == _rescale(
+                b[0].to(torch.int64), sb, s
+            )
+        else:
+            same = a[0] == b[0]
+        return a[0], a[1] & ~(same & a[1] & b[1])
 
     # -- calls ------------------------------------------------------------
     def _call(self, expr: Call) -> Pair:
@@ -314,6 +343,21 @@ class ExprCompiler:
             d, v = self._eval(expr.args[0])
             delta, dv = self._eval(expr.args[1])
             return d + delta.to(d.dtype), v & dv
+        if name == "date_add_months":
+            # the day clamps to the target month's last day (Jan 31 + 1
+            # month = Feb 28/29), as the reference does
+            d, v = self._eval(expr.args[0])
+            months, mv = self._eval(expr.args[1])
+            y, m, dd = _civil_from_days(d.to(torch.int32))
+            total = y * 12 + (m - 1) + months.to(torch.int32)
+            y2 = _floordiv(total, 12)
+            m2 = torch.remainder(total, 12) + 1
+            dd2 = torch.minimum(dd, _days_in_month_vec(y2, m2))
+            return _days_from_civil_vec(y2, m2, dd2).to(d.dtype), v & mv
+        if name == "date_diff_days":
+            a, av = self._eval(expr.args[0])
+            b, bv = self._eval(expr.args[1])
+            return b.to(torch.int64) - a.to(torch.int64), av & bv
         if name in ("day_of_week", "day_of_year", "week", "quarter",
                     "last_day_of_month"):
             return self._date_field(expr)
@@ -334,6 +378,32 @@ class ExprCompiler:
             return (torch.floor if name == "floor" else torch.ceil)(d), v
         if name == "round":
             return self._round(expr)
+        if name in _UNARY_MATH:
+            d, v = self._eval(expr.args[0])
+            return _UNARY_MATH[name](d), v
+        if name in ("power", "atan2"):
+            a, av = self._eval(expr.args[0])
+            b, bv = self._eval(expr.args[1])
+            fn = torch.pow if name == "power" else torch.atan2
+            return fn(a, b), av & bv
+        if name == "sign":
+            d, v = self._eval(expr.args[0])
+            return torch.sign(d), v
+        if name == "truncate":
+            d, v = self._eval(expr.args[0])
+            return torch.trunc(d), v
+        if name.startswith("bitwise_"):
+            return self._bitwise(expr)
+        if name == "hash64":
+            return self._hash64(expr)
+        if name == "str_hash64":
+            return self._str_hash64(expr)
+        if name == "width_bucket":
+            return self._width_bucket(expr)
+        if name in ("cardinality", "element_at", "array_contains"):
+            return self._array_table(expr)
+        if name in ("map_cardinality", "map_element_at", "row_field"):
+            return self._map_row_table(expr)
         if name in ("greatest", "least"):
             # SQL: NULL if any argument is NULL
             pairs = [self._eval(a) for a in expr.args]
@@ -394,7 +464,7 @@ class ExprCompiler:
     def _date_trunc(self, expr: Call) -> Pair:
         unit_e = expr.args[0]
         if not isinstance(unit_e, Constant):
-            raise _not_ported("date_trunc with a non-literal unit")
+            raise NotImplementedError("date_trunc unit must be a literal")
         unit = str(unit_e.value).lower()
         d, v = self._eval(expr.args[1])
         if isinstance(expr.args[1].type, T.TimestampType):
@@ -410,13 +480,154 @@ class ExprCompiler:
             return days, v
         return _trunc_days(days, unit), v
 
+    # -- bit and hash functions ---------------------------------------------
+    def _bitwise(self, expr: Call) -> Pair:
+        """Bitwise functions over int64 two's complement; shifts by 64 or
+        more give 0 (logical) or the sign fill (arithmetic), as in the
+        reference."""
+        name = expr.name
+        if name == "bitwise_not":
+            d, v = self._eval(expr.args[0])
+            return ~d.to(torch.int64), v
+        a, av = self._eval(expr.args[0])
+        b, bv = self._eval(expr.args[1])
+        a, b = a.to(torch.int64), b.to(torch.int64)
+        if name == "bitwise_and":
+            r = a & b
+        elif name == "bitwise_or":
+            r = a | b
+        elif name == "bitwise_xor":
+            r = a ^ b
+        elif name == "bitwise_left_shift":
+            r = torch.where(b >= 64, 0, a << (b & 63))
+        elif name == "bitwise_right_shift":
+            r = torch.where(b >= 64, 0, _srl_vec(a, b & 63))
+        elif name == "bitwise_right_shift_arithmetic":
+            r = torch.where(b >= 64, a >> 63, a >> (b & 63))
+        else:
+            raise _not_ported(f"function {name!r}")
+        return r, av & bv
+
+    def _hash64(self, expr: Call) -> Pair:
+        """The checksum's per-value hash: an avalanche finalizer over the
+        value's int64 lanes (both lanes of a wide DECIMAL; a double's
+        mantissa and exponent); NULL hashes to a fixed constant."""
+        d, v = self._eval(expr.args[0])
+        if _is_wide(d):
+            out = _avalanche64(d[:, 0]) ^ _avalanche64(d[:, 1] ^ _HASH_LANE_SALT)
+        elif _is_float(expr.args[0].type):
+            m, e = torch.frexp(d.to(torch.float64))
+            im = (m * (2.0**53)).to(torch.int64)
+            out = _avalanche64(im ^ (e.to(torch.int64) << 53))
+        else:
+            out = _avalanche64(d.to(torch.int64))
+        null = torch.full_like(out, _HASH_NULL)
+        return torch.where(v, out, null), torch.ones_like(v)
+
+    def _str_hash64(self, expr: Call) -> Pair:
+        """Content hash of a dictionary string column: blake2b of each
+        dictionary value on the host, gathered by code."""
+        import hashlib
+
+        col_e = expr.args[0]
+        d, v = self._eval(col_e)
+        dictionary = self._arg_dictionary(col_e)
+        if dictionary is None:
+            raise ValueError("str_hash64 on a string column without a dictionary")
+        table = [
+            int.from_bytes(
+                hashlib.blake2b(s.encode("utf-8", "surrogatepass"),
+                                digest_size=8).digest(),
+                "little", signed=True,
+            )
+            for s in dictionary.values
+        ] + [0]
+        out = self._gather(self._table(table, torch.int64), d)
+        null = torch.full_like(out, _HASH_NULL)
+        return torch.where(v, out, null), torch.ones_like(v)
+
+    def _width_bucket(self, expr: Call) -> Pair:
+        x, xv = self._eval(expr.args[0])
+        lo, lov = self._eval(expr.args[1])
+        hi, hiv = self._eval(expr.args[2])
+        nb, nbv = self._eval(expr.args[3])
+        nb = nb.to(torch.int64)
+        valid = xv & lov & hiv & nbv
+        if bool((valid & (hi == lo)).any()):
+            raise ArithmeticError("width_bucket bounds cannot be equal")
+        span = torch.where(hi == lo, torch.ones_like(hi - lo), hi - lo)
+        raw = (torch.floor((x - lo) / span * nb.to(torch.float64)) + 1).to(torch.int64)
+        asc = torch.where(x < lo, 0, torch.where(x >= hi, nb + 1, raw))
+        # descending bounds (bound1 > bound2)
+        desc = torch.where(x > lo, 0, torch.where(x <= hi, nb + 1, raw))
+        return torch.where(lo <= hi, asc, desc), valid
+
+    # -- ARRAY / MAP / ROW (pool-coded values) ----------------------------------
+    def _pool_values(self, et: T.SqlType, vals, d, v) -> Pair:
+        """Per-pool-code element values -> a (data, valid) pair of type
+        ``et``, one gather each."""
+        if T.is_string(et):
+            # the reference refuses string elements here too (UNNEST
+            # covers that shape)
+            raise NotImplementedError("element_at over ARRAY(varchar) — use UNNEST")
+        present = self._table([x is not None for x in vals] + [False], torch.bool)
+        table = torch.tensor(
+            np.asarray([x if x is not None else 0 for x in vals] + [0],
+                       dtype=et.storage_dtype),
+            device=self.device,
+        )
+        return self._gather(table, d), v & self._gather(present, d)
+
+    def _array_table(self, expr: Call) -> Pair:
+        """cardinality / element_at / contains over pool-coded arrays: a
+        per-code table computed on the host, gathered on the device
+        (reference: ``_array_table``)."""
+        d, v, pool = self._pool_for_arg(expr)
+        entries = pool.values
+        name = expr.name
+        if name == "cardinality":
+            return self._pool_length_table(entries, d, v)
+        arg = expr.args[1]
+        if name == "element_at":
+            if not isinstance(arg, Constant) or arg.value is None:
+                raise NotImplementedError("element_at index must be a literal")
+            i = int(arg.value)
+            vals = []
+            for e in entries:
+                j = i - 1 if i > 0 else len(e) + i
+                vals.append(e[j] if 0 <= j < len(e) else None)
+            return self._pool_values(expr.type, vals, d, v)
+        if not isinstance(arg, Constant) or arg.value is None:
+            raise NotImplementedError("contains value must be a literal")
+        table = self._table([arg.value in e for e in entries] + [False], torch.bool)
+        return self._gather(table, d), v
+
+    def _map_row_table(self, expr: Call) -> Pair:
+        """map cardinality, map subscript and ROW field access over
+        pool-coded values (reference: ``_map_row_table``)."""
+        d, v, pool = self._pool_for_arg(expr)
+        entries = pool.values
+        name = expr.name
+        if name == "map_cardinality":
+            return self._pool_length_table(entries, d, v)
+        arg = expr.args[1]
+        if name == "map_element_at":
+            if not isinstance(arg, Constant) or arg.value is None:
+                raise NotImplementedError("map subscript key must be a literal")
+            vals = [dict(e).get(arg.value) for e in entries]
+            return self._pool_values(expr.type, vals, d, v)
+        i = int(arg.value)  # row_field: a 1-based literal index
+        vals = [e[i - 1] if 0 < i <= len(e) else None for e in entries]
+        return self._pool_values(expr.type, vals, d, v)
+
     def _round(self, expr: Call) -> Pair:
         d, v = self._eval(expr.args[0])
         st = expr.args[0].type
         nd = 0
         if len(expr.args) > 1:
             if not isinstance(expr.args[1], Constant):
-                raise _not_ported("round to a non-literal number of digits")
+                # the reference asserts a literal here
+                raise AssertionError("round digits must be a literal")
             nd = int(expr.args[1].value)
         if isinstance(st, T.DecimalType):
             if nd >= st.scale:
@@ -435,10 +646,12 @@ class ExprCompiler:
 
     def _pool_for_arg(self, expr: Call):
         """(codes, valid, dictionary) of a call's first argument: a
-        dictionary-coded column, or a literal as a one-value dictionary."""
+        dictionary-coded column (strings, or ARRAY/MAP/ROW values coded
+        into a pool of tuples), or a literal as a one-value dictionary."""
         col_e = expr.args[0]
         if isinstance(col_e, Constant):
-            pool = Dictionary([col_e.value if col_e.value is not None else ""])
+            empty = "" if T.is_string(col_e.type) else ()
+            pool = Dictionary([col_e.value if col_e.value is not None else empty])
             d = torch.zeros(self.n, dtype=torch.int32, device=self.device)
             v = torch.full((self.n,), col_e.value is not None, device=self.device)
             return d, v, pool
@@ -465,13 +678,13 @@ class ExprCompiler:
         elif name == "regexp_like":
             pat_e = expr.args[1]
             if not isinstance(pat_e, Constant) or pat_e.value is None:
-                raise _not_ported("a regexp pattern that is not a literal")
+                raise NotImplementedError("regexp pattern must be a literal")
             rx = re.compile(str(pat_e.value))
             table = [rx.search(s) is not None for s in values] + [False]
         else:
             lit_e = expr.args[1]
             if not isinstance(lit_e, Constant) or lit_e.value is None:
-                raise _not_ported(f"a {name} argument that is not a literal")
+                raise NotImplementedError(f"{name} argument must be a literal")
             lit = str(lit_e.value)
             if name == "strpos":
                 table = [s.find(lit) + 1 for s in values] + [0]
@@ -485,7 +698,7 @@ class ExprCompiler:
     def _like(self, expr: Call) -> Pair:
         col_e, pat_e = expr.args
         if not isinstance(pat_e, Constant):
-            raise _not_ported("a LIKE pattern that is not a literal")
+            raise NotImplementedError("LIKE pattern must be a literal")
         dictionary = self._arg_dictionary(col_e)
         if dictionary is None:
             raise ValueError("LIKE on a string column without a dictionary")
@@ -629,7 +842,7 @@ class ExprCompiler:
                     b[0][:, 0], b[0][:, 1], a[0].to(torch.int64)
                 )
             else:
-                raise _not_ported("DECIMAL(38) * DECIMAL(38)")
+                raise NotImplementedError("DECIMAL(38) * DECIMAL(38)")  # as the reference
             return torch.stack([hi, lo], dim=1), valid
         if name in ("add", "subtract"):
             ahi, alo = _as_pair128(a[0], sa, rt.scale)
@@ -774,6 +987,47 @@ class ExprCompiler:
         if isinstance(rt, T.DateType) and isinstance(st, T.TimestampType):
             return _floordiv(d, _US_PER_DAY).to(torch.int32), v
         raise _not_ported(f"cast {st.name} -> {rt.name}")
+
+
+# the reference's constants, as it writes them (shifted by 2^63)
+_HASH_LANE_SALT = 0x5851F42D4C957F2D - 2**63
+_HASH_NULL = 0x9E3779B97F4A7C15 - 2**63
+# its uint64 multipliers, as the int64s with the same bits
+_AVALANCHE_M1 = 0xFF51AFD7ED558CCD - 2**64
+_AVALANCHE_M2 = 0xC4CEB9FE1A85EC53 - 2**64
+
+
+def _srl_vec(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Logical right shift of int64 lanes by per-row 0 <= k < 64 (torch
+    has no uint64 shift; int64 arithmetic wraps as uint64 does)."""
+    kk = torch.clamp(k, min=1)
+    mask = (torch.ones_like(x) << (64 - kk)) - 1
+    return torch.where(k == 0, x, (x >> kk) & mask)
+
+
+def _avalanche64(x: torch.Tensor) -> torch.Tensor:
+    """The xxhash64/murmur3 finalizer over int64 lanes, as uint64."""
+    x = x.to(torch.int64)
+    x = x ^ D128._srl(x, 33)
+    x = x * _AVALANCHE_M1
+    x = x ^ D128._srl(x, 33)
+    x = x * _AVALANCHE_M2
+    return x ^ D128._srl(x, 33)
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+
+
+# double-valued math (the analyzer coerces the argument to DOUBLE)
+_UNARY_MATH = {
+    "ln": torch.log, "log2": torch.log2, "log10": torch.log10,
+    "exp": torch.exp, "sqrt": torch.sqrt, "sin": torch.sin,
+    "cos": torch.cos, "tan": torch.tan, "asin": torch.asin,
+    "acos": torch.acos, "atan": torch.atan, "sinh": torch.sinh,
+    "cosh": torch.cosh, "tanh": torch.tanh, "cbrt": _cbrt,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+}
 
 
 def _check_int_overflow(name, rt, a64, b64, r64, valid):

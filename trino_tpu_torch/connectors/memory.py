@@ -1,5 +1,7 @@
 """In-memory connector (reference: ``plugin/trino-memory``,
-``MemoryPagesStore.java:41``): create, insert, scan.
+``MemoryPagesStore.java:41``): create, insert, scan, and the write
+surface of the reference's connector (drop, truncate, the transaction
+snapshot and restore).
 
 Where the reference keeps pages pinned in worker JVM memory, this
 connector can additionally stage a table into device memory
@@ -39,6 +41,12 @@ class MemoryConnector(Connector):
         self._version = 0  # bumped on any mutation; keys the device cache
         self._device: dict[tuple, tuple] = {}
 
+    def list_schemas(self):
+        return sorted({s for s, _ in self._tables} | {"default"})
+
+    def list_tables(self, schema):
+        return sorted(t for s, t in self._tables if s == schema)
+
     def get_table(self, schema, table):
         return self._tables.get((schema, table))
 
@@ -58,8 +66,38 @@ class MemoryConnector(Connector):
         return compacted.num_rows
 
     def _invalidate(self):
+        """Every mutation: a new data version (the device table cache's
+        key) and no staged device slab survives."""
         self._version += 1
         self._device.clear()
+
+    # --- transaction snapshot support (see trino_tpu_torch.transaction) ---
+
+    def snapshot_state(self):
+        return (
+            dict(self._tables),
+            {k: list(v) for k, v in self._data.items()},
+        )
+
+    def restore_state(self, snap):
+        tables, data = snap
+        self._tables = dict(tables)
+        self._data = {k: list(v) for k, v in data.items()}
+        self._stats.clear()
+        self._invalidate()
+
+    def truncate(self, schema, table):
+        if (schema, table) not in self._tables:
+            raise KeyError(f"table not found: {schema}.{table}")
+        self._data[(schema, table)] = []
+        self._stats.pop((schema, table), None)
+        self._invalidate()
+
+    def drop_table(self, schema, table):
+        self._tables.pop((schema, table), None)
+        self._data.pop((schema, table), None)
+        self._stats.pop((schema, table), None)
+        self._invalidate()
 
     def device_slab(self, schema, table, columns: Sequence[str], cap: int,
                     max_bytes: int, device):

@@ -1,34 +1,45 @@
 """Statement execution engine: the coordinator's analyze/plan/execute core.
 
-Reference: ``execution/SqlQueryExecution.java:373`` (the DQL path) and
+Reference: ``execution/SqlQueryExecution.java:373`` (the DQL path), the
+``DataDefinitionTask`` family for DDL and utility statements, and
 ``testing/LocalQueryRunner.java``, which drives the same core in-process.
-Counterpart of ``trino_tpu/engine.py``: queries and SET SESSION are
-ported; other statements (DDL, INSERT, transactions, EXPLAIN, prepared
-statements) raise a "not yet ported" error. The ``tpch`` and ``tpcds``
-catalogs generate their tables (``connectors/tpch.py``,
-``connectors/tpcds.py``); ``memory`` tables are created and loaded
-through the memory connector's API (``connectors/memory.py``). The engine
-keeps what outlives one query: the capacities earlier runs of a plan grew
-to (by plan fingerprint), the device table cache (``ingest.py``) and the
-memory pool (``memory.py``) that each query's memory context reserves
-from.
+Counterpart of ``trino_tpu/engine.py``: queries, SET SESSION, SHOW,
+EXPLAIN (ANALYZE), CREATE TABLE (AS), INSERT, DELETE, DROP, transactions
+and prepared statements, under the reference's access control
+(``security.py``) and single-writer transactions (``transaction.py``).
+The ``tpch`` and ``tpcds`` catalogs generate their tables
+(``connectors/tpch.py``, ``connectors/tpcds.py``); ``memory`` tables are
+written by SQL (``connectors/memory.py``); ``blackhole`` discards writes.
+The engine keeps what outlives one query: the capacities earlier runs of
+a plan grew to (by plan fingerprint), the device table cache
+(``ingest.py``) and the memory pool (``memory.py``) that each query's
+memory context reserves from.
+
+Not ported: the ``system`` catalog, query events and the runtime tables
+(ROADMAP item 6); the program cache, cross-query batching and the result
+cache (item 8); the cluster scheduler and scaled writers (item 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import itertools
 import re
+import time
 from typing import Any, Optional
+
+import numpy as np
 
 import torch
 
 from trino_tpu_torch import resolve_device
 from trino_tpu_torch import types as T
 from trino_tpu_torch.analyzer import Analyzer, SemanticError
+from trino_tpu_torch.columnar import Batch, Column, Dictionary, as_tensor
 from trino_tpu_torch.config import Session
-from trino_tpu_torch.connectors.api import CatalogManager
+from trino_tpu_torch.connectors.api import CatalogManager, ColumnSchema, TableSchema
 from trino_tpu_torch.exec.local import LocalExecutor
 from trino_tpu_torch.ingest import DeviceTableCache
 from trino_tpu_torch.memory import MemoryPool, QueryMemoryContext, device_pool_bytes
@@ -102,6 +113,7 @@ class Engine:
     def __init__(self, catalogs: Optional[CatalogManager] = None, device=None):
         self.device = resolve_device(device)
         if catalogs is None:
+            from trino_tpu_torch.connectors.blackhole import BlackHoleConnector
             from trino_tpu_torch.connectors.memory import MemoryConnector
             from trino_tpu_torch.connectors.tpcds import TpcdsConnector
             from trino_tpu_torch.connectors.tpch import TpchConnector
@@ -110,7 +122,14 @@ class Engine:
             catalogs.register("tpch", TpchConnector())
             catalogs.register("tpcds", TpcdsConnector())
             catalogs.register("memory", MemoryConnector())
+            catalogs.register("blackhole", BlackHoleConnector())
         self.catalogs = catalogs
+        # transactions + access control (reference: engine.py:104-109)
+        from trino_tpu_torch.security import AccessControlManager
+        from trino_tpu_torch.transaction import TransactionManager
+
+        self.transaction_manager = TransactionManager(self.catalogs)
+        self.access_control = AccessControlManager()
         # capacities grown by earlier runs, by (plan fingerprint, kind,
         # fragment id): a repeat of a plan starts where its last run ended
         self.caps_store: dict = {}
@@ -121,27 +140,44 @@ class Engine:
         self._query_ids = itertools.count(1)
 
     def execute_statement(self, sql: str, session: Session) -> StatementResult:
-        """Run one statement."""
-        stmt = parse_statement(sql)
+        """Run one statement. A session inside an explicit transaction has
+        it validated and pinned for the statement's duration: an unknown or
+        expired id fails (and is cleared from the session), and a live one
+        is not idle-expired mid-statement (reference: engine.py:512-537)."""
+        txn_info = None
+        txn_id = session.properties.get("__txn")
+        if txn_id:
+            try:
+                txn_info = self.transaction_manager.get(txn_id)  # touches
+                txn_info.busy += 1
+            except Exception:
+                session.properties.pop("__txn", None)
+                raise
+        try:
+            return self._dispatch_parsed(parse_statement(sql), session)
+        finally:
+            if txn_info is not None:
+                txn_info.busy -= 1
+                txn_info.last_access = time.time()
+
+    def _dispatch_parsed(self, stmt: t.Node, session: Session) -> StatementResult:
         handler = getattr(self, f"_do_{type(stmt).__name__.lower()}", None)
         if handler is not None:
             return handler(stmt, session)
         if isinstance(stmt, t.Query):
             return self._execute_query_plan(self.plan(stmt, session), session)
-        raise SemanticError(
-            f"statement {type(stmt).__name__} is not yet ported to trino_tpu_torch"
-        )
+        raise SemanticError(f"unsupported statement: {type(stmt).__name__}")
 
     def plan(self, stmt: t.Node, session: Session) -> P.PlanNode:
         from trino_tpu_torch.planner.optimizer import optimize
 
-        plan = Analyzer(self.catalogs, session).plan_statement(stmt)
-        return optimize(plan, session, self.catalogs)
+        analyzer = Analyzer(self.catalogs, session, self.access_control)
+        return optimize(analyzer.plan_statement(stmt), session, self.catalogs)
 
     # === DQL ==============================================================
 
     def _execute_query_plan(
-        self, plan: P.PlanNode, session: Session
+        self, plan: P.PlanNode, session: Session, collector=None
     ) -> StatementResult:
         ctx = QueryMemoryContext(
             self.memory_pool, f"q{next(self._query_ids)}",
@@ -149,6 +185,7 @@ class Engine:
         )
         try:
             executor = self._executor(session, plan, ctx)
+            executor.stats_collector = collector
             batch, names = executor.execute(plan)
         finally:
             ctx.close()
@@ -197,3 +234,354 @@ class Engine:
             [], ["result"], [T.BOOLEAN],
             update_type="SET SESSION", set_session={stmt.name: v},
         )
+
+    def _run_query_rows(self, query: t.Query, session: Session) -> tuple[Batch, list[str]]:
+        """A query's rows as one host batch (the input of a write)."""
+        plan = self.plan(query, session)
+        ctx = QueryMemoryContext(
+            self.memory_pool, f"q{next(self._query_ids)}",
+            max_bytes=int(session.get("query_max_memory_bytes")),
+        )
+        try:
+            return self._executor(session, plan, ctx).execute(plan)
+        finally:
+            ctx.close()
+
+    # === metadata / SHOW ==================================================
+
+    def _do_showcatalogs(self, stmt, session) -> StatementResult:
+        names = self.access_control.filter_catalogs(
+            session.user, self.catalogs.names()
+        )
+        return StatementResult([(n,) for n in names], ["Catalog"], [T.VARCHAR])
+
+    def _do_showschemas(self, stmt, session) -> StatementResult:
+        conn = self.catalogs.get(stmt.catalog or session.catalog)
+        return StatementResult(
+            [(s,) for s in conn.list_schemas()], ["Schema"], [T.VARCHAR]
+        )
+
+    def _do_showtables(self, stmt, session) -> StatementResult:
+        parts = list(stmt.schema or ())
+        if len(parts) == 2:
+            catalog, schema = parts
+        elif len(parts) == 1:
+            catalog, schema = session.catalog, parts[0]
+        else:
+            catalog, schema = session.catalog, session.schema
+        conn = self.catalogs.get(catalog)
+        return StatementResult(
+            [(x,) for x in conn.list_tables(schema)], ["Table"], [T.VARCHAR]
+        )
+
+    def _do_showcolumns(self, stmt, session) -> StatementResult:
+        catalog, schema, table = self._qualify(stmt.table, session)
+        ts = self.catalogs.get(catalog).get_table(schema, table)
+        if ts is None:
+            raise SemanticError(f"table not found: {catalog}.{schema}.{table}")
+        rows = [(c.name, str(c.type), "", "") for c in ts.columns]
+        return StatementResult(
+            rows, ["Column", "Type", "Extra", "Comment"], [T.VARCHAR] * 4
+        )
+
+    # === EXPLAIN ==========================================================
+
+    def _do_explain(self, stmt: t.Explain, session: Session) -> StatementResult:
+        """EXPLAIN: the fragmented plan (``subplan_text``), as the
+        reference prints it. EXPLAIN ANALYZE runs the query and renders the
+        plan with each node's wall time, rows and bytes (local runs), the
+        fragments' records and capacity sites (distributed runs), then the
+        query's peak memory, dynamic filters, output rows and wall time.
+        The reference's device-program and operator-counter sections wait
+        for the profiler and the fused path (ROADMAP items 8 and 9)."""
+        from trino_tpu_torch import stats as S
+
+        if getattr(stmt, "analyze", False):
+            inner = stmt.statement
+            if not isinstance(inner, t.Query):
+                raise SemanticError("EXPLAIN ANALYZE supports queries only")
+            collector = S.StatsCollector()
+            plan = self.plan(inner, session)
+            res = self._execute_query_plan(plan, session, collector=collector)
+            text = S.render_plan_with_stats(plan, collector)
+            if collector.fragments:
+                text += "\n\n" + S.render_fragment_stats(collector.fragments)
+            caps = (res.exchange_stats or {}).get("capacities")
+            if isinstance(caps, dict) and caps:
+                text += "\n\n" + S.render_capacity_stats(caps)
+            wall_ms = collector.total_wall() * 1000
+            text += (
+                f"\n\npeak memory: {res.peak_memory_bytes} bytes"
+                f"\ndynamic filters: {res.dynamic_filters}"
+                f"\noutput rows: {len(res.rows)}"
+                f"\nwall time: {wall_ms:.1f}ms"
+            )
+            return StatementResult(
+                [(line,) for line in text.splitlines()], ["Query Plan"], [T.VARCHAR]
+            )
+        from trino_tpu_torch.planner.fragmenter import fragment_plan, subplan_text
+
+        text = subplan_text(fragment_plan(self.plan(stmt.statement, session)))
+        return StatementResult(
+            [(line,) for line in text.splitlines()], ["Query Plan"], [T.VARCHAR]
+        )
+
+    # === DDL / DML ========================================================
+
+    def _insert(self, conn, schema: str, table: str, batch: Batch,
+                session: Session) -> int:
+        """Rows into a connector. The reference's scaled writers ship
+        pages to worker tasks (``_scaled_insert``), which needs the cluster
+        (ROADMAP item 9)."""
+        if session.get("scaled_writers"):
+            raise SemanticError(
+                "scaled_writers is not yet ported to trino_tpu_torch"
+            )
+        return conn.insert(schema, table, batch)
+
+    def _do_createtableasselect(
+        self, stmt: t.CreateTableAsSelect, session: Session
+    ) -> StatementResult:
+        catalog, schema, table = self._qualify(stmt.name, session)
+        self.access_control.check_can_create(session.user, catalog, schema, table)
+        conn = self.catalogs.get(catalog)
+        self._check_txn_writable(session, conn, catalog)
+        batch, names = self._run_query_rows(stmt.query, session)
+        cols = tuple(
+            ColumnSchema(n.lower(), c.type) for n, c in zip(names, batch.columns)
+        )
+        with self._write_guard(session):
+            conn.create_table(schema, table, TableSchema(table, cols))
+            n = self._insert(conn, schema, table, batch, session)
+        return StatementResult(
+            [], ["rows"], [T.BIGINT], update_type="CREATE TABLE", update_count=n
+        )
+
+    def _do_insertinto(self, stmt: t.InsertInto, session: Session) -> StatementResult:
+        catalog, schema, table = self._qualify(stmt.name, session)
+        self.access_control.check_can_insert(session.user, catalog, schema, table)
+        conn = self.catalogs.get(catalog)
+        self._check_txn_writable(session, conn, catalog)
+        ts = conn.get_table(schema, table)
+        if ts is None:
+            raise SemanticError(f"table not found: {catalog}.{schema}.{table}")
+        with self._write_guard(session):
+            return self._do_insert_locked(stmt, session, conn, schema, table, ts)
+
+    def _do_insert_locked(self, stmt, session, conn, schema, table, ts) -> StatementResult:
+        batch, _ = self._run_query_rows(stmt.query, session)
+        ncols = len(stmt.columns) if stmt.columns else len(ts.columns)
+        if len(batch.columns) != ncols:
+            raise SemanticError(
+                f"INSERT has {len(batch.columns)} columns, expected {ncols}"
+            )
+        if stmt.columns:
+            batch = _to_table_columns(batch, stmt.columns, ts)
+        n = self._insert(conn, schema, table, batch, session)
+        return StatementResult(
+            [], ["rows"], [T.BIGINT], update_type="INSERT", update_count=n
+        )
+
+    def _do_droptable(self, stmt: t.DropTable, session: Session) -> StatementResult:
+        catalog, schema, table = self._qualify(stmt.name, session)
+        self.access_control.check_can_drop(session.user, catalog, schema, table)
+        conn = self.catalogs.get(catalog)
+        self._check_txn_writable(session, conn, catalog)
+        if conn.get_table(schema, table) is not None or not stmt.if_exists:
+            with self._write_guard(session):
+                conn.drop_table(schema, table)
+        return StatementResult([], ["result"], [T.BOOLEAN], update_type="DROP TABLE")
+
+    def _do_createtable(self, stmt: t.CreateTable, session: Session) -> StatementResult:
+        catalog, schema, table = self._qualify(stmt.name, session)
+        self.access_control.check_can_create(session.user, catalog, schema, table)
+        conn = self.catalogs.get(catalog)
+        self._check_txn_writable(session, conn, catalog)
+        if conn.get_table(schema, table) is not None:
+            if stmt.not_exists:
+                return StatementResult(
+                    [], ["result"], [T.BOOLEAN], update_type="CREATE TABLE"
+                )
+            raise SemanticError(f"table already exists: {catalog}.{schema}.{table}")
+        cols = tuple(
+            ColumnSchema(n.lower(), T.parse_type(ty)) for n, ty in stmt.columns
+        )
+        with self._write_guard(session):
+            conn.create_table(schema, table, TableSchema(table, cols))
+        return StatementResult([], ["result"], [T.BOOLEAN], update_type="CREATE TABLE")
+
+    def _do_delete(self, stmt: t.Delete, session: Session) -> StatementResult:
+        """DELETE removes the rows where the predicate is TRUE; rows where
+        it is FALSE or NULL remain. Run as keep-filter, truncate and
+        reinsert (connector-neutral), as the reference does."""
+        catalog, schema, table = self._qualify(stmt.name, session)
+        self.access_control.check_can_insert(session.user, catalog, schema, table)
+        conn = self.catalogs.get(catalog)
+        self._check_txn_writable(session, conn, catalog)
+        if conn.get_table(schema, table) is None:
+            raise SemanticError(f"table not found: {catalog}.{schema}.{table}")
+        if not hasattr(conn, "truncate"):
+            raise SemanticError(f"{conn.name}: DELETE not supported")
+        with self._write_guard(session):
+            return self._do_delete_locked(stmt, session, conn, catalog, schema, table)
+
+    def _do_delete_locked(self, stmt, session, conn, catalog, schema, table) -> StatementResult:
+        before = conn.estimate_rows(schema, table) or 0
+        if stmt.where is None:
+            conn.truncate(schema, table)
+            return StatementResult(
+                [], ["rows"], [T.BIGINT], update_type="DELETE", update_count=before
+            )
+        keep = t.Query(body=t.QuerySpec(
+            select_items=(t.SelectItem(t.Star()),),
+            from_=t.Table((catalog, schema, table)),
+            where=t.BinaryOp(
+                "OR", t.UnaryOp("NOT", stmt.where), t.IsNull(stmt.where)
+            ),
+        ))
+        batch, _ = self._run_query_rows(keep, session)
+        conn.truncate(schema, table)
+        if batch.num_rows:
+            conn.insert(schema, table, batch)
+        return StatementResult(
+            [], ["rows"], [T.BIGINT],
+            update_type="DELETE", update_count=before - batch.num_rows,
+        )
+
+    def _check_txn_writable(self, session: Session, conn, catalog: str) -> None:
+        """Connectors without snapshot/restore cannot take part in explicit
+        transactions (reference: 'Catalog only supports writes using
+        autocommit')."""
+        if session.properties.get("__txn") and not hasattr(conn, "snapshot_state"):
+            raise SemanticError(
+                f"Catalog '{catalog}' only supports writes using autocommit"
+            )
+
+    def _write_guard(self, session: Session):
+        """Single-writer enforcement for autocommit writes: inside an
+        explicit transaction the session already holds the write lock;
+        otherwise the statement holds it."""
+        if session.properties.get("__txn"):
+            return contextlib.nullcontext()
+        self.transaction_manager.expire_idle()
+        lock = self.transaction_manager.write_lock
+
+        @contextlib.contextmanager
+        def guard():
+            if not lock.acquire(timeout=60):
+                from trino_tpu_torch.transaction import TransactionError
+
+                raise TransactionError("timed out waiting for the write lock")
+            try:
+                yield
+            finally:
+                lock.release()
+
+        return guard()
+
+    # === transactions =====================================================
+
+    def _do_starttransaction(self, stmt, session: Session) -> StatementResult:
+        if session.properties.get("__txn"):
+            raise SemanticError("transaction already in progress")
+        txn_id = self.transaction_manager.begin()
+        session.properties["__txn"] = txn_id
+        return StatementResult(
+            [], ["result"], [T.BOOLEAN], update_type="START TRANSACTION"
+        )
+
+    def _do_commit(self, stmt, session: Session) -> StatementResult:
+        txn = session.properties.get("__txn")
+        if not txn:
+            raise SemanticError("no transaction in progress")
+        self.transaction_manager.commit(txn)
+        session.properties.pop("__txn", None)
+        return StatementResult([], ["result"], [T.BOOLEAN], update_type="COMMIT")
+
+    def _do_rollback(self, stmt, session: Session) -> StatementResult:
+        txn = session.properties.get("__txn")
+        if not txn:
+            raise SemanticError("no transaction in progress")
+        self.transaction_manager.rollback(txn)
+        session.properties.pop("__txn", None)
+        return StatementResult([], ["result"], [T.BOOLEAN], update_type="ROLLBACK")
+
+    # === prepared statements (reference: Session.preparedStatements) ======
+
+    def _do_prepare(self, stmt: t.Prepare, session: Session) -> StatementResult:
+        # the parsed statement: sessions live in one process (the
+        # reference keeps the SQL text for its HTTP protocol)
+        session.prepared[stmt.name.lower()] = stmt.statement
+        return StatementResult([], ["result"], [T.BOOLEAN], update_type="PREPARE")
+
+    def _do_execute(self, stmt: t.Execute, session: Session) -> StatementResult:
+        inner = session.prepared.get(stmt.name.lower())
+        if inner is None:
+            raise SemanticError(f"prepared statement not found: {stmt.name}")
+        return self._dispatch_parsed(_bind_parameters(inner, stmt.parameters), session)
+
+    def _do_deallocate(self, stmt: t.Deallocate, session: Session) -> StatementResult:
+        session.prepared.pop(stmt.name.lower(), None)
+        return StatementResult([], ["result"], [T.BOOLEAN], update_type="DEALLOCATE")
+
+    def _qualify(self, name_parts, session: Session) -> tuple[str, str, str]:
+        parts = list(name_parts)
+        if len(parts) == 1:
+            return session.catalog, session.schema, parts[0]
+        if len(parts) == 2:
+            return session.catalog, parts[0], parts[1]
+        return parts[0], parts[1], parts[2]
+
+
+def _to_table_columns(batch: Batch, names, ts: TableSchema) -> Batch:
+    """An INSERT's rows with a column list, in the table's column order:
+    the named columns placed, every other column NULL. A NULL string is
+    code -1 (the reference fills code 0 over an empty dictionary, which a
+    later scan of several parts fails to remap)."""
+    by_name = {c.lower(): i for i, c in enumerate(names)}
+    n = batch.num_rows
+    cols = []
+    for cs in ts.columns:
+        if cs.name in by_name:
+            cols.append(batch.columns[by_name[cs.name]])
+        else:
+            string = T.is_string(cs.type)
+            cols.append(Column(
+                cs.type,
+                as_tensor(np.full(n, -1 if string else 0, dtype=cs.type.storage_dtype)),
+                as_tensor(np.zeros(n, dtype=np.bool_)),
+                Dictionary([]) if string else None,
+            ))
+    return Batch(cols, n, batch.sel)
+
+
+def _bind_parameters(stmt: t.Node, params: tuple) -> t.Node:
+    """Replace the ``?`` placeholders with the EXECUTE ... USING
+    expressions."""
+
+    def walk(node):
+        if isinstance(node, t.Parameter):
+            if node.index >= len(params):
+                raise SemanticError(
+                    f"no value provided for parameter {node.index + 1}"
+                )
+            return params[node.index]
+        if dataclasses.is_dataclass(node) and isinstance(node, t.Node):
+            changes = {}
+            for f in dataclasses.fields(node):
+                v = getattr(node, f.name)
+                if isinstance(v, t.Node):
+                    changes[f.name] = walk(v)
+                elif isinstance(v, tuple):
+                    changes[f.name] = tuple(
+                        walk(x) if isinstance(x, t.Node)
+                        else (
+                            tuple(walk(y) if isinstance(y, t.Node) else y for y in x)
+                            if isinstance(x, tuple) else x
+                        )
+                        for x in v
+                    )
+            return dataclasses.replace(node, **changes) if changes else node
+        return node
+
+    return walk(stmt)

@@ -38,6 +38,7 @@ counters.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
@@ -263,12 +264,12 @@ class _FragmentTracer(LocalExecutor):
         )
 
     def _agg_inputs(self, node: P.Aggregate, res: Result):
-        """(agg_inputs, specs) of an aggregate over ``res``."""
+        """(agg_inputs, specs, string dictionaries) of an aggregate over
+        ``res`` (:func:`agg_inputs_for`)."""
         try:
-            agg_inputs, specs = agg_inputs_for(node, res)
+            return agg_inputs_for(node, res)
         except ExecutionError as e:  # an unported aggregate shape
             raise FusedUnsupported(str(e)) from e
-        return agg_inputs, specs
 
     # --- limit / sort / topN: fixed capacities, no host reads ------------
 
@@ -630,11 +631,31 @@ class FragmentedExecutor(LocalExecutor):
             results[frag.id] = self._run_fragment(frag, results, names_holder)
         for caps in self._caps.values():
             self.exchange_stats["joinStrategy"].update(caps.join_strategies)
+        if self.stats_collector is not None:
+            # EXPLAIN ANALYZE's capacity section; no other reader
+            self.exchange_stats["capacities"] = self._capacity_report()
         out = results[sub.fragment.id].batch.compact()
         names = names_holder.get(sub.fragment.id) or [
             s.name for s in sub.fragment.root.output_symbols
         ]
         return out, names
+
+    def _capacity_report(self) -> dict:
+        """Every capacity site this query's fragments ran at: its final
+        value and provenance (``default``, ``seeded``, ``+grown``), the
+        reference's ``exchange_stats["capacities"]``."""
+        report = {}
+        for fid in sorted(self.fragment_modes):
+            kind = "stream" if self.fragment_modes[fid] == "streamed" else "join"
+            caps = self._caps.get(fid) or self.caps_store.get(
+                (self.fingerprint, kind, fid)
+            )
+            for name, value in sorted((caps.vals if caps else {}).items()):
+                report[name] = {
+                    "site": name, "value": value,
+                    "provenance": caps.provenance.get(name, "default"),
+                }
+        return report
 
     def _df_build_lookup(self, results: dict[int, Result]):
         """Dynamic-filter domain accessor over completed fragment results:
@@ -665,9 +686,11 @@ class FragmentedExecutor(LocalExecutor):
         results: dict[int, Result],
         names_holder: dict[int, list[str]],
     ) -> Result:
+        t0 = time.perf_counter()
         streamed = self._try_streaming(frag, names_holder, results)
         if streamed is not None:
             self.fragment_modes[frag.id] = "streamed"
+            self._record_fragment(frag.id, "streamed", t0, streamed)
             return streamed
         from trino_tpu_torch.dynfilter import fragment_dynamic_filters
 
@@ -692,7 +715,28 @@ class FragmentedExecutor(LocalExecutor):
                 names_holder[frag.id] = list(n.column_names)
         self.fragment_modes[frag.id] = "materialized"
         # output exchanges are the identity on a mesh of one device
-        return self._run_with_retries(frag.id, root, inputs, layouts)
+        retries = self.exchange_stats["overflow_retries"]
+        res = self._run_with_retries(frag.id, root, inputs, layouts)
+        if self.stats_collector is not None:
+            self._record_fragment(
+                frag.id, "materialized", t0, res,
+                attempts=1 + self.exchange_stats["overflow_retries"] - retries,
+                input_rows=sum(b.count_rows() for b in inputs.values()),
+            )
+        return res
+
+    def _record_fragment(self, fid: int, mode: str, t0: float, res: Result,
+                         **extra) -> None:
+        """EXPLAIN ANALYZE's record of one fragment (its wall time includes
+        a device sync for the output row count); nothing without a
+        collector. Its row counts are host reads: callers build ``extra``
+        only under a collector."""
+        if self.stats_collector is None:
+            return
+        self.stats_collector.record_fragment(fid, {
+            "mode": mode, "output_rows": res.batch.count_rows(),
+            "wall_s": time.perf_counter() - t0, **extra,
+        })
 
     def _run_with_retries(self, fid: int, root: P.PlanNode, inputs,
                           layouts) -> Result:

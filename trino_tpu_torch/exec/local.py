@@ -5,19 +5,22 @@ Reference: ``core/trino-main/src/main/java/io/trino/testing/LocalQueryRunner.jav
 evaluated to a :class:`Batch` on the executor's device plus a symbol
 layout; operator-at-a-time, eagerly.
 
-The subset of ``trino_tpu/exec/local.py`` this engine runs today:
-TableScan, Values, Filter, Project (string-valued expressions over a
-unified dictionary), Aggregate (single, partial and final steps; DISTINCT
-aggregates), Join (INNER, LEFT with or without a non-equi ON
+Every node of ``trino_tpu/exec/local.py``: TableScan, Values, Filter,
+Project (string-valued expressions over a unified dictionary;
+ARRAY/MAP/ROW literals as pool codes), Aggregate (single, partial and
+final steps; DISTINCT aggregates; FILTER clauses folded into the inputs'
+valid masks; min/max over VARCHAR by dictionary rank; ``array_agg`` into
+pool-coded tuples), GroupId (GROUPING SETS, ROLLUP, CUBE), Unnest (WITH
+ORDINALITY, several arrays), Join (INNER, LEFT with or without a non-equi ON
 filter, RIGHT as a flipped LEFT, FULL OUTER on equality criteria, SEMI
 and ANTI through the sort tier of ``ops/join.py``, with dynamic
 filtering; scalar-subquery joins, CROSS joins; DECIMAL(38) keys), Window
 (``ops/window.py``), Distinct, SetOp (UNION, INTERSECT and EXCEPT,
 DISTINCT or ALL), Sort, TopN, Limit and Output, wide (n, 2)
 DECIMAL columns included. String->string functions are lowered onto
-dictionary-transformed columns first (``strings.py``). Any other plan
-node raises :class:`ExecutionError` naming it; so do FILTER aggregates
-and min/max over VARCHAR. Joins on DOUBLE and REAL keys match on the
+dictionary-transformed columns first (``strings.py``), and
+``format_datetime``/``date_format`` onto rendered columns
+(``datetimefmt.py``). Joins on DOUBLE and REAL keys match on the
 float64 bit pattern. Past ``spill_threshold_rows`` a join, a GROUP BY, a
 sort (TopN included) and a partitioned window run partition by partition
 (``spill.py``), and each node's output is reserved in the query's memory
@@ -40,11 +43,13 @@ from trino_tpu_torch.columnar import (
     as_tensor,
     bucket_capacity,
     concat_batches,
+    remap_codes,
     torch_dtype,
 )
 from trino_tpu_torch.compiler import ExprCompiler, div_by_number
 from trino_tpu_torch.config import Session
 from trino_tpu_torch.connectors.api import CatalogManager
+from trino_tpu_torch.datetimefmt import lower_datetime_format_calls
 from trino_tpu_torch.ir import Call, Constant, InputRef, RowExpr, SpecialForm, bind_variables
 from trino_tpu_torch.ops import join as J
 from trino_tpu_torch.ops.aggregation import (
@@ -118,44 +123,74 @@ class Result:
 
 def agg_inputs_for(node: P.Aggregate, res: Result):
     """Per aggregate: its (data, valid-or-None) input (None for count(*))
-    and its accumulation spec. A DISTINCT count/sum/avg keeps the first
-    row of each (group keys, value) combination only. FILTER clauses and
-    string min/max are not ported yet."""
-    agg_inputs, specs = [], []
+    and its accumulation spec, and per aggregate the dictionary of a
+    VARCHAR min/max (else None). A FILTER clause folds into the input's
+    valid mask (``count(*) FILTER`` counts the mask), as the reference's
+    ``_prepare_partial_inputs`` does, so the partial step applies it once
+    and the final step never sees it. VARCHAR min/max run over the
+    dictionary's lexicographic ranks (:func:`rank_codes`); the caller maps
+    the winning rank back to a code. A DISTINCT count/sum/avg keeps the
+    first row of each (group keys, value) combination only."""
+    agg_inputs, specs, string_dicts = [], [], []
     for _, fn in node.aggregates:
+        fmask = None
         if fn.filter is not None:
-            raise ExecutionError(
-                "FILTER aggregates are not yet ported to trino_tpu_torch"
-            )
+            fc = res.column(P.Symbol(fn.filter.name, T.BOOLEAN))
+            fmask = fc.data.to(torch.bool) & fc.valid_mask()
+        string_dicts.append(None)
         if fn.kind == "count_star":
-            agg_inputs.append(None)
-            specs.append(AggSpec("count_star"))
+            if fmask is None:
+                agg_inputs.append(None)
+                specs.append(AggSpec("count_star"))
+            else:
+                ones = torch.ones(fmask.shape[0], dtype=torch.int64, device=fmask.device)
+                agg_inputs.append((ones, fmask))
+                specs.append(AggSpec("count"))
             continue
+        if fn.kind == "array_agg":
+            raise ExecutionError("array_agg runs through the host collector")
         c = res.column(P.Symbol(fn.argument.name, fn.argument.type))
-        if c.dictionary is not None and fn.kind != "count":
+        data, valid = c.data, c.valid
+        if c.dictionary is not None and fn.kind in ("min", "max"):
+            data = rank_codes(c.dictionary, data)
+            string_dicts[-1] = c.dictionary
+        elif c.dictionary is not None and fn.kind != "count":
             raise ExecutionError(
-                f"{fn.kind} over VARCHAR is not yet ported to trino_tpu_torch"
+                f"{fn.kind} over {fn.argument.type.name} is not yet ported to trino_tpu_torch"
             )
-        valid = c.valid
+        if fmask is not None:
+            valid = fmask if valid is None else valid & fmask
         if fn.distinct and fn.kind in ("count", "sum", "avg"):
             sel = res.batch.selection_mask()
-            vmask = c.valid_mask()
+            vmask = c.valid_mask() if valid is None else valid
             keys = [res.pair(k) for k in node.group_keys]
-            valid = vmask & distinct_first_mask(keys, (c.data, vmask), sel & vmask)
-        agg_inputs.append((c.data, valid))
-        specs.append(sum_spec_for(fn, c.data))
-    return agg_inputs, specs
+            valid = vmask & distinct_first_mask(keys, (data, vmask), sel & vmask)
+        agg_inputs.append((data, valid))
+        specs.append(sum_spec_for(fn, data))
+    return agg_inputs, specs, string_dicts
 
 
-def finalize_aggs(node: P.Aggregate, results) -> list[Column]:
+def codes_of_ranks(dictionary, ranks: torch.Tensor) -> torch.Tensor:
+    """Lexicographic ranks of ``dictionary`` -> its int32 codes (the
+    inverse of :func:`rank_codes`)."""
+    if dictionary is None or len(dictionary) == 0:
+        return torch.full(ranks.shape, -1, dtype=torch.int32, device=ranks.device)
+    order = as_tensor(dictionary.order(), ranks.device)
+    idx = ranks.to(torch.int64).clamp(0, len(dictionary) - 1)
+    return order[idx].to(torch.int32)
+
+
+def finalize_aggs(node: P.Aggregate, results, string_dicts=None) -> list[Column]:
     """Per aggregate, its output column from (value, count) results: avg
     division (DECIMAL averages round half up, wide ones through
     ``div128_round``), NULL on an empty group, limb sums resolved into
-    wide (hi, lo) values."""
+    wide (hi, lo) values, and a VARCHAR min/max rank mapped back to its
+    dictionary code."""
     from trino_tpu_torch.ops import decimal128 as D128
 
+    string_dicts = string_dicts or [None] * len(node.aggregates)
     cols = []
-    for (_, fn), raw in zip(node.aggregates, results):
+    for (_, fn), raw, sdict in zip(node.aggregates, results, string_dicts):
         t = fn.result_type
         dt = torch_dtype(t.storage_dtype)
         if fn.kind in ("count", "count_star"):
@@ -164,6 +199,10 @@ def finalize_aggs(node: P.Aggregate, results) -> list[Column]:
         ssum, cnt = raw
         cnt = cnt.reshape(-1)
         valid = cnt > 0
+        if sdict is not None:
+            codes = torch.where(valid, codes_of_ranks(sdict, ssum.reshape(-1)), -1)
+            cols.append(Column(t, codes.to(torch.int32), valid, sdict))
+            continue
         ssum = _limbs_to_wide(ssum)
         if ssum.ndim == 2:
             if fn.kind == "avg":
@@ -239,7 +278,7 @@ def bound_filter_mask(expr: RowExpr, columns: list[Column], device) -> torch.Ten
     """A bound predicate's mask over ``columns``, string calls lowered
     first (the lowering appends columns to a copy)."""
     work = list(columns)
-    expr = lower_string_calls(expr, work)
+    expr = lower_string_calls(lower_datetime_format_calls(expr, work), work)
     return ExprCompiler(work, device=device).predicate_mask(expr)
 
 
@@ -270,9 +309,7 @@ def unify_strings(expr: RowExpr, columns: list[Column]):
     new_cols = list(columns)
     for ch, remap in remaps.items():
         c = new_cols[ch]
-        r = as_tensor(remap, c.data.device)
-        codes = torch.where(c.data >= 0, r[c.data.clamp(min=0).long()], -1)
-        new_cols[ch] = Column(c.type, codes.to(torch.int32), c.valid, union)
+        new_cols[ch] = Column(c.type, remap_codes(c.data, remap), c.valid, union)
     return new_cols, union
 
 
@@ -342,6 +379,8 @@ class LocalExecutor:
         self._reservations: dict[int, int] = {}
         # spilled operators by kind, their partitions and host seconds
         self.spill_stats: dict = {}
+        # EXPLAIN ANALYZE's per-node records (stats.StatsCollector), or None
+        self.stats_collector = None
 
     # === entry ==========================================================
     def execute(self, node: P.PlanNode) -> tuple[Batch, list[str]]:
@@ -362,7 +401,17 @@ class LocalExecutor:
             raise ExecutionError(
                 f"plan node {type(node).__name__} is not yet ported to trino_tpu_torch"
             )
-        res = method(node)
+        if self.stats_collector is not None:
+            from trino_tpu_torch.memory import batch_nbytes
+
+            t0 = time.perf_counter()
+            res = method(node)
+            rows = int(res.batch.count_rows())  # a device sync: exact timing
+            self.stats_collector.record(
+                node, time.perf_counter() - t0, rows, batch_nbytes(res.batch)
+            )
+        else:
+            res = method(node)
         if self.memory_ctx is not None:
             from trino_tpu_torch.memory import batch_nbytes
 
@@ -445,15 +494,26 @@ class LocalExecutor:
         cols: list[Column] = []
         n = res.batch.capacity
         for sym, expr in node.assignments:
-            bound = lower_string_calls(self._bind(expr, res.layout), work_cols)
+            bound = lower_datetime_format_calls(self._bind(expr, res.layout), work_cols)
+            bound = lower_string_calls(bound, work_cols)
             if isinstance(bound, InputRef):
                 cols.append(work_cols[bound.channel])
                 continue
             if isinstance(sym.type, (T.ArrayType, T.MapType, T.RowType)):
-                raise ExecutionError(
-                    f"computed {sym.type.name} expressions are not yet "
-                    "ported to trino_tpu_torch"
-                )
+                if not isinstance(bound, Constant):
+                    # the reference refuses these too
+                    raise ExecutionError(
+                        "computed ARRAY/MAP/ROW expressions are not supported yet"
+                    )
+                # a literal value: one pool entry, every row coded 0
+                live = bound.value is not None
+                codes = torch.full((n,), 0 if live else -1, dtype=torch.int32,
+                                   device=self.device)
+                valid = None if live else torch.zeros(n, dtype=torch.bool, device=self.device)
+                cols.append(Column(
+                    sym.type, codes, valid, Dictionary([bound.value] if live else [])
+                ))
+                continue
             if T.is_string(sym.type):
                 if isinstance(bound, Constant):
                     if bound.value is None:
@@ -1214,6 +1274,157 @@ class LocalExecutor:
         out = both.take(idx)
         return Result(out, {s.name: i for i, s in enumerate(node.symbols)})
 
+    # === grouping sets and UNNEST =======================================
+    def _exec_groupid(self, node: P.GroupId) -> Result:
+        """GROUPING SETS / ROLLUP / CUBE (reference: ``_exec_groupid``,
+        the GroupIdOperator): the input once per grouping set, with the
+        keys absent from the set NULL, and the set's index appended as the
+        group-id column. Copies stay on the device."""
+        res = self._exec(node.source)
+        base = compact_on_device(res.batch)
+        n = base.num_rows
+        all_keys = {s.name for s in node.all_keys}
+        dead = torch.zeros(n, dtype=torch.bool, device=base.device)
+        parts = []
+        for gidx, group in enumerate(node.groups):
+            present = {s.name for s in group}
+            cols = []
+            for s in node.source.output_symbols:
+                c = base.columns[res.layout[s.name]]
+                if s.name in all_keys and s.name not in present:
+                    c = Column(c.type, c.data, dead, c.dictionary)
+                cols.append(c)
+            cols.append(Column(
+                T.BIGINT, torch.full((n,), gidx, dtype=torch.int64, device=base.device)
+            ))
+            parts.append(Batch(cols, n, None, base.device))
+        layout = {s.name: i for i, s in enumerate(node.source.output_symbols)}
+        layout[node.gid.name] = len(node.source.output_symbols)
+        return Result(concat_on_device(parts, keep_empty=True), layout)
+
+    def _exec_unnest(self, node: P.Unnest) -> Result:
+        """Arrays expanded into rows (reference: ``_exec_unnest``, the
+        UnnestOperator), the same rows in the same order, built with
+        tensor ops: each row's length gathered from its pool by code, the
+        source rows repeated (``repeat_interleave``) and each element
+        gathered from the pool's flattened elements. Several arrays zip,
+        the shorter padded with NULLs; WITH ORDINALITY numbers the
+        elements from 1."""
+        res = self._exec(node.source)
+        b = compact_on_device(res.batch)
+        n, dev = b.num_rows, b.device
+        sources = []  # (codes, valid, pool) per array expression
+        for expr in node.array_exprs:
+            bound = self._bind(expr, res.layout)
+            if isinstance(bound, Constant):
+                live = bound.value is not None
+                sources.append((
+                    torch.zeros(n, dtype=torch.int32, device=dev),
+                    torch.full((n,), live, dtype=torch.bool, device=dev),
+                    Dictionary([bound.value if live else ()]),
+                ))
+            elif isinstance(bound, InputRef):
+                c = b.columns[bound.channel]
+                if c.dictionary is None:
+                    raise ExecutionError("UNNEST argument has no array pool")
+                sources.append((c.data, c.valid_mask(), c.dictionary))
+            else:
+                raise ExecutionError("UNNEST argument has no array pool")
+        lengths = torch.zeros(n, dtype=torch.int64, device=dev)
+        for codes, valid, pool in sources:
+            table = as_tensor(
+                np.asarray([len(e) for e in pool.values] + [0], dtype=np.int64), dev
+            )
+            ln = torch.where(valid, table[codes.clamp(min=0).long()], 0)
+            lengths = torch.maximum(lengths, ln)
+        row_idx = torch.repeat_interleave(torch.arange(n, device=dev), lengths)
+        total = int(row_idx.shape[0])
+        starts = torch.cumsum(lengths, 0) - lengths
+        pos = torch.arange(total, device=dev) - starts[row_idx]
+        cols: list[Column] = []
+        layout: dict[str, int] = {}
+        for s in node.source.output_symbols:
+            cols.append(b.columns[res.layout[s.name]].take(row_idx))
+            layout[s.name] = len(cols) - 1
+        for sym, (codes, valid, pool) in zip(node.element_symbols, sources):
+            cols.append(_unnest_elements(sym.type, pool, codes[row_idx],
+                                         valid[row_idx], pos))
+            layout[sym.name] = len(cols) - 1
+        if node.ordinality is not None:
+            cols.append(Column(T.BIGINT, pos + 1))
+            layout[node.ordinality.name] = len(cols) - 1
+        return Result(Batch(cols, total, None, dev), layout)
+
+    def _aggregate_with_array_agg(self, node: P.Aggregate, res: Result) -> Result:
+        """``array_agg`` (reference: ``_aggregate_with_array_agg``): the
+        other aggregates run as usual; each group's values, NULLs kept, in
+        input row order, become one tuple of a pool, and the column holds
+        pool codes (an empty group gives NULL). Rows find their group on
+        the device (``torch.unique`` over the key lanes of the groups and
+        the rows together); the tuples are built on the host."""
+        others = [(s, fn) for s, fn in node.aggregates if fn.kind != "array_agg"]
+        base = P.Aggregate(node.source, node.group_keys, others, node.step)
+        out = self._aggregate_single(base, res, allow_spill=False)
+        out_b = compact_on_device(out.batch)
+        ng = out_b.num_rows if node.group_keys else 1
+        sel = res.batch.selection_mask()
+        if node.group_keys:
+            glanes = _key_lanes([
+                (out_b.columns[out.layout[k.name]].data,
+                 out_b.columns[out.layout[k.name]].valid_mask())
+                for k in node.group_keys
+            ])
+            rlanes = _key_lanes([res.pair(k) for k in node.group_keys])
+            _, inv = torch.unique(
+                torch.cat([glanes, rlanes]), dim=0, return_inverse=True
+            )
+            group_ids, row_ids = inv[:ng], inv[ng:]
+            n_ids = int(inv.max()) + 1 if inv.numel() else 1
+        else:
+            group_ids = torch.zeros(1, dtype=torch.int64, device=sel.device)
+            row_ids = torch.zeros(sel.shape[0], dtype=torch.int64, device=sel.device)
+            n_ids = 1
+        cols = list(out_b.columns)
+        layout = dict(out.layout)
+        for sym, fn in node.aggregates:
+            if fn.kind != "array_agg":
+                continue
+            c = res.column(P.Symbol(fn.argument.name, fn.argument.type))
+            mask = sel
+            if fn.filter is not None:
+                fc = res.column(P.Symbol(fn.filter.name, T.BOOLEAN))
+                mask = mask & fc.data.to(torch.bool) & fc.valid_mask()
+            idx = torch.nonzero(mask).reshape(-1)
+            gids = row_ids[idx]
+            order = torch.sort(gids, stable=True).indices
+            idx, gids = idx[order], gids[order]
+            values = _host_values(c, idx)
+            counts = np.bincount(gids.cpu().numpy(), minlength=n_ids)
+            bounds = np.concatenate([[0], np.cumsum(counts)])
+            pool_index: dict = {}
+            pool_vals: list = []
+            codes = np.full(ng, -1, dtype=np.int32)
+            for gi, g in enumerate(group_ids.cpu().tolist()):
+                tup = tuple(values[bounds[g]:bounds[g + 1]])
+                if not tup:
+                    continue
+                code = pool_index.setdefault(tup, len(pool_vals))
+                if code == len(pool_vals):
+                    pool_vals.append(tup)
+                codes[gi] = code
+            live = codes >= 0
+            cols.append(Column(
+                sym.type, as_tensor(codes, self.device),
+                None if live.all() else as_tensor(live, self.device),
+                Dictionary(pool_vals),
+            ))
+            layout[sym.name] = len(cols) - 1
+        ordered = [cols[layout[s.name]] for s in node.output_symbols]
+        return Result(
+            Batch(ordered, ng, None, self.device),
+            {s.name: i for i, s in enumerate(node.output_symbols)},
+        )
+
     # === aggregation ===================================================
     def _exec_aggregate(self, node: P.Aggregate) -> Result:
         res = self._exec(node.source)
@@ -1255,12 +1466,14 @@ class LocalExecutor:
                           allow_spill: bool = True) -> Result:
         if allow_spill and node.group_keys and self._should_spill(res.batch.count_rows):
             return self._spill_aggregate(node, res)
+        if any(fn.kind == "array_agg" for _, fn in node.aggregates):
+            return self._aggregate_with_array_agg(node, res)
         sel = res.batch.selection_mask()
-        agg_inputs, specs = agg_inputs_for(node, res)
+        agg_inputs, specs, sdicts = agg_inputs_for(node, res)
         layout = {s.name: i for i, s in enumerate(node.output_symbols)}
         if not node.group_keys:
             raw = global_aggregate(sel, agg_inputs, specs)
-            return Result(Batch(finalize_aggs(node, raw), 1), layout)
+            return Result(Batch(finalize_aggs(node, raw, sdicts), 1), layout)
         keys = [res.opt_pair(k) for k in node.group_keys]
         (kd, kv), raw, ng = self._grouped(keys, sel, agg_inputs, specs)
         raw = [
@@ -1268,7 +1481,7 @@ class LocalExecutor:
             for r in raw
         ]
         cols = self._key_columns(node, res, kd, kv, ng)
-        cols.extend(finalize_aggs(node, raw))
+        cols.extend(finalize_aggs(node, raw, sdicts))
         return Result(Batch(cols, ng), layout)
 
     def _spill_aggregate(self, node: P.Aggregate, res: Result) -> Result:
@@ -1308,14 +1521,14 @@ class LocalExecutor:
         """PARTIAL step: emit accumulator columns (value, count) per agg —
         the wire representation between fragments."""
         sel = res.batch.selection_mask()
-        agg_inputs, specs = agg_inputs_for(node, res)
+        agg_inputs, specs, sdicts = agg_inputs_for(node, res)
         if not node.group_keys:
             raw = [
                 r.reshape(1) if not isinstance(r, tuple)
                 else (r[0].reshape((1,) + tuple(r[0].shape[1:])), r[1].reshape(1))
                 for r in global_aggregate(sel, agg_inputs, specs)
             ]
-            cols, layout = acc_columns(node, raw, 0)
+            cols, layout = acc_columns(node, raw, 0, sdicts)
             return Result(Batch(cols, 1), layout)
         keys = [res.opt_pair(k) for k in node.group_keys]
         (kd, kv), raw, ng = self._grouped(keys, sel, agg_inputs, specs)
@@ -1325,7 +1538,7 @@ class LocalExecutor:
         ]
         cols = self._key_columns(node, res, kd, kv, ng)
         layout = {k.name: i for i, k in enumerate(node.group_keys)}
-        acc_cols, acc_layout = acc_columns(node, raw, len(cols))
+        acc_cols, acc_layout = acc_columns(node, raw, len(cols), sdicts)
         layout.update(acc_layout)
         return Result(Batch(cols + acc_cols, ng), layout)
 
@@ -1335,13 +1548,27 @@ class LocalExecutor:
         sel = res.batch.selection_mask()
         combine_inputs: list = []
         combine_specs: list[AggSpec] = []
+        sdicts: list = []
         for (vsym, csym), (_, fn) in zip(node.acc_symbols, node.aggregates):
             vcol = res.column(vsym)
+            sdicts.append(None)
             if fn.kind in ("count", "count_star"):
                 combine_inputs.append((vcol.data, vcol.valid))
                 combine_specs.append(AggSpec("sum"))
                 continue
             ccol = res.column(csym)
+            if vcol.dictionary is not None and fn.kind in ("min", "max"):
+                # codes -> ranks in the (merged) dictionary of the
+                # partials' rows before the order-based combine
+                sdicts[-1] = vcol.dictionary
+                combine_inputs.append((
+                    rank_codes(vcol.dictionary, vcol.data),
+                    (ccol.data > 0) & (vcol.data >= 0),
+                ))
+                combine_specs.append(AggSpec(fn.kind))
+                combine_inputs.append((ccol.data, ccol.valid))
+                combine_specs.append(AggSpec("sum"))
+                continue
             combine_inputs.append((vcol.data, ccol.data > 0))
             if fn.kind in ("sum", "avg"):
                 wide = vcol.data.ndim == 2
@@ -1366,13 +1593,73 @@ class LocalExecutor:
         layout = {s.name: i for i, s in enumerate(node.output_symbols)}
         if not node.group_keys:
             raw = fold(global_aggregate(sel, combine_inputs, combine_specs))
-            return Result(Batch(finalize_aggs(node, raw), 1), layout)
+            return Result(Batch(finalize_aggs(node, raw, sdicts), 1), layout)
         keys = [res.opt_pair(k) for k in node.group_keys]
         (kd, kv), raw, ng = self._grouped(keys, sel, combine_inputs, combine_specs)
         raw = [r[0][:ng] if isinstance(r, tuple) else r[:ng] for r in raw]
         cols = self._key_columns(node, res, kd, kv, ng)
-        cols.extend(finalize_aggs(node, fold(raw)))
+        cols.extend(finalize_aggs(node, fold(raw), sdicts))
         return Result(Batch(cols, ng), layout)
+
+
+def _key_lanes(pairs) -> torch.Tensor:
+    """(rows, lanes) int64 equality lanes of key columns: each value with
+    NULLs zeroed (a wide value as two lanes, a float by its bits), then
+    its valid flag."""
+    lanes = []
+    for data, valid in pairs:
+        if data.ndim == 2:
+            parts = [data[:, 0], data[:, 1]]
+        elif data.is_floating_point():
+            parts = [f64_key(data)]
+        else:
+            parts = [data.to(torch.int64)]
+        lanes += [torch.where(valid, p, 0) for p in parts]
+        lanes.append(valid.to(torch.int64))
+    return torch.stack(lanes, dim=1)
+
+
+def _host_values(c: Column, idx: torch.Tensor) -> list:
+    """Rows ``idx`` of a column as Python storage values (strings
+    decoded, NULL as None): the element values of a pool tuple."""
+    data = c.data[idx].cpu().numpy()
+    valid = c.valid_mask()[idx].cpu().numpy()
+    if data.ndim == 2:
+        raise _not_ported("array_agg over DECIMAL(38)")
+    if c.dictionary is not None:
+        pool = np.asarray(c.dictionary.values + [None], dtype=object)
+        vals = pool[np.where(valid, data, len(c.dictionary.values))].tolist()
+    else:
+        vals = data.tolist()
+    return [v if ok else None for v, ok in zip(vals, valid.tolist())]
+
+
+def _unnest_elements(et: T.SqlType, pool: Dictionary, codes, valid, pos) -> Column:
+    """The ``pos``-th element of each row's array (NULL past its end):
+    the pool's elements flattened on the host, gathered by
+    ``offset[code] + pos`` on the device."""
+    dev = codes.device
+    if isinstance(et, (T.ArrayType, T.MapType, T.RowType)):
+        raise _not_ported(f"UNNEST of {et.name} elements")
+    flat = [x for e in pool.values for x in e]
+    lens = np.asarray([len(e) for e in pool.values] + [0], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    present = np.asarray([x is not None for x in flat] + [False], dtype=np.bool_)
+    dictionary = None
+    if T.is_string(et):
+        dictionary, table = Dictionary.from_strings(
+            [x if x is not None else "" for x in flat]
+        )
+        table = np.append(table, 0).astype(np.int32)
+    else:
+        table = np.asarray([x if x is not None else 0 for x in flat] + [0],
+                           dtype=et.storage_dtype)
+    ci = codes.clamp(min=0).long()
+    inside = valid & (pos < as_tensor(lens, dev)[ci])
+    at = torch.where(inside, as_tensor(offsets, dev)[ci] + pos, len(flat))
+    data = as_tensor(table, dev)[at]
+    ok = inside & as_tensor(present, dev)[at]
+    return Column(et, data, None if bool(ok.all()) else ok, dictionary)
 
 
 def f64_key(data: torch.Tensor, scale: int = 0) -> torch.Tensor:
@@ -1450,10 +1737,7 @@ def concat_on_device(batches, keep_empty: bool = False) -> Batch:
             for k, p in enumerate(parts):
                 if p.dictionary is not None and p.dictionary is not dictionary:
                     dictionary, remap = dictionary.merged(p.dictionary)
-                    r = as_tensor(remap, p.data.device)
-                    datas[k] = torch.where(
-                        p.data >= 0, r[p.data.clamp(min=0).long()], -1
-                    ).to(torch.int32)
+                    datas[k] = remap_codes(p.data, remap)
         elif any(d.ndim == 2 for d in datas):
             datas = [
                 d if d.ndim == 2 else torch.stack(D128.widen_i64(d.to(torch.int64)), dim=1)
@@ -1503,18 +1787,31 @@ def cast_column(c: Column, to_t: T.SqlType) -> Column:
     return Column(to_t, data, c.valid, c.dictionary)
 
 
-def acc_columns(node: P.Aggregate, raw, offset: int):
+def acc_columns(node: P.Aggregate, raw, offset: int, string_dicts=None):
     """Accumulator columns of a partial aggregate: per aggregate its value
     and (except count kinds) its row count; layout channels start at
-    ``offset``."""
+    ``offset``. A VARCHAR min/max travels as a dictionary code with its
+    dictionary attached (ranks mean nothing to another dictionary), NULL
+    for an empty group."""
+    string_dicts = string_dicts or [None] * len(node.aggregates)
     cols: list[Column] = []
     layout: dict[str, int] = {}
-    for (vsym, csym), (_, fn), r in zip(node.acc_symbols, node.aggregates, raw):
+    for (vsym, csym), (_, fn), r, sdict in zip(
+        node.acc_symbols, node.aggregates, raw, string_dicts
+    ):
         if fn.kind in ("count", "count_star"):
             cols.append(Column(T.BIGINT, r.to(torch.int64)))
             layout[vsym.name] = offset + len(cols) - 1
             continue
         val, cnt = r
+        if sdict is not None:
+            live = cnt.reshape(-1) > 0
+            codes = torch.where(live, codes_of_ranks(sdict, val.reshape(-1)), -1)
+            cols.append(Column(vsym.type, codes.to(torch.int32), live, sdict))
+            layout[vsym.name] = offset + len(cols) - 1
+            cols.append(Column(T.BIGINT, cnt.to(torch.int64)))
+            layout[csym.name] = offset + len(cols) - 1
+            continue
         # the value keeps its accumulation dtype (an avg of BIGINT sums
         # in int64 under a DOUBLE-typed accumulator), as in the reference;
         # limb sums travel as wide (hi, lo) values

@@ -52,8 +52,20 @@ from typing import Optional
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.columnar import Batch, Column, bucket_capacity, torch_dtype
-from trino_tpu_torch.exec.local import Result, _limbs_to_wide, finalize_aggs
+from trino_tpu_torch.columnar import (
+    Batch,
+    Column,
+    bucket_capacity,
+    remap_codes,
+    torch_dtype,
+)
+from trino_tpu_torch.exec.local import (
+    Result,
+    _limbs_to_wide,
+    codes_of_ranks,
+    finalize_aggs,
+    rank_codes,
+)
 from trino_tpu_torch.ops.aggregation import AggSpec, global_aggregate, group_aggregate
 from trino_tpu_torch.planner import plan as P
 
@@ -336,7 +348,7 @@ class StreamingAggregator:
         batch = Batch(slab.columns, cap, live0)
         try:
             tracer = self._tracer_for(batch)
-            agg_inputs, specs, keys, key_dicts, sel = self._chunk_prep(tracer)
+            agg_inputs, specs, keys, key_dicts, sel, _ = self._chunk_prep(tracer)
         except FusedUnsupported:
             return None
         for spec in specs:
@@ -494,10 +506,7 @@ class StreamingAggregator:
             remap, _ = running.absorb(c.dictionary)
             data = c.data
             if remap is not None:
-                remap_t = torch.from_numpy(remap).to(data.device)
-                data = torch.where(
-                    data >= 0, remap_t[data.clamp(min=0).long()], -1
-                ).to(torch.int32)
+                data = remap_codes(data, remap)
             cols[j] = Column(c.type, data, c.valid, running)
         return Batch(cols, b.num_rows, b.sel)
 
@@ -549,16 +558,16 @@ class StreamingAggregator:
     def _chunk_prep(self, tracer):
         res = tracer._exec(self.agg.source)
         sel = res.batch.selection_mask()
-        agg_inputs, specs = tracer._agg_inputs(self.agg, res)
+        agg_inputs, specs, string_dicts = tracer._agg_inputs(self.agg, res)
         keys = [res.opt_pair(k) for k in self.agg.group_keys]
         key_dicts = [res.column(k).dictionary for k in self.agg.group_keys]
-        return agg_inputs, specs, keys, key_dicts, sel
+        return agg_inputs, specs, keys, key_dicts, sel, string_dicts
 
     def _collect_meta(self, prep) -> dict:
         """Static metadata of the step, from the first chunk: specs, the
         width and dtype of each accumulator, and the key columns' dtypes,
         widths and dictionaries."""
-        agg_inputs, specs, keys, key_dicts, _ = prep
+        agg_inputs, specs, keys, key_dicts, _, string_dicts = prep
         widths, dtypes = [], []
         for spec, pair in zip(specs, agg_inputs):
             if spec.kind == "sum128":
@@ -585,6 +594,8 @@ class StreamingAggregator:
             "widths": widths,
             "dtypes": dtypes,
             "key_dicts": key_dicts,
+            # VARCHAR min/max: the dictionary the carried codes refer to
+            "string_dicts": list(string_dicts),
             "key_shapes": [(kd.dtype, tuple(kd.shape[1:])) for kd, _ in keys],
         }
 
@@ -610,12 +621,28 @@ class StreamingAggregator:
         return state
 
     def _step(self, state, prep, meta) -> dict:
-        agg_inputs, _, keys, _, sel = prep
+        agg_inputs, _, keys, _, sel, chunk_dicts = prep
         if self.nkeys:
-            return self._step_grouped(state, keys, sel, agg_inputs, meta)
-        return self._step_global(state, sel, agg_inputs, meta)
+            return self._step_grouped(state, keys, sel, agg_inputs, meta, chunk_dicts)
+        return self._step_global(state, sel, agg_inputs, meta, chunk_dicts)
 
-    def _step_grouped(self, state, keys, sel, agg_inputs, meta) -> dict:
+    @staticmethod
+    def _string_ranks(meta, j, chunk, state_codes, chunk_ranks):
+        """A VARCHAR min/max lane in one rank space: the carried codes and
+        the chunk's ranks (of the chunk's own dictionary) as ranks of the
+        carried dictionary, merged with the chunk's first when it is
+        another object (a string the projection computed per chunk). The
+        running dictionary of a host stream only grows, and ranks are
+        taken on it at every step, never carried."""
+        carried = meta["string_dicts"][j]
+        codes = codes_of_ranks(chunk, chunk_ranks).to(torch.int64)
+        if chunk is not carried:
+            carried, remap = carried.merged(chunk)
+            meta["string_dicts"][j] = carried
+            codes = remap_codes(codes, remap)
+        return rank_codes(carried, state_codes), rank_codes(carried, codes)
+
+    def _step_grouped(self, state, keys, sel, agg_inputs, meta, chunk_dicts) -> dict:
         """Chunk rows -> at most G chunk groups, then the carried groups
         and the chunk groups -> at most G groups. Every integer lane that
         merges by addition (the counts, the integer sums, each limb lane)
@@ -649,8 +676,11 @@ class StreamingAggregator:
                                packed(cvals, ccnts)]), None)]
         mspecs = [AggSpec("sum")]
         rest = [j for j in range(len(specs)) if j not in packs]
+        strings = [j for j in rest if meta["string_dicts"][j] is not None]
         for j in rest:
             sv, cv = state["values"][j], cvals[j].to(state["values"][j].dtype)
+            if j in strings:
+                sv, cv = self._string_ranks(meta, j, chunk_dicts[j], sv, cv)
             if combine[j] in ("min", "max"):
                 nonempty = torch.cat([state["counts"][j] > 0, ccnts[j] > 0])
                 minputs.append((torch.cat([sv, cv]), nonempty))
@@ -676,6 +706,8 @@ class StreamingAggregator:
             col += w
         for j, r in zip(rest, nraw[1:]):
             nvals[j] = r[0]
+            if j in strings:
+                nvals[j] = codes_of_ranks(meta["string_dicts"][j], r[0]).to(torch.int64)
         return {
             "key_data": nkd,
             "key_valid": nkv,
@@ -685,7 +717,7 @@ class StreamingAggregator:
             "overflow": state["overflow"] | covf | novf,
         }
 
-    def _step_global(self, state, sel, agg_inputs, meta) -> dict:
+    def _step_global(self, state, sel, agg_inputs, meta, chunk_dicts) -> dict:
         from trino_tpu_torch.ops.decimal128 import compare128
 
         specs, combine = meta["specs"], meta["combine"]
@@ -698,6 +730,9 @@ class StreamingAggregator:
             else:
                 cv = r[0].reshape(sv.shape).to(sv.dtype)
                 cc = r[1].to(torch.int64).reshape(1)
+            string = meta["string_dicts"][j] is not None
+            if string:
+                sv, cv = self._string_ranks(meta, j, chunk_dicts[j], sv, cv)
             if combine[j] in ("min", "max"):
                 if sv.ndim == 2:
                     sign = compare128(sv[:, 0], sv[:, 1], cv[:, 0], cv[:, 1])
@@ -707,6 +742,8 @@ class StreamingAggregator:
                 take_c = (sc == 0) | ((cc > 0) & take_c)
                 mask = take_c[:, None] if sv.ndim == 2 else take_c
                 nv = torch.where(mask, cv, sv)
+                if string:
+                    nv = codes_of_ranks(meta["string_dicts"][j], nv).to(torch.int64)
             else:
                 nv = sv + cv
             nvals.append(nv)
@@ -748,14 +785,19 @@ class StreamingAggregator:
         else:
             live = torch.ones(1, dtype=torch.bool, device=self.device)
             total = 1
-        for (vsym, csym), spec, v, c in zip(
-            agg.acc_symbols, meta["specs"], state["values"], state["counts"]
+        for (vsym, csym), spec, v, c, sdict in zip(
+            agg.acc_symbols, meta["specs"], state["values"], state["counts"],
+            meta["string_dicts"],
         ):
             if spec.kind in ("count", "count_star"):
                 cols.append(Column(T.BIGINT, v.reshape(-1)))
                 layout[vsym.name] = len(cols) - 1
                 continue
-            cols.append(Column(vsym.type, _limbs_to_wide(v)))
+            if sdict is not None:  # a VARCHAR min/max: the code travels
+                codes = torch.where(c > 0, v, -1).to(torch.int32)
+                cols.append(Column(vsym.type, codes, c > 0, sdict))
+            else:
+                cols.append(Column(vsym.type, _limbs_to_wide(v)))
             layout[vsym.name] = len(cols) - 1
             cols.append(Column(T.BIGINT, c))
             layout[csym.name] = len(cols) - 1
@@ -763,15 +805,20 @@ class StreamingAggregator:
 
     def _finish_single(self, state, meta) -> Result:
         agg = self.agg
+        sdicts = meta["string_dicts"]
         results = [
-            v if spec.kind in ("count", "count_star") else (v, c)
-            for spec, v, c in zip(meta["specs"], state["values"], state["counts"])
+            v if spec.kind in ("count", "count_star")
+            # a VARCHAR min/max carries codes; finalize takes ranks
+            else (v if sd is None else rank_codes(sd, v), c)
+            for spec, v, c, sd in zip(
+                meta["specs"], state["values"], state["counts"], sdicts
+            )
         ]
         layout = {s.name: i for i, s in enumerate(agg.output_symbols)}
         if self.nkeys:
-            cols = self._key_columns(state, meta) + finalize_aggs(agg, results)
+            cols = self._key_columns(state, meta) + finalize_aggs(agg, results, sdicts)
             return Result(Batch(cols, self.G, state["live"]), layout)
-        cols = finalize_aggs(agg, results)
+        cols = finalize_aggs(agg, results, sdicts)
         return Result(
             Batch(cols, 1, torch.ones(1, dtype=torch.bool, device=self.device)),
             layout,

@@ -1,12 +1,13 @@
-"""The port's native host tier: ctypes bindings for ``native/columnar.cpp``.
+"""The port's native host tier: ctypes bindings for ``csrc/columnar.cpp``.
 
 Reference: ``trino_tpu/native/__init__.py`` (``_build_and_load``,
 ``dict_encode``, ``tpch_textpool``), restricted to the symbols the port
-calls. The shared C++ source at ``native/columnar.cpp`` is read, never
-edited. It is compiled at first use with ``g++ -O3 -shared -fPIC
--std=c++17`` into ``.kernel_build/native/columnar_<sha256>.so`` at the
-repository root (listed in ``.gitignore``) and rebuilt when the source
-changes.
+calls. The port keeps its own copy of the C++ those two symbols need
+(``trino_tpu_torch/csrc/columnar.cpp``) and reads no source of the
+reference's tiers. It is compiled at first use with ``g++ -O3 -shared
+-fPIC -std=c++17`` into ``.kernel_build/native/columnar_<sha256>.so`` at
+the repository root (listed in ``.gitignore``) and rebuilt when the
+source changes.
 
 Unlike the reference there is no pure-Python fallback: when ``g++`` is
 missing or fails, the first call raises :class:`NativeCompileError` with the
@@ -25,7 +26,7 @@ from typing import Sequence
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent.parent / "native" / "columnar.cpp"
+SRC = Path(__file__).resolve().parent / "csrc" / "columnar.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".kernel_build" / "native"
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
@@ -35,7 +36,7 @@ _lib: ctypes.CDLL | None = None
 
 
 class NativeCompileError(RuntimeError):
-    """``native/columnar.cpp`` could not be built or loaded."""
+    """``csrc/columnar.cpp`` could not be built or loaded."""
 
 
 def library_path() -> Path:

@@ -17,8 +17,10 @@ from trino_tpu_torch.sql import parse_statement
 class LocalQueryRunner:
     """Parse -> analyze/plan -> execute, one process, no RPC.
 
-    ``device`` defaults to ``cuda`` and raises without a GPU unless the
-    caller passes ``device="cpu"``."""
+    The runner's one session carries what outlives a statement: SET
+    SESSION properties, prepared statements and the id of an open
+    transaction. ``device`` defaults to ``cuda`` and raises without a GPU
+    unless the caller passes ``device="cpu"``."""
 
     def __init__(
         self,
