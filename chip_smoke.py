@@ -95,6 +95,30 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    warm ms, peak device memory and K1/K2 launches per run, rows/s for
    CTAS, the joins and UNNEST.
 
+7c. files: the ingest tier and the file formats on the same engine
+   (``BASELINE.json`` configs 4 and 5). Catalogs ``pq=parquet:<dir>``,
+   ``orc=orc:<dir>`` and ``ttp=file:<dir>`` in a temporary directory
+   (removed at the end) through ``register_catalog_spec``. CREATE TABLE AS
+   of every column of the eight ``tpch.sf1`` tables into ``pq.sf1``, and
+   of lineitem, orders and customer into ``orc.sf1`` and ``ttp.sf1``
+   (seconds, bytes on disk, rows/s a table; each row count checked); the
+   22 queries, spec text under session catalog ``pq``, and Q1/Q3/Q6 over
+   ``orc`` and ``ttp``, distributed with the scans materialized (so the
+   table cache serves warm runs), once cold and twice warm, held against
+   the committed SF1 answers, each run's ingest stats on its line
+   (``decode_ms``, ``splits_decoded``, ``h2d_bytes``, ``h2d_transfers``,
+   ``coalesced_columns``, table-cache hits and misses; a warm run that
+   copies a byte fails), then every K2 build of those queries against
+   plain. Q-E: ``select k, sum(v), count(*)`` over 2^25 rows written as 8
+   Parquet row groups (seed 7, as ``bench.py``), cold and 3 warm, its
+   rate against phase ``sql``'s Q-A, then cold under each setting of
+   (``ingest_prefetch``, ``coalesced_h2d``) with the table cache off,
+   rows against numpy sums every time. Config 4: the same GROUP BY over
+   10^9 rows of ``synthetic.default.events`` made chunk by chunk on the
+   card, against a closed form (0 bytes copied). DELETE on
+   ``ttp.sf1.orders``, which must call ``replace_data`` and nothing else,
+   against the source's count.
+
 8. tpcds: all 64 TPC-DS queries of the port's corpus, spec text, over
    ``tpcds.sf1`` from the port's tpcds connector: the 24 tables generated
    and staged on the card (rows, bytes, generation and staging seconds
@@ -123,10 +147,10 @@ object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
-``python3 chip_smoke.py --only tpch22,surface,tpcds,spill`` runs the device
-phase and the named phases alone (``tpch22`` and ``surface`` stage the SF1
-tables first, ``spill`` generates the SF10 tables first), for work on one
-of them; it prints no result lines.
+``python3 chip_smoke.py --only tpch22,surface,files,tpcds,spill`` runs the
+device phase and the named phases alone (``tpch22``, ``surface`` and
+``files`` stage the SF1 tables first, ``spill`` generates the SF10 tables
+first), for work on one of them; it prints no result lines.
 """
 
 from __future__ import annotations
@@ -139,6 +163,7 @@ import subprocess
 import sys
 import time
 from decimal import Decimal
+from typing import Optional
 
 import numpy as np
 
@@ -638,6 +663,7 @@ def phase_sql():
             matches_oracle=True,
         )
         log("sql", query=name, **report[name])
+        SQL_RATE[name] = report[name]["rows_per_s"]
     launches = dict(_kernels.LAUNCHES)
     log("sql", launches=launches)
     phase_profile(runner, {q: sql for q, (sql, _) in queries.items()})
@@ -1043,7 +1069,8 @@ def phase_tpch(smi: str) -> int:
     gen_s = time.perf_counter() - t0
     slab_bytes = sum(c.data.numel() * c.data.element_size() for c in slab.columns)
     log("tpch", card=smi, schema=schema, lineitem_rows=n_line,
-        slab_rows=slab.capacity, slab_bytes=slab_bytes, generate_and_stage_s=gen_s)
+        slab_rows=slab.capacity, slab_bytes=slab_bytes, generate_and_stage_s=gen_s,
+        disk_cache=tpch.disk_cache_stats())
     # the oracle reads the same generated arrays back from the card
     t0 = time.perf_counter()
     cols = {name: c.data[:n_line].cpu().numpy()
@@ -1336,7 +1363,8 @@ def tpch_sf1_runner(smi: str):
             "generate_and_stage_s": time.perf_counter() - t0,
         }
     log("tpch22", card=smi, schema=TPCH22_SCHEMA, tables=staged,
-        generate_and_stage_s=time.perf_counter() - t_all)
+        generate_and_stage_s=time.perf_counter() - t_all,
+        disk_cache=tpch.disk_cache_stats())
     return runner
 
 
@@ -1773,6 +1801,323 @@ def phase_surface(smi: str, runner) -> dict:
     return launches, k1_err, k2_err
 
 
+FILES_SCHEMA = "sf1"      # the files phase's TPC-H scale factor
+FILES_WARM = 2
+FILES_TABLES = ("region", "nation", "supplier", "customer", "part", "partsupp",
+                "orders", "lineitem")
+FILES_SIDE_TABLES = ("lineitem", "orders", "customer")  # into orc and ttp
+FILES_SIDE_QUERIES = (1, 3, 6)
+# materialized scans keep the table cache in play (bench.py:350): a warm
+# run copies nothing
+FILES_STREAM_THRESHOLD = 1 << 26
+QE_INSERTS = 8           # Q-E's table: 8 inserts of ROWS / 8 rows, 8 row groups
+SYNTH_ROWS = 10 ** 9     # BASELINE.json config 4
+SYNTH_K_MUL = 2654435761
+SYNTH_V_MUL, SYNTH_V_ADD, SYNTH_V_MOD = 1103515245, 12345, 1 << 20
+QE_SQL = "select k, sum(v), count(*) from pq.default.bench_groupby group by k"
+SYNTH_SQL = "select k, sum(v), count(*) from synthetic.default.events group by k"
+INGEST_KEYS = ("decode_ms", "splits_decoded", "splits_decoded_numpy", "h2d_bytes",
+               "h2d_transfers", "h2d_ms", "coalesced_columns", "device_chunks",
+               "table_cache_hits", "table_cache_misses")
+SQL_RATE: dict = {}      # phase sql's Q-A rows/s, for Q-E's ratio
+
+
+def ingest_fields(res) -> dict:
+    """The ingest stats of one run (``StatementResult.ingest_stats``)."""
+    ing = res.ingest_stats or {}
+    return {k: ing.get(k, 0) for k in INGEST_KEYS}
+
+
+def synth_gen(xp, idx):
+    """The synthetic events generator (tests/test_synthetic.py)."""
+    return {"k": (idx * SYNTH_K_MUL) % KEYS,
+            "v": (idx * SYNTH_V_MUL + SYNTH_V_ADD) % SYNTH_V_MOD}
+
+
+def synth_oracle(rows: int) -> list:
+    """Exact (k, sum(v), count) of the generator over ``rows`` rows with no
+    pass over them: k depends on idx mod 4096 and v on idx mod 2^20, so one
+    2^20-row period is summed, scaled by the whole periods, and the
+    remainder's rows are added."""
+    period = SYNTH_V_MOD
+    idx = np.arange(period, dtype=np.int64)
+    g = synth_gen(np, idx)
+    full, rem = divmod(rows, period)
+    vs = np.zeros(KEYS, dtype=np.int64)
+    np.add.at(vs, g["k"], g["v"])
+    cs = np.bincount(g["k"], minlength=KEYS).astype(np.int64)
+    sums = full * vs
+    counts = full * cs
+    np.add.at(sums, g["k"][:rem], g["v"][:rem])
+    counts += np.bincount(g["k"][:rem], minlength=KEYS)
+    return sorted((k, int(sums[k]), int(counts[k])) for k in range(KEYS) if counts[k])
+
+
+def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
+                qe_rows: int = ROWS, synth_rows: int = SYNTH_ROWS) -> tuple[dict, int]:
+    """The ingest tier and the file formats at TPC-H ``schema`` on the card,
+    on the engine of ``runner`` (its tpch connector holds the staged
+    tables): the eight tables written to Parquet by SQL, three of them to
+    ORC and pages files; the 22 queries over Parquet (cold, then warm with
+    no host-to-device byte), Q1/Q3/Q6 over ORC and pages files, each held
+    against the committed answers, K2 launching with every build equal to
+    plain; Q-E over 8 Parquet row groups under the four ingest settings;
+    BASELINE config 4's 10^9-row synthetic GROUP BY from chunks made on
+    the card; DELETE on a pages-file table through ``replace_data``. Every
+    failed check raises. Returns the kernel launches of the phase and the
+    largest K2 difference from plain."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.columnar import batch_from_numpy
+    from trino_tpu_torch.config import Session
+    from trino_tpu_torch.connectors.api import (
+        ColumnSchema,
+        TableSchema,
+        register_catalog_spec,
+    )
+    from trino_tpu_torch.connectors.synthetic import SyntheticConnector
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    answers = answers or B.load_answers()
+    engine = runner.engine
+    token = "__files__"
+    texts = {q: t.replace(f"{token}.", "") for q, t in B.queries(token).items()}
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"files: {what}")
+
+    def session(catalog: str, sch: str, **props) -> Session:
+        s = Session(catalog=catalog, schema=sch)
+        s.set("execution_mode", "distributed")
+        s.set("join_strategy", "auto")
+        for k, v in props.items():
+            s.set(k, v)
+        return s
+
+    def timed(sql: str, sess: Session):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.execute_statement(sql, sess)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def against(q: int, res) -> Optional[str]:
+        want = answers["queries"][str(q)]
+        bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"], want["order_by"])
+        types = [t.name for t in res.column_types]
+        if bad is None and types != want["types"]:
+            bad = f"column types {types} != {want['types']}"
+        return bad
+
+    root = tempfile.mkdtemp(prefix="tt_files_")
+    t_phase = time.perf_counter()
+    try:
+        dirs = {c: os.path.join(root, c) for c in ("pq", "orc", "ttp")}
+        for name, kind in (("pq", "parquet"), ("orc", "orc"), ("ttp", "file")):
+            register_catalog_spec(engine.catalogs, f"{name}={kind}:{dirs[name]}")
+        src = session("tpch", schema)
+
+        def disk_bytes(catalog: str, sch: str, table: str) -> int:
+            d = os.path.join(dirs[catalog], sch, table)
+            return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+        # 1. writes: CTAS of every column, cold
+        for catalog, tables in (("pq", FILES_TABLES), ("orc", FILES_SIDE_TABLES),
+                                ("ttp", FILES_SIDE_TABLES)):
+            for table in tables:
+                want = engine.execute_statement(
+                    f"select count(*) from tpch.{schema}.{table}", src).rows[0][0]
+                torch.cuda.reset_peak_memory_stats()
+                # where a write's time goes: the tpch connector's split
+                # reads (generation, or its host cache) and the target
+                # connector's insert (encode and write the file)
+                with host_time_in(type(engine.catalogs.get("tpch")), "read_split") as gen_ms, \
+                        host_time_in(type(engine.catalogs.get(catalog)), "insert") as put_ms:
+                    res, ms = timed(f"create table {catalog}.{schema}.{table} as "
+                                    f"select * from tpch.{schema}.{table}", src)
+                check(res.update_count == want,
+                      f"{catalog}.{table} wrote {res.update_count} rows, not {want}")
+                log("files", card=smi, step="write", table=f"{catalog}.{schema}.{table}",
+                    rows=want, seconds=ms / 1e3,
+                    bytes_on_disk=disk_bytes(catalog, schema, table),
+                    rows_per_s=want / (ms / 1e3), tpch_read_split_ms=sum(gen_ms),
+                    insert_ms=sum(put_ms),
+                    peak_device_bytes=torch.cuda.max_memory_allocated())
+
+        # 2. the 22 queries over Parquet, 3. Q1/Q3/Q6 over ORC and pages
+        # files: the main path's run, every count 0 here and read after
+        runs = [("pq", q) for q in range(1, 23)]
+        runs += [(c, q) for c in ("orc", "ttp") for q in FILES_SIDE_QUERIES]
+        sessions = {c: session(c, schema, stream_scan_threshold_rows=FILES_STREAM_THRESHOLD)
+                    for c in ("pq", "orc", "ttp")}
+        _kernels.reset_counts()
+        failures, k2_runs = [], {}
+        for catalog, q in runs:
+            times, k2, ingest, peaks = [], [], [], []
+            for _ in range(1 + FILES_WARM):
+                before = _kernels.LAUNCHES["dense_join_build"]
+                torch.cuda.reset_peak_memory_stats()
+                res, ms = timed(texts[q], sessions[catalog])
+                times.append(ms)
+                peaks.append(torch.cuda.max_memory_allocated())
+                k2.append(_kernels.LAUNCHES["dense_join_build"] - before)
+                ingest.append(ingest_fields(res))
+                bad = against(q, res)
+                if bad is not None:
+                    failures.append(f"{catalog} Q{q}: {bad}")
+                    break
+            k2_runs[(catalog, q)] = k2[-1]
+            warm_h2d = [i["h2d_bytes"] for i in ingest[1:]]
+            if any(warm_h2d):
+                failures.append(f"{catalog} Q{q}: warm runs copied {warm_h2d} bytes")
+            log("files", card=smi, step="query", catalog=catalog, query=f"Q{q}",
+                rows=len(res.rows), matches_reference=bad is None,
+                cold_ms=times[0], warm_ms=times[1:],
+                warm_median_ms=statistics.median(times[1:]) if len(times) > 1 else None,
+                k2_launches_per_run=k2, ingest_per_run=ingest,
+                peak_device_bytes_per_run=peaks,
+                joinStrategy=(res.exchange_stats or {}).get("joinStrategy"))
+        launches = dict(_kernels.LAUNCHES)
+        log("files", card=smi, launches=launches)
+        if failures:
+            raise AssertionError("files: " + "; ".join(failures))
+        check(launches["dense_join_build"] > 0, "no K2 launch over the file catalogs")
+        # K2 against its plain version at the shapes this path gives it
+        # (launches made here come after the counts were read)
+        builds = []
+        for catalog in ("pq", "orc", "ttp"):
+            qs = [q for (c, q), n in k2_runs.items() if c == catalog and n]
+            builds += k2_against_plain(
+                LocalQueryRunner(session=sessions[catalog], engine=engine),
+                {f"{catalog}:Q{q}": texts[q] for q in qs})
+        per_query = {f"{c}:Q{q}": n for (c, q), n in k2_runs.items() if n}
+        checked = {}
+        for b in builds:
+            checked[b["query"]] = checked.get(b["query"], 0) + 1
+        k2_err = max(max(b["max_abs_err"], b["unplaced_err"]) for b in builds)
+        log("files", card=smi, k2_vs_plain_builds=len(builds), k2_max_abs_err=k2_err,
+            k2_builds_by_query=checked)
+        check(checked == per_query, f"k2 check pass: builds {checked} != launches {per_query}")
+        check(k2_err == 0, f"K2 != plain on a query's build (max |err| {k2_err})")
+        check(("orc", 3) in k2_runs and k2_runs[("orc", 3)] > 0
+              and k2_runs[("ttp", 3)] > 0, "Q3 over orc/ttp launched no K2")
+
+        # 4. Q-E: the headline GROUP BY over 8 Parquet row groups
+        rng = np.random.default_rng(7)
+        k = rng.integers(0, KEYS, qe_rows).astype(np.int64)
+        v = rng.integers(0, 1 << VBITS, qe_rows).astype(np.int64)
+        pq = engine.catalogs.get("pq")
+        pq.create_table("default", "bench_groupby", TableSchema(
+            "bench_groupby", (ColumnSchema("k", T.BIGINT), ColumnSchema("v", T.BIGINT))))
+        t0 = time.perf_counter()
+        step = qe_rows // QE_INSERTS
+        for i in range(QE_INSERTS):
+            pq.insert("default", "bench_groupby", batch_from_numpy(
+                [T.BIGINT, T.BIGINT], [k[i * step:(i + 1) * step], v[i * step:(i + 1) * step]]))
+        write_s = time.perf_counter() - t0
+        counts = np.bincount(k, minlength=KEYS)
+        vsum = np.zeros(KEYS, dtype=np.int64)
+        np.add.at(vsum, k, v)
+        want_e = sorted((int(i), int(vsum[i]), int(counts[i]))
+                        for i in range(KEYS) if counts[i])
+        qe = session("pq", "default", stream_scan_threshold_rows=FILES_STREAM_THRESHOLD)
+        times, ingest = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(1 + WARM):
+            res, ms = timed(QE_SQL, qe)
+            times.append(ms)
+            ingest.append(ingest_fields(res))
+            check(sorted(res.rows) == want_e, "Q-E rows differ from the numpy sums")
+        check(ingest[0]["splits_decoded"] == QE_INSERTS, f"Q-E read {ingest[0]} splits")
+        check(not any(i["h2d_bytes"] for i in ingest[1:]), "Q-E warm runs copied bytes")
+        warm = statistics.median(times[1:])
+        qa = SQL_RATE.get("Q-A")
+        log("files", card=smi, step="Q-E", rows=qe_rows, row_groups=QE_INSERTS,
+            write_s=write_s, bytes_on_disk=disk_bytes("pq", "default", "bench_groupby"),
+            cold_ms=times[0], warm_ms=times[1:], warm_median_ms=warm,
+            cold_rows_per_s=qe_rows / (times[0] / 1e3), warm_rows_per_s=qe_rows / (warm / 1e3),
+            ratio_to_qa_warm=None if qa is None else (qe_rows / (warm / 1e3)) / qa,
+            ingest_per_run=ingest, peak_device_bytes=torch.cuda.max_memory_allocated())
+        settings = {}
+        for prefetch in (True, False):
+            for coalesced in (True, False):
+                s = session("pq", "default", stream_scan_threshold_rows=FILES_STREAM_THRESHOLD,
+                            table_cache=False, ingest_prefetch=prefetch,
+                            coalesced_h2d=coalesced)
+                torch.cuda.reset_peak_memory_stats()
+                res, ms = timed(QE_SQL, s)
+                check(sorted(res.rows) == want_e,
+                      f"Q-E rows differ (prefetch={prefetch}, coalesced={coalesced})")
+                settings[f"prefetch={prefetch},coalesced={coalesced}"] = {
+                    "cold_ms": ms, **ingest_fields(res),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        log("files", card=smi, step="Q-E_settings", settings=settings)
+        on_card = engine.device.type == "cuda"  # a CPU rehearsal copies nothing
+        check(all(v["h2d_transfers"] == on_card for n, v in settings.items()
+                  if "coalesced=True" in n), "a coalesced cold scan took more than one copy")
+
+        # 5. BASELINE config 4: rows generated on the card
+        synth = SyntheticConnector()
+        synth.add_table("default", "events", TableSchema(
+            "events", (ColumnSchema("k", T.BIGINT), ColumnSchema("v", T.BIGINT))),
+            synth_rows, synth_gen)
+        engine.catalogs.register("synthetic", synth)
+        t0 = time.perf_counter()
+        want_s = synth_oracle(synth_rows)
+        oracle_s = time.perf_counter() - t0
+        ss = session("synthetic", "default")
+        times, ingest = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            res, ms = timed(SYNTH_SQL, ss)
+            times.append(ms)
+            ingest.append(ingest_fields(res))
+            check(sorted(res.rows) == want_s, "synthetic rows differ from the closed form")
+            check(ingest[-1]["h2d_bytes"] == 0 and ingest[-1]["device_chunks"] > 0,
+                  f"synthetic chunks were not made on the card: {ingest[-1]}")
+        log("files", card=smi, step="synthetic", rows=synth_rows, oracle_s=oracle_s,
+            cold_s=times[0] / 1e3, warm_s=times[1] / 1e3,
+            warm_rows_per_s=synth_rows / (times[1] / 1e3),
+            chunks=ingest[-1]["device_chunks"], h2d_bytes=ingest[-1]["h2d_bytes"],
+            fragment_modes={str(f): m for f, m in (res.fragment_modes or {}).items()},
+            peak_device_bytes=torch.cuda.max_memory_allocated())
+
+        # 6. DELETE on a durable table swaps its data through replace_data
+        ttp = engine.catalogs.get("ttp")
+        calls = []
+        for name in ("replace_data", "truncate", "insert"):
+            real = getattr(ttp, name)
+            setattr(ttp, name, (lambda real, name: lambda *a, **kw: (
+                calls.append(name), real(*a, **kw))[1])(real, name))
+        cut = "o_orderdate < date '1993-01-01'"
+        kept = engine.execute_statement(
+            f"select count(*) from tpch.{schema}.orders where not ({cut})", src).rows[0][0]
+        before = engine.execute_statement(f"select count(*) from ttp.{schema}.orders", src).rows[0][0]
+        torch.cuda.reset_peak_memory_stats()
+        res, ms = timed(f"delete from ttp.{schema}.orders where {cut}", src)
+        after, ms_count = timed(f"select count(*) from ttp.{schema}.orders", src)
+        for name in ("replace_data", "truncate", "insert"):
+            delattr(ttp, name)
+        check(calls == ["replace_data"], f"DELETE called {calls}")
+        check(after.rows[0][0] == kept and res.update_count == before - kept,
+              f"DELETE kept {after.rows[0][0]} rows, not {kept}")
+        log("files", card=smi, step="delete", table=f"ttp.{schema}.orders",
+            deleted=res.update_count, kept=kept, ms=ms, count_ms=ms_count,
+            connector_calls=calls, peak_device_bytes=torch.cuda.max_memory_allocated())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("files", card=smi, phase_s=time.perf_counter() - t_phase)
+    return launches, k2_err
+
+
 def run_against_answers(runner, texts: dict, answers: dict, warm: int,
                         phase: str, smi: str, streamed=()):
     """Each query of ``texts`` once cold and ``warm`` times warm, its rows
@@ -1900,7 +2245,8 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     log("tpcds", card=smi, schema=TPCDS_SCHEMA, tables=staged,
         rows=sum(t["rows"] for t in staged.values()),
         staged_bytes=sum(t["staged_bytes"] for t in staged.values()),
-        generate_and_stage_s=time.perf_counter() - t_all)
+        generate_and_stage_s=time.perf_counter() - t_all,
+        disk_cache=tpcds.disk_cache_stats())
     torch.cuda.empty_cache()
     texts = DS.queries(f"tpcds.{TPCDS_SCHEMA}")
     # the main path's run: every count starts at 0 here and is read after
@@ -1997,6 +2343,7 @@ def main() -> int:
         for name in sys.argv[2].split(","):
             {"tpch22": lambda smi: phase_tpch22(smi, tpch_sf1_runner(smi)),
              "surface": lambda smi: phase_surface(smi, tpch_sf1_runner(smi)),
+             "files": lambda smi: phase_files(smi, tpch_sf1_runner(smi)),
              "tpcds": phase_tpcds, "spill": phase_spill_alone}[name](smi)
             gc.collect()
             torch.cuda.empty_cache()
@@ -2027,6 +2374,9 @@ def main() -> int:
     if t22["dense_join_build"] < 1:
         raise AssertionError("the TPC-H queries launched no join-build kernel")
     surface, surface_k1_err, surface_k2_err = phase_surface(smi, sf1_runner)
+    gc.collect()
+    torch.cuda.empty_cache()
+    files, files_k2_err = phase_files(smi, sf1_runner)
     del sf1_runner
     gc.collect()
     torch.cuda.empty_cache()
@@ -2041,7 +2391,7 @@ def main() -> int:
         "launches": (sql_launches["dense_groupby"] + join_launches["dense_groupby"]
                      + spill_launches["dense_groupby"] + tpch_launches
                      + t22["dense_groupby"] + surface["dense_groupby"]
-                     + ds["dense_groupby"]),
+                     + files["dense_groupby"] + ds["dense_groupby"]),
         "matches_plain": True,
         "max_abs_err": max(kern["max_abs_err"], surface_k1_err),
         "ms": a["ms"],
@@ -2056,10 +2406,11 @@ def main() -> int:
         "replaces": "trino_tpu/ops/dense_join.py:344",
         "launches": (join_launches["dense_join_build"] + spill_launches["dense_join_build"]
                      + t22["dense_join_build"] + surface["dense_join_build"]
-                     + ds["dense_join_build"]),
+                     + files["dense_join_build"] + ds["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
-                           + [join_k2_err, t22_k2_err, surface_k2_err, ds_k2_err]),
+                           + [join_k2_err, t22_k2_err, surface_k2_err, files_k2_err,
+                              ds_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

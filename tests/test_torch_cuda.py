@@ -419,3 +419,86 @@ def test_rollup_over_a_join_launches_the_build_kernel(cuda):
         (0, "") if v is None else (1, repr(v)) for v in row))
     assert hashlib.sha256(repr(canonical).encode()).hexdigest() == (
         "2e9e3c00d5bddbff422e7e452d63e200abd3f6a0357ea7cd10b7d7354d3323fe")
+
+
+@pytest.mark.cuda
+def test_coalesced_pinned_copy_equals_per_column_copies(cuda):
+    """One pinned staging buffer and one copy carry every buffer of a scan
+    (selection, data, valid masks, DECIMAL(38) lane pairs) to the card,
+    equal to copying each buffer on its own."""
+    from trino_tpu_torch import ingest
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.columnar import Batch, Column, batch_from_numpy
+
+    rng = np.random.default_rng(3)
+    n = 1 << 20
+    b = batch_from_numpy(
+        [T.BIGINT, T.VARCHAR, T.DOUBLE, T.BOOLEAN, T.INTEGER, T.REAL],
+        [rng.integers(-9, 9, n), np.array(["x", "yy", "z"])[rng.integers(0, 3, n)],
+         rng.random(n), rng.random(n) < 0.5, rng.integers(0, 99, n), rng.random(n)],
+        [None, rng.random(n) < 0.7, None, rng.random(n) < 0.5, None, None],
+    )
+    cols = b.columns + [Column(T.decimal(38, 2),
+                               torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (n, 2))))]
+    b = Batch(cols, n, torch.from_numpy(rng.random(n) < 0.9))
+    stats: dict = {}
+    out = ingest.to_device(b, cuda, coalesced=True, min_bytes=0, stats=stats)
+    plain = b.to(cuda)
+    torch.cuda.synchronize()
+    assert stats["h2d_transfers"] == 1 and stats["coalesced_columns"] == len(cols)
+    assert stats["h2d_bytes"] >= sum(t.numel() * t.element_size() for t in ingest._buffers(b))
+    for x, y in zip(out.columns, plain.columns):
+        assert x.data.device.type == "cuda" and x.data.dtype == y.data.dtype
+        assert torch.equal(x.data, y.data)
+        assert (x.valid is None) == (y.valid is None)
+        assert x.valid is None or torch.equal(x.valid, y.valid)
+    assert torch.equal(out.sel, plain.sel)
+    per_column: dict = {}
+    ingest.to_device(b, cuda, coalesced=False, stats=per_column)
+    assert per_column["h2d_transfers"] == len(ingest._buffers(b))
+
+
+@pytest.mark.cuda
+def test_tpch_q3_over_parquet_launches_k2_equal_to_plain(cuda, tmp_path):
+    """TPC-H Q3 at tiny over a Parquet catalog the port wrote: the rows of
+    the tpch catalog, K2 launching with every build equal to plain."""
+    from chip_smoke import k2_against_plain
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.connectors.api import register_catalog_spec
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    runner = LocalQueryRunner(device=cuda)
+    runner.session.set("execution_mode", "distributed")
+    register_catalog_spec(runner.engine.catalogs, f"pq=parquet:{tmp_path}")
+    for t in ("customer", "orders", "lineitem"):
+        runner.execute(f"create table pq.tiny.{t} as select * from tpch.tiny.{t}")
+    want, _ = runner.execute(B.queries("tpch.tiny")[3])
+    sql = B.queries("pq.tiny")[3]
+    before = _kernels.LAUNCHES["dense_join_build"]
+    rows, _ = runner.execute(sql)
+    assert rows == want and _kernels.LAUNCHES["dense_join_build"] > before
+    builds = k2_against_plain(runner, {"Q3": sql})
+    assert builds and all(b["max_abs_err"] == 0 and b["unplaced_err"] == 0 for b in builds)
+
+
+@pytest.mark.cuda
+def test_synthetic_device_chunks_equal_the_host_path(cuda):
+    from chip_smoke import synth_gen
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.columnar import Batch
+    from trino_tpu_torch.connectors.api import ColumnSchema, TableSchema
+    from trino_tpu_torch.connectors.synthetic import SyntheticConnector
+
+    conn = SyntheticConnector(split_rows=1 << 16)
+    conn.add_table("default", "events", TableSchema(
+        "events", (ColumnSchema("k", T.BIGINT), ColumnSchema("v", T.BIGINT))),
+        10 ** 9, synth_gen)
+    make_chunk, rows = conn.device_generator("default", "events", ["k", "v"], device=cuda)
+    # the last split: idx * 2654435761 near 2^61.2
+    last = conn.get_splits("default", "events", 1 << 20)[-1]
+    per = -(-rows // last.total)
+    off = last.index * per
+    chunk = Batch(make_chunk(off, rows - off), rows - off)
+    assert chunk.columns[0].data.device.type == "cuda"
+    host = conn.read_split("default", "events", ["k", "v"], last)
+    assert host.num_rows == rows - off and chunk.to_pylist() == host.to_pylist()

@@ -1,5 +1,5 @@
-"""trino_tpu_torch stands alone: no JAX, nothing of trino_tpu, and no
-silent fallback to the CPU.
+"""trino_tpu_torch stands alone: no JAX, nothing of trino_tpu, no pyarrow,
+and no silent fallback to the CPU.
 
 The import check runs in a fresh interpreter so that this test process's
 own JAX import (tests/conftest.py) cannot mask a leak.
@@ -31,6 +31,7 @@ def test_port_imports_neither_jax_nor_reference():
             if m == "jax" or m.startswith("jax.")
             or m == "jaxlib" or m.startswith("jaxlib.")
             or m == "trino_tpu" or m.startswith("trino_tpu.")
+            or m == "pyarrow" or m.startswith("pyarrow.")
         )
         print(",".join(names))
         print(",".join(leaked))
@@ -48,7 +49,10 @@ def test_port_imports_neither_jax_nor_reference():
                    "ops.decimal128", "exec.streaming", "native", "strings",
                    "connectors.tpcds", "benchmarks.tpcds", "ops.window",
                    "ingest", "memory", "spill", "security", "transaction",
-                   "stats", "datetimefmt", "connectors.blackhole"):
+                   "stats", "datetimefmt", "connectors.blackhole", "serde",
+                   "formats.parquet", "formats.orc", "connectors.parquet",
+                   "connectors.orc", "connectors.file", "connectors.synthetic",
+                   "connectors.diskcache"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 
@@ -88,10 +92,10 @@ def test_kernel_wrapper_never_falls_back_for_cuda_tensors():
 def test_port_reads_and_builds_no_source_of_the_reference(tmp_path):
     """The port builds its native library from its own
     ``trino_tpu_torch/csrc/columnar.cpp``: in a fresh interpreter, a build
-    into an empty directory, the dictionary encoder and the text-pool
-    generator (its first 64 KiB) open no file under ``native/`` or
-    ``trino_tpu/`` and pass none to the compiler (an audit hook sees every
-    open and every process start)."""
+    into an empty directory, the dictionary encoder, the text-pool
+    generator (its first 64 KiB) and the codecs open no file under
+    ``native/`` or ``trino_tpu/`` and pass none to the compiler (an audit
+    hook sees every open and every process start)."""
     code = textwrap.dedent(
         f"""
         import sys
@@ -109,6 +113,14 @@ def test_port_reads_and_builds_no_source_of_the_reference(tmp_path):
         native.load()
         native.dict_encode(["a", "b", "a"])
         native.tpch_textpool(1 << 16, dbgen.dists_blob(), dbgen.S_TEXT_POOL)
+        import numpy as np
+        vals = np.arange(100) % 7
+        native.varint_decode(native.varint_encode(vals), 100)
+        native.lz_decompress(native.lz_compress(b"abcabcabc" * 9), 81)
+        native.snappy_decompress(native.snappy_compress(b"xy" * 40), 80)
+        native.orc_rle2(native.orc_rle2_encode(vals, True), 100, True)
+        native.parquet_rle_decode(native.parquet_rle_encode(vals, 3), 3, 100)
+        native.pack_arena([vals])
         print(native.SRC)
         print("\\n".join(seen))
         """
@@ -152,3 +164,61 @@ def test_every_reference_handler_and_executor_has_a_counterpart():
         assert len(names) > 10
         missing += [n for n in names if not hasattr(port, n)]
     assert sorted(missing) == sorted(NOT_PORTED)
+
+
+def test_port_opens_no_data_path_of_the_reference(tmp_path):
+    """The port's disk cache of generated splits lives in
+    ``.cache/dbgen_torch``: reading tpch and tpcds splits in a fresh
+    interpreter opens nothing under the reference's ``.cache/dbgen``."""
+    code = textwrap.dedent(
+        """
+        import os, sys
+        seen = []
+        def hook(event, args):
+            if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+                seen.append(os.fsdecode(args[0]))
+            elif event in ("os.listdir", "os.scandir", "os.mkdir") and args[0]:
+                seen.append(os.fsdecode(args[0]))
+        sys.addaudithook(hook)
+        from trino_tpu_torch.connectors.tpch import TpchConnector
+        from trino_tpu_torch.connectors.tpcds import TpcdsConnector
+        for c, table in ((TpchConnector(), "nation"), (TpcdsConnector(), "store")):
+            cols = c.get_table("tiny", table).column_names()
+            c.read_split("tiny", table, cols, c.get_splits("tiny", table, 1)[0])
+            print(c._disk_cache.directory)
+        print("\\n".join(seen))
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    tpch_dir, tpcds_dir, *paths = out.stdout.splitlines()
+    want = os.path.join(REPO, ".cache", "dbgen_torch")
+    assert tpch_dir == tpcds_dir == want
+    assert any(os.path.abspath(p).startswith(want) for p in paths)  # it was used
+    reference = os.path.join(REPO, ".cache", "dbgen")
+    assert not [p for p in paths
+                if os.path.abspath(p) == reference
+                or os.path.abspath(p).startswith(reference + os.sep)]
+
+
+def test_every_reference_catalog_kind_has_a_counterpart(tmp_path):
+    """``register_catalog_spec`` takes the reference's kinds and makes the
+    connector class of the same name."""
+    from trino_tpu.connectors.api import CatalogManager as RefManager
+    from trino_tpu.connectors.api import register_catalog_spec as ref_register
+    from trino_tpu_torch.connectors.api import CatalogManager, register_catalog_spec
+
+    for kind in ("memory", "blackhole", "file", "parquet", "orc", "tpch"):
+        spec = f"c={kind}:{tmp_path / kind}"
+        ref, port = RefManager(), CatalogManager()
+        ref_register(ref, spec)
+        register_catalog_spec(port, spec)
+        assert type(port.get("c")).__name__ == type(ref.get("c")).__name__
+        assert type(port.get("c")).__module__.startswith("trino_tpu_torch.")
+    for manager, register in ((RefManager(), ref_register),
+                              (CatalogManager(), register_catalog_spec)):
+        with pytest.raises(ValueError, match="unknown catalog kind"):
+            register(manager, "c=tpcds")

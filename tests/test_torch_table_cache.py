@@ -156,7 +156,11 @@ def test_table_cache_off_and_local_mode_count_nothing():
     assert not any(k.startswith("table_cache") for _, _, st in off for k in st)
     r.session.set("execution_mode", "local")
     res = r.engine.execute_statement(JOIN, r.session)
-    assert res.rows == on[0] and res.ingest_stats is None
+    # the interpreter has no table cache: its ingest stats are the split
+    # decode of its two scans only (as the reference's)
+    assert res.rows == on[0]
+    assert sorted(res.ingest_stats) == ["decode_ms", "splits_decoded"]
+    assert res.ingest_stats["splits_decoded"] == 2
 
 
 def test_byte_limit_evicts_least_recently_used():

@@ -289,6 +289,23 @@ class Batch:
         return [tuple(col[i] for col in out_cols) for i in range(b.num_rows)]
 
 
+def host_column(
+    t: T.SqlType,
+    data: np.ndarray,
+    valid: np.ndarray | None = None,
+    dictionary: Dictionary | None = None,
+) -> Column:
+    """A host column from decoded numpy data (codes when ``dictionary`` is
+    given), cast to the type's storage dtype: how the file formats' and
+    the pages serde's numpy columns enter the engine."""
+    data = np.ascontiguousarray(np.asarray(data).astype(t.storage_dtype, copy=False))
+    return Column(
+        t, as_tensor(data),
+        None if valid is None else as_tensor(np.asarray(valid, np.bool_)),
+        dictionary,
+    )
+
+
 def batch_from_numpy(
     types: Sequence[T.SqlType],
     arrays: Sequence[np.ndarray],
@@ -307,10 +324,7 @@ def batch_from_numpy(
         dictionary = None
         if T.is_string(t):
             dictionary, a = Dictionary.from_strings([str(s) for s in a])
-        data = np.ascontiguousarray(a.astype(t.storage_dtype, copy=False))
-        cols.append(
-            Column(t, as_tensor(data), None if v is None else as_tensor(np.asarray(v, np.bool_)), dictionary)
-        )
+        cols.append(host_column(t, a, v, dictionary))
     return Batch(cols, n, None)
 
 

@@ -312,3 +312,39 @@ def batch_column_stats(columns, batch) -> dict:
             out[cs.name] = (None, None, has_null)
     return out
 
+
+def register_catalog_spec(manager: CatalogManager, spec: str) -> None:
+    """Register a connector from a ``name=kind[:arg]`` spec string
+    (reference: ``trino_tpu/connectors/api.py::register_catalog_spec``,
+    the ``etc/catalog/*.properties`` analog), with the reference's kinds:
+    ``memory``, ``blackhole``, ``file:<dir>``, ``parquet:<dir>``,
+    ``orc:<dir>`` and ``tpch``."""
+    name, _, rest = spec.partition("=")
+    kind, _, arg = rest.partition(":")
+    name, kind = name.strip(), kind.strip()
+    if kind == "memory":
+        from trino_tpu_torch.connectors.memory import MemoryConnector
+
+        manager.register(name, MemoryConnector())
+    elif kind == "blackhole":
+        from trino_tpu_torch.connectors.blackhole import BlackHoleConnector
+
+        manager.register(name, BlackHoleConnector())
+    elif kind == "file":
+        from trino_tpu_torch.connectors.file import FileConnector
+
+        manager.register(name, FileConnector(arg))
+    elif kind == "parquet":
+        from trino_tpu_torch.connectors.parquet import ParquetConnector
+
+        manager.register(name, ParquetConnector(arg))
+    elif kind == "orc":
+        from trino_tpu_torch.connectors.orc import OrcConnector
+
+        manager.register(name, OrcConnector(arg))
+    elif kind == "tpch":
+        from trino_tpu_torch.connectors.tpch import TpchConnector
+
+        manager.register(name, TpchConnector())
+    else:
+        raise ValueError(f"unknown catalog kind in spec: {spec!r}")

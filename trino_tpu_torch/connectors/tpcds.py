@@ -3,10 +3,9 @@
 Reference: ``plugin/trino-tpcds`` — synthetic TPC-DS tables generated per
 split (no storage). The port's copy of ``trino_tpu/connectors/tpcds.py``:
 the same schemas, statistics, splits and values, as host batches of CPU
-tensors. Left out: the disk cache of generated splits (the ingest tier,
-ROADMAP Queue 1 item 7); a host LRU cache of generated splits takes its
-place. All 24 schema tables are present with spec row-count
-scaling; column sets cover the keys, measures, and descriptive attributes
+tensors. Generated splits are kept in a host LRU cache and, as in the
+reference, on disk (``connectors/diskcache.py``). All 24 schema tables
+are present with spec row-count scaling; column sets cover the keys, measures, and descriptive attributes
 used by the TPC-DS query corpus (notably the BASELINE configs' Q64/Q95
 families). Like the tpch connector, exact per-row values are our own
 deterministic keyed-hash streams — the engine's oracle recomputes expected
@@ -36,6 +35,7 @@ from trino_tpu_torch.connectors.api import (
     Split,
     TableSchema,
 )
+from trino_tpu_torch.connectors.diskcache import DbgenDiskCache
 
 DEC = T.decimal(7, 2)
 
@@ -313,8 +313,16 @@ class TpcdsConnector(Connector):
         self._batch_cache: OrderedDict[tuple, dict[str, Column]] = OrderedDict()
         self._batch_cache_bytes = 0
         self._batch_cache_limit = cache_bytes
+        # cross-process split cache (connectors/diskcache.py): generation
+        # is deterministic per (schema, table, split), so a cold process
+        # reads back an earlier run's bytes instead of regenerating
+        self._disk_cache = DbgenDiskCache()
         # staged device columns (see device_slab)
         self._device_cols = DeviceColumnStore()
+
+    def disk_cache_stats(self) -> dict:
+        """Hits and misses of the disk cache of generated splits."""
+        return self._disk_cache.stats()
 
     # --- metadata --------------------------------------------------------
 
@@ -380,11 +388,19 @@ class TpcdsConnector(Connector):
         if cols is not None:
             self._batch_cache.move_to_end(key)
         else:
-            gen = getattr(self, f"_gen_{table}")
-            cols = {
-                name: _host_column(c)
-                for name, c in gen(scale_factor(schema), split.index, split.total).items()
-            }
+            # the disk holds every column of the split, as the host cache
+            disk_key = ("tpcds",) + key
+            names = [c for c, _ in _SCHEMAS[table]]
+            hit = self._disk_cache.get(disk_key)
+            if hit is not None:
+                cols = dict(zip(names, hit.columns))
+            else:
+                gen = getattr(self, f"_gen_{table}")
+                cols = {
+                    name: _host_column(c)
+                    for name, c in gen(scale_factor(schema), split.index, split.total).items()
+                }
+                self._disk_cache.put(disk_key, Batch([cols[c] for c in names], 0))
             nbytes = _nbytes(cols.values())
             if nbytes <= self._batch_cache_limit:
                 while self._batch_cache_bytes + nbytes > self._batch_cache_limit:

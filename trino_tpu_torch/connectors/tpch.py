@@ -7,8 +7,9 @@ own copy of the numpy generator (``connectors/dbgen.py``): the same
 schemas, statistics, splits and values, as host batches of CPU tensors.
 
 Comment columns slice the text pool that the port's native loader builds
-(``dbgen.text_pool``). Left out here: the disk cache of generated splits
-(the ingest tier, ROADMAP Queue 1 item 7).
+(``dbgen.text_pool``). Generated splits are kept in a host cache and, as
+in the reference, on disk (``connectors/diskcache.py``, the port's own
+directory), so a fresh process reads back what an earlier one generated.
 
 Schemas: tiny (SF 0.01), sf1, sf10, sf100 (and sf<k> parsed generically).
 """
@@ -29,6 +30,7 @@ from trino_tpu_torch.connectors.api import (
     Split,
     TableSchema,
 )
+from trino_tpu_torch.connectors.diskcache import DbgenDiskCache
 
 DEC = T.decimal(12, 2)
 
@@ -157,8 +159,15 @@ class TpchConnector(Connector):
         self._batch_cache: OrderedDict[tuple, Batch] = OrderedDict()
         self._batch_cache_bytes = 0
         self._batch_cache_limit = cache_bytes
+        # ...and the same batches on disk, shared across processes
+        # (connectors/diskcache.py)
+        self._disk_cache = DbgenDiskCache()
         # staged device columns (see device_slab)
         self._device_cols = DeviceColumnStore()
+
+    def disk_cache_stats(self) -> dict:
+        """Hits and misses of the disk cache of generated splits."""
+        return self._disk_cache.stats()
 
     # --- metadata --------------------------------------------------------
     def list_schemas(self):
@@ -342,11 +351,17 @@ class TpchConnector(Connector):
         if hit is not None:
             self._batch_cache.move_to_end(key)
             return hit
-        sf = scale_factor(schema)
-        gen = getattr(self, f"_gen_{table}")
-        cols = gen(sf, split.index, split.total, columns=set(columns))
-        out = [cols[c] for c in columns]
-        batch = Batch(out, out[0].data.shape[0] if out else 0)
+        disk_key = ("tpch",) + key
+        batch = self._disk_cache.get(disk_key)
+        if batch is not None:
+            batch = self._reintern(columns, batch)
+        else:
+            sf = scale_factor(schema)
+            gen = getattr(self, f"_gen_{table}")
+            cols = gen(sf, split.index, split.total, columns=set(columns))
+            out = [cols[c] for c in columns]
+            batch = Batch(out, out[0].data.shape[0] if out else 0)
+            self._disk_cache.put(disk_key, batch)
         nbytes = _nbytes(batch)
         if nbytes <= self._batch_cache_limit:
             while self._batch_cache_bytes + nbytes > self._batch_cache_limit:
@@ -355,6 +370,25 @@ class TpchConnector(Connector):
             self._batch_cache[key] = batch
             self._batch_cache_bytes += nbytes
         return batch
+
+    def _reintern(self, columns, batch: Batch) -> Batch:
+        """Swap disk-loaded dictionaries for the connector's shared
+        instances where the values match: distribution-valued columns
+        (l_shipmode, c_mktsegment, ...) would otherwise get one Dictionary
+        object per split, inflating dictionary merges downstream."""
+        from trino_tpu_torch.connectors import dbgen as G
+
+        cols = []
+        for name, col in zip(columns, batch.columns):
+            if (
+                col.dictionary is not None
+                and name in G.DIST_VALUES
+                and list(col.dictionary.values) == list(G.DIST_VALUES[name])
+            ):
+                col = Column(col.type, col.data, col.valid,
+                             self._strings(name, G.DIST_VALUES[name]))
+            cols.append(col)
+        return Batch(cols, batch.num_rows)
 
     # Each generator returns {column_name: Column} for this split's rows.
     def _range(self, total_rows: int, index: int, total: int) -> tuple[int, int]:

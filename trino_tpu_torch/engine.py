@@ -199,7 +199,7 @@ class Engine:
             or None,
             fragment_modes=dict(getattr(executor, "fragment_modes", {}) or {})
             or None,
-            ingest_stats=getattr(executor, "ingest_stats", None),
+            ingest_stats=dict(executor.ingest_stats) or None,
             spill_stats=dict(executor.spill_stats) or None,
         )
 
@@ -440,9 +440,14 @@ class Engine:
             ),
         ))
         batch, _ = self._run_query_rows(keep, session)
-        conn.truncate(schema, table)
-        if batch.num_rows:
-            conn.insert(schema, table, batch)
+        if hasattr(conn, "replace_data"):
+            # durable stores swap data atomically: truncate-then-insert
+            # would lose kept rows on a crash between the two steps
+            conn.replace_data(schema, table, batch)
+        else:
+            conn.truncate(schema, table)
+            if batch.num_rows:
+                conn.insert(schema, table, batch)
         return StatementResult(
             [], ["rows"], [T.BIGINT],
             update_type="DELETE", update_count=before - batch.num_rows,

@@ -583,7 +583,6 @@ class FragmentedExecutor(LocalExecutor):
         self._caps: dict[int, _Caps] = {}
         self.table_cache = table_cache
         self.table_cache_bytes = table_cache_bytes
-        self.ingest_stats: dict = {}
 
     def _fragment_caps(self, kind: str, fid: int) -> _Caps:
         return self.caps_store.setdefault((self.fingerprint, kind, fid), _Caps())

@@ -381,6 +381,39 @@ class LocalExecutor:
         self.spill_stats: dict = {}
         # EXPLAIN ANALYZE's per-node records (stats.StatsCollector), or None
         self.stats_collector = None
+        # the query's ingest accounting (ingest.py): split decode, the
+        # host-to-device copies of its scans, the table cache
+        self.ingest_stats: dict = {}
+
+    def _read_splits(self, connector, schema, table, columns, splits):
+        """Decode splits through the ingest tier: double-buffered (a
+        background thread decodes split k+1 while the caller consumes
+        split k) under ``ingest_prefetch``, with the codecs that
+        ``native_decode`` selects (reference: ``exec/local.py:112-132``)."""
+        from trino_tpu_torch.ingest import SplitPrefetcher
+
+        yield from SplitPrefetcher(
+            lambda s: connector.read_split(schema, table, columns, s),
+            splits,
+            enabled=bool(self.session.get("ingest_prefetch")),
+            stats=self.ingest_stats,
+            native=bool(self.session.get("native_decode")),
+        )
+
+    def _to_device(self, batch: Batch) -> Batch:
+        """A scan's host batch on the engine's device: one pinned copy
+        under ``coalesced_h2d`` from ``coalesce_min_bytes`` on, else one
+        copy a buffer (``ingest.to_device``)."""
+        from trino_tpu_torch import native
+        from trino_tpu_torch.ingest import to_device
+
+        with native.decode_mode(bool(self.session.get("native_decode"))):
+            return to_device(
+                batch, self.device,
+                coalesced=bool(self.session.get("coalesced_h2d")),
+                min_bytes=int(self.session.get("coalesce_min_bytes")),
+                stats=self.ingest_stats,
+            )
 
     # === entry ==========================================================
     def execute(self, node: P.PlanNode) -> tuple[Batch, list[str]]:
@@ -459,14 +492,17 @@ class LocalExecutor:
         layout = {s.name: i for i, s in enumerate(node.symbols)}
         batches = []
         rows_read = 0
-        for s in splits:
-            b = connector.read_split(node.schema, node.table, node.column_names, s)
+        reader = self._read_splits(
+            connector, node.schema, node.table, node.column_names, splits
+        )
+        for b in reader:
             batches.append(b)
             rows_read += b.num_rows
             # connector applyLimit hint: stop pulling splits once the
             # pushed row budget is covered (the Limit node still enforces)
             if node.limit is not None and rows_read >= node.limit:
                 break
+        reader.close()  # stops the decode thread after a limit
         if not batches:
             batches = [
                 connector.read_split(
@@ -475,7 +511,7 @@ class LocalExecutor:
                 )
             ]
         batch = concat_batches(batches) if len(batches) > 1 else batches[0]
-        return Result(batch.to(self.device), layout)
+        return Result(self._to_device(batch), layout)
 
     # === row-preserving nodes ==========================================
     def _exec_filter(self, node: P.Filter) -> Result:

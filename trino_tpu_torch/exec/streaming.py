@@ -39,10 +39,11 @@ their build sides are materialized once before the chunks, each join
 builds its table once per attempt and probes it with every chunk at a
 fixed output capacity (see :class:`StreamingAggregator`).
 
-Not ported: the connector-generated device chunks of the synthetic
-connector, and the reference's compile-failure chunk halving (an XLA
-workaround). On a mesh of one the per-shard partitioning and ``pmax`` of
-the reference are plain calls.
+A connector that generates its rows (the synthetic connector's
+``device_generator``) streams chunks made on the device, after the slab
+and before host chunks. Not ported: the reference's compile-failure chunk
+halving (an XLA workaround). On a mesh of one the per-shard partitioning
+and ``pmax`` of the reference are plain calls.
 """
 
 from __future__ import annotations
@@ -215,10 +216,14 @@ class StreamingAggregator:
 
     def run(self) -> Result:
         """Stream the fragment: the device slab when the connector stages
-        the table, host chunks otherwise. Raises :class:`StreamOverflow`
-        when the group budget or a join's capacity overflowed."""
+        the table, chunks the connector generates on the device next, host
+        chunks otherwise. Raises :class:`StreamOverflow` when the group
+        budget or a join's capacity overflowed."""
         self._prebuild()
         res = self._run_device_slab()
+        if res is not None:
+            return res
+        res = self._run_generated()
         if res is not None:
             return res
         chunk_rows = int(self.executor.session.get("stream_chunk_rows"))
@@ -287,6 +292,41 @@ class StreamingAggregator:
         else:
             cap = self._fitting_chunk_rows(slab, num_rows)
         return self._run_chunks(self._slab_chunks(slab, num_rows, cap))
+
+    # === connector-generated device chunks ================================
+
+    def _run_generated(self) -> Optional[Result]:
+        """Chunks a connector generates on the device (the synthetic
+        connector's ``device_generator``): no row crosses from the host.
+        Such a table has no slab, so the dense path is not tried, as in the
+        reference (``trino_tpu/exec/streaming.py:340``). None when the
+        connector generates no chunks."""
+        connector = self.executor.catalogs.get(self.scan.catalog)
+        gen = getattr(connector, "device_generator", None)
+        if gen is None:
+            return None
+        spec = gen(self.scan.schema, self.scan.table, self.scan.column_names,
+                   device=self.device)
+        if spec is None:
+            return None
+        make_chunk, num_rows = spec
+        if num_rows <= 0:
+            return None
+        if self.executor.session.get("stream_device_chunk_rows"):
+            cap = slab_stage_rows(self.executor.session)
+        else:
+            probe = Batch(make_chunk(0, 1), 1)
+            cap = self._fitting_chunk_rows(probe, num_rows)
+
+        stats = self.executor.ingest_stats
+
+        def chunks():
+            pos = torch.arange(cap, device=self.device)
+            for off in range(0, num_rows, cap):
+                stats["device_chunks"] = stats.get("device_chunks", 0) + 1
+                yield Batch(make_chunk(off, cap), cap, pos < num_rows - off)
+
+        return self._run_chunks(chunks())
 
     def _fitting_chunk_rows(self, slab: Batch, num_rows: int) -> int:
         """Rows a slab chunk holds when the session leaves
@@ -511,8 +551,9 @@ class StreamingAggregator:
         return Batch(cols, b.num_rows, b.sel)
 
     def _chunks(self, chunk_rows: int):
-        """Device chunks of the table's splits, read one after another,
-        each padded to one capacity decided from the first split."""
+        """Device chunks of the table's splits, decoded through the ingest
+        tier (``_read_splits``), each padded to one capacity decided from
+        the first split and copied to the device (``_to_device``)."""
         connector = self.executor.catalogs.get(self.scan.catalog)
         est = connector.estimate_rows(self.scan.schema, self.scan.table)
         target = max(1, ((est or 0) + chunk_rows - 1) // chunk_rows)
@@ -521,10 +562,12 @@ class StreamingAggregator:
             constraint=self.scan.constraint,
         )
         cap = None
-        for split in splits:
-            b = connector.read_split(
-                self.scan.schema, self.scan.table, self.scan.column_names, split
-            )
+        # double-buffered decode: the next split decodes on a background
+        # thread while the device steps over the current chunk
+        for b in self.executor._read_splits(
+            connector, self.scan.schema, self.scan.table,
+            self.scan.column_names, splits,
+        ):
             b = self._canonicalize_dicts(b)
             if cap is None:
                 cap = bucket_capacity(max(1, min(b.num_rows, chunk_rows)))
@@ -532,7 +575,7 @@ class StreamingAggregator:
             while True:
                 hi = min(lo + cap, b.num_rows)
                 piece = _slice_rows(b, lo, hi) if b.num_rows else b
-                yield _pad_batch(piece, cap).to(self.device)
+                yield self.executor._to_device(_pad_batch(piece, cap))
                 lo = hi
                 if lo >= b.num_rows:
                     break
