@@ -850,10 +850,14 @@ def phase_spill(runner, oracle, smi: str) -> dict:
 
 
 def timed_spans(runner, queries, spans) -> dict:
-    """One more warm run of each query with the functions ``spans`` names
-    (``(owner, attribute, label)``) timed on the host clock, each call
-    ending in a synchronise; returns per query its wall ms, the ms of each
-    label and ``rest_ms``, the wall time outside them."""
+    """One more run of each query after every stored program was evicted
+    (``ProgramPool.evict_lru``): the eager warm-up at the query's settled
+    capacities that precedes each capture, the only run in which the
+    functions a graph replays are called. The functions ``spans`` names
+    (``(owner, attribute, label)``) are timed on the host clock, each
+    call ending in a synchronise; returns per query its wall ms, the ms
+    of each label, ``capture_ms`` (the captures that follow the warm-ups)
+    and ``rest_ms``, the wall time outside them all."""
     import torch
 
     originals = [getattr(owner, attr) for owner, attr, _ in spans]
@@ -861,6 +865,8 @@ def timed_spans(runner, queries, spans) -> dict:
 
     def timed(fn, label):
         def run(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)  # a capture runs nothing to time
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
@@ -876,14 +882,16 @@ def timed_spans(runner, queries, spans) -> dict:
             setattr(owner, attr, timed(fn, label))
         for name, sql in queries.items():
             spent.clear()
+            runner.engine.program_pool.evict_lru()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            runner.engine.execute_statement(sql, runner.session)
+            res = runner.engine.execute_statement(sql, runner.session)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            out[name] = {"wall_ms": wall_ms,
-                         **{label: spent.get(label, 0.0) for _, _, label in spans}}
-            out[name]["rest_ms"] = wall_ms - sum(spent.values())
+            out[name] = {"path": "warm-up", "wall_ms": wall_ms,
+                         **{label: spent.get(label, 0.0) for _, _, label in spans},
+                         "capture_ms": res.compile_ms}
+            out[name]["rest_ms"] = wall_ms - sum(spent.values()) - res.compile_ms
     finally:
         for (owner, attr, _), fn in zip(spans, originals):
             setattr(owner, attr, fn)
@@ -898,7 +906,7 @@ def phase_spans(runner, queries) -> None:
     probes (``probe_ms``: the probe, the exactness pass and the payload
     gathers) and the grouped aggregations."""
     from trino_tpu_torch import dynfilter
-    from trino_tpu_torch.exec import local
+    from trino_tpu_torch.exec import fragments, local
     from trino_tpu_torch.ops import dense_join as DJ
     from trino_tpu_torch.parallel import distributed
 
@@ -907,7 +915,8 @@ def phase_spans(runner, queries) -> None:
              (distributed, "build_join", "join_build_ms"),
              (distributed, "probe_build", "probe_ms"),
              (DJ, "build_table", "k2_build_ms"),
-             (local, "group_aggregate", "group_by_ms")]
+             (local, "group_aggregate", "group_by_ms"),
+             (fragments, "group_aggregate", "group_by_ms")]
     for name, out in timed_spans(runner, queries, spans).items():
         # the K2 builds run inside the join builds: counted once, in k2
         out["join_build_ms"] -= out["k2_build_ms"]
@@ -1186,7 +1195,10 @@ TPCH22_STREAMED = (3, 5, 7, 10, 17, 19)
 
 
 def peak_attribution(runner, sql: str, top: int = 8, with_joins: bool = False) -> dict:
-    """Where one more run of ``sql`` peaks in device memory: each
+    """Where one more run of ``sql`` peaks in device memory, after every
+    stored program was evicted (the eager warm-up at the settled
+    capacities before each capture, whose allocations are the
+    operators', and the capture into the graph pool): each
     fragment's own peak (the peak counter reset as it starts), and the
     largest allocations alive at the query's peak, each with the
     innermost frame of the port that made it, from the caching
@@ -1216,6 +1228,8 @@ def peak_attribution(runner, sql: str, top: int = 8, with_joins: bool = False) -
 
     def join(self, node):
         out = real_join(self, node)
+        if torch.cuda.is_current_stream_capturing():
+            return out  # a capture records, reads nothing: its warm-up was read
         left, right = self._exec(node.left), self._exec(node.right)
         joins.append({
             "fragment": self.fragment_id, "site": self._site("join", node),
@@ -1227,6 +1241,7 @@ def peak_attribution(runner, sql: str, top: int = 8, with_joins: bool = False) -
         })
         return out
 
+    runner.engine.program_pool.evict_lru()
     torch.cuda.synchronize()
     baseline = torch.cuda.memory_allocated()
     torch.cuda.memory._record_memory_history(
@@ -1286,11 +1301,61 @@ def peak_attribution(runner, sql: str, top: int = 8, with_joins: bool = False) -
     }
 
 
+# phase programs: one literal variant a query with hoisted literals (the
+# substitution is applied to every occurrence), and Q6's batch
+PROGRAM_VARIANTS = {
+    1: ("interval '90' day", "interval '60' day"),
+    3: ("date '1995-03-15'", "date '1995-03-22'"),
+    4: ("date '1993-07-01'", "date '1993-10-01'"),
+    5: ("date '1994-01-01'", "date '1995-01-01'"),
+    6: ("l_quantity < 24", "l_quantity < 25"),
+    8: ("date '1995-01-01' and date '1996-12-31'", "date '1995-03-01' and date '1996-10-31'"),
+    10: ("date '1993-10-01'", "date '1994-01-01'"),
+    11: ("* 0.0001", "* 0.0002"),
+    12: ("date '1994-01-01'", "date '1995-01-01'"),
+    14: ("date '1995-09-01'", "date '1995-10-01'"),
+    15: ("date '1996-01-01'", "date '1996-04-01'"),
+    17: ("0.2 * avg", "0.3 * avg"),
+    19: ("between 1 and 5", "between 1 and 6"),
+    20: ("date '1994-01-01'", "date '1995-01-01'"),
+}
+PROGRAM_BATCH = 8                   # Q6 variants in one batch
+PROGRAM_IDLE_QUERIES = (3, 5, 9, 10)
+
+
+def program_variant(q: int, sql: str):
+    """The literal variant of query ``q`` (None when it has none)."""
+    if q not in PROGRAM_VARIANTS:
+        return None
+    old, new = PROGRAM_VARIANTS[q]
+    if old not in sql:
+        raise AssertionError(f"Q{q}: {old!r} is not in the query text")
+    return sql.replace(old, new)
+
+
+def pool_counts(eng, before: dict | None = None) -> dict:
+    """The graph pool's captures and evicted programs (since ``before``,
+    an earlier result of this function), its reserved bytes and the
+    programs stored."""
+    pool = eng.program_pool
+    now = {"captures": pool.captures, "evicted_programs": pool.evicted}
+    if before is not None:
+        now = {k: v - before[k] for k, v in now.items()}
+        now["pool_reserved_bytes"] = pool.reserved_bytes()
+        now["stored_programs"] = len(pool._lru)
+        now["stored_program_bytes"] = pool.held_bytes()
+    return now
+
+
 def k2_against_plain(runner, texts: dict) -> list:
-    """One more run of each of ``texts`` with every K2 build held against
-    ``build_table_plain`` on the same inputs (slot bases, live rows,
-    capacity, window): the table and the unplaced count must be equal.
-    Returns one record a build, with the query that made it."""
+    """One more run of each of ``texts`` after every stored program was
+    evicted (the eager warm-up at the query's settled capacities that
+    precedes each capture: the builds a replay repeats), with every K2
+    build held against ``build_table_plain`` on the same inputs (slot
+    bases, live rows, capacity, window): the table and the unplaced count
+    must be equal. The captures' builds are recorded, not run, and are
+    not checked. Returns one record a build, with the query that made
+    it."""
     import torch
 
     from trino_tpu_torch.ops import dense_join as DJ
@@ -1299,6 +1364,8 @@ def k2_against_plain(runner, texts: dict) -> list:
 
     def checked(slot_base, use, capacity, window):
         out = real(slot_base, use, capacity, window)
+        if torch.cuda.is_current_stream_capturing():
+            return out  # a capture records the build: the warm-up was checked
         ptable, punplaced = DJ.build_table_plain(slot_base, use, capacity, window)
         builds.append({
             "query": query[0], "rows": int(slot_base.shape[0]),
@@ -1310,13 +1377,18 @@ def k2_against_plain(runner, texts: dict) -> list:
         })
         return out
 
-    DJ.build_table_cuda = checked
-    try:
-        for name, sql in texts.items():
-            query[0] = name
+    for name, sql in texts.items():
+        # a warm run first: the query's program-cache entry may have left
+        # the engine's LRU since the phase's runs, and a cold run's
+        # capacity ladder builds more tables than a warm run launches
+        runner.engine.execute_statement(sql, runner.session)
+        query[0] = name
+        runner.engine.program_pool.evict_lru()
+        DJ.build_table_cuda = checked
+        try:
             runner.engine.execute_statement(sql, runner.session)
-    finally:
-        DJ.build_table_cuda = real
+        finally:
+            DJ.build_table_cuda = real
     return builds
 
 
@@ -1386,12 +1458,13 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
     if answers["schema"] != f"tpch.{TPCH22_SCHEMA}":
         raise AssertionError(f"answers are for {answers['schema']}")
     texts = B.queries(f"tpch.{TPCH22_SCHEMA}")
-    failures, warm_ms, k2_runs = [], {}, {}
+    failures, warm_ms, k2_runs, peaks = [], {}, {}, {}
+    pool_before = pool_counts(runner.engine)
     # the main path's run: every count starts at 0 here and is read after
     _kernels.reset_counts()
     for q in range(1, 23):
         want = answers["queries"][str(q)]
-        times, k1, k2 = [], [], []
+        times, k1, k2, traces = [], [], [], []
         torch.cuda.reset_peak_memory_stats()
         for _ in range(1 + TPCH22_WARM):
             before = dict(_kernels.LAUNCHES)
@@ -1402,6 +1475,7 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
             times.append((time.perf_counter() - t0) * 1e3)
             k1.append(_kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"])
             k2.append(_kernels.LAUNCHES["dense_join_build"] - before["dense_join_build"])
+            traces.append(res.trace_count)
             types = [t.name for t in res.column_types]
             bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"],
                                    want["order_by"])
@@ -1412,12 +1486,13 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
                 break
         warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
         k2_runs[q] = k2[-1]
+        peaks[q] = torch.cuda.max_memory_allocated()
         stats = res.exchange_stats or {}
         log(
             "tpch22", card=smi, query=f"Q{q}", rows=len(res.rows),
             matches_reference=bad is None, cold_ms=times[0],
             warm_median_ms=warm_ms[q], warm_ms=times[1:],
-            k1_launches_per_run=k1, k2_launches_per_run=k2,
+            k1_launches_per_run=k1, k2_launches_per_run=k2, trace_count_per_run=traces,
             joinStrategy=stats.get("joinStrategy"),
             overflow_retries=stats.get("overflow_retries"),
             peak_device_bytes=torch.cuda.max_memory_allocated(),
@@ -1427,7 +1502,8 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
             failures.append(f"Q{q}: no join fragment streamed")
     launches = dict(_kernels.LAUNCHES)
     log("tpch22", card=smi, launches=launches,
-        warm_total_ms=sum(warm_ms.values()))
+        warm_total_ms=sum(warm_ms.values()), max_peak_device_bytes=max(peaks.values()),
+        **pool_counts(runner.engine, pool_before))
     if failures:
         raise AssertionError("rows differ from the reference: " + "; ".join(failures))
     # K2 against its plain version at the shapes this path gives it (its
@@ -1454,6 +1530,199 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
     for q in TPCH22_PEAKS:
         log("peak", card=smi, query=f"Q{q}",
             **peak_attribution(runner, texts[q]))
+    return launches, k2_err
+
+
+def phase_programs(smi: str, runner) -> tuple[dict, int]:
+    """Phase ``programs``: the 22 TPC-H queries at SF1 (phase tpch22's
+    runner and staged tables) through the program cache, with pipeline
+    fusion on. Per query its program-cache entry is dropped, then a cold
+    run (its programs warmed up eagerly and captured as CUDA graphs,
+    every K2 build of the warm-ups held against ``build_table_plain``)
+    and a warm hit, both held against the committed answers; the warm
+    hit must trace nothing and hit at least once, and runs whole under
+    ``programs.checked_syncs`` (``torch.cuda.set_sync_debug_mode
+    ("error")``: every synchronization raises but the counted host reads
+    of ``programs.allow_sync``: the programs' words, dynamic-filter
+    lookups, the result's read, and the fragments that are no program,
+    which ``host_synced_fragments`` counts). Each query's literal variant
+    runs through the cache under the same check, right after its query;
+    once the phase's launches are read, each variant runs again with
+    ``program_cache=false`` (uncached, launches logged apart) and must
+    equal the cached rows bit for bit; a batch of 8 literal variants of Q6 against the 8 run one after
+    the other; and the device's idle share of a warm replay of Q3, Q5,
+    Q9 and Q10 beside the same query with ``pipeline_fusion`` and
+    ``program_cache`` off. Returns the kernel launches of its cold and
+    warm runs and the largest K2 error of the warm-ups' builds."""
+    import threading
+
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.config import Session
+    from trino_tpu_torch.exec.programs import checked_syncs
+    from trino_tpu_torch.ops import dense_join as DJ
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    t_phase = time.perf_counter()
+    eng = runner.engine
+    answers = B.load_answers()
+    texts = B.queries(f"tpch.{TPCH22_SCHEMA}")
+    failures = []
+    # the K2 builds of the cold runs' warm-ups (not of their captures)
+    real, builds, current = DJ.build_table_cuda, [], [None]
+
+    def checked(slot_base, use, capacity, window):
+        out = real(slot_base, use, capacity, window)
+        if torch.cuda.is_current_stream_capturing():
+            return out
+        ptable, punplaced = DJ.build_table_plain(slot_base, use, capacity, window)
+        builds.append({
+            "query": current[0], "rows": int(slot_base.shape[0]),
+            "max_abs_err": int((out[0].to(torch.int64) - ptable.to(torch.int64)).abs().max()),
+            "unplaced_err": abs(int(out[1]) - int(punplaced)),
+        })
+        return out
+
+    def held(q, res):
+        want = answers["queries"][str(q)]
+        bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"], want["order_by"])
+        if bad is None and [t.name for t in res.column_types] != want["types"]:
+            bad = "column types differ"
+        return bad
+
+    # a literal variant runs the text with the cache off too (baked)
+    baked = LocalQueryRunner(session=Session(), engine=eng)
+    for k, v in runner.session.properties.items():
+        baked.session.properties[k] = v
+    baked.session.set("program_cache", False)
+    pool_before = pool_counts(eng)
+    _kernels.reset_counts()
+    warm_ms, variants = {}, {}
+    for q in range(1, 23):
+        eng.drop_query_cache(eng.fingerprint(texts[q], runner.session)[0])
+        current[0] = f"Q{q}"
+        DJ.build_table_cuda = checked
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cold = eng.execute_statement(texts[q], runner.session)
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            DJ.build_table_cuda = real
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with checked_syncs("cuda"):
+                warm = eng.execute_statement(texts[q], runner.session)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        warm_ms[q] = min(times)
+        ex = warm.exchange_stats or {}
+        for what, res in (("cold", cold), ("warm", warm)):
+            bad = held(q, res)
+            if bad is not None:
+                failures.append(f"Q{q} {what}: {bad}")
+        if warm.trace_count != 0 or warm.program_cache_hits < 1:
+            failures.append(f"Q{q} warm: trace_count {warm.trace_count}, "
+                            f"hits {warm.program_cache_hits}")
+        log("programs", card=smi, query=f"Q{q}", cold_ms=cold_ms,
+            capture_ms=cold.compile_ms, programs=cold.trace_count,
+            warm_ms=warm_ms[q], warm_runs_ms=times, warm_trace_count=warm.trace_count,
+            warm_hits=warm.program_cache_hits,
+            host_reads_per_warm_run=ex.get("host_reads"),
+            host_synced_fragments=ex.get("host_synced_fragments", 0),
+            fused_fragments=ex.get("fusedFragments", 0),
+            fused_fallbacks=ex.get("fused_fallbacks", 0),
+            dispatch_round_trips=ex.get("dispatchRoundTrips"),
+            modes=sorted(set((warm.fragment_modes or {}).values())),
+            pool_bytes=ex.get("program_pool_bytes"),
+            cold_mismatch=held(q, cold), warm_mismatch=held(q, warm))
+        if q in PROGRAM_VARIANTS:
+            # the variant through the query's entry while it is hot,
+            # checked as the warm runs are
+            sql = program_variant(q, texts[q])
+            with checked_syncs("cuda"):
+                hit = eng.execute_statement(sql, runner.session)
+            variants[q] = (sql, hit)
+            if hit.trace_count != 0:
+                failures.append(f"Q{q} variant: trace_count {hit.trace_count}")
+    launches = dict(_kernels.LAUNCHES)
+    k2_err = max([max(b["max_abs_err"], b["unplaced_err"]) for b in builds] or [0])
+    log("programs", card=smi, launches=launches, **pool_counts(eng, pool_before),
+        k2_warmup_builds=len(builds), k2_max_abs_err=k2_err,
+        warm_total_ms=sum(warm_ms.values()))
+    if k2_err:
+        failures.append(f"K2 != plain on a warm-up's build (max |err| {k2_err})")
+    # each variant baked, uncached, after the counts were read: these
+    # runs are the yardstick, not the program path
+    before = dict(_kernels.LAUNCHES)
+    for q, (sql, hit) in variants.items():
+        off = eng.execute_statement(sql, baked.session)
+        same = hit.rows == off.rows
+        if not same:
+            failures.append(f"Q{q} variant: cached rows != uncached rows")
+        log("programs", card=smi, variant=f"Q{q}", equal_to_uncached=same,
+            rows=len(hit.rows), trace_count=hit.trace_count,
+            hits=hit.program_cache_hits)
+    log("programs", card=smi, uncached_variant_launches={
+        k: v - before.get(k, 0) for k, v in _kernels.LAUNCHES.items()})
+    # a batch of 8 literal variants of Q6 against the 8 run in sequence
+    # (Q6 below the streaming threshold: one program, which the batch replays)
+    sqls = [texts[6].replace("l_quantity < 24", f"l_quantity < {20 + i}")
+            for i in range(PROGRAM_BATCH)]
+    one = Session()
+    one.properties.update(runner.session.properties)
+    one.set("stream_scan_threshold_rows", 1 << 24)
+    seq = [eng.execute_statement(sql, one).rows for sql in sqls]
+    sessions = []
+    for _ in sqls:
+        sess = Session()
+        sess.properties.update(one.properties)
+        sess.set("batch_window_ms", 5000)
+        sess.set("batch_max_size", PROGRAM_BATCH)
+        sessions.append(sess)
+    out, errors = [None] * len(sqls), []
+
+    def member(i):
+        try:
+            out[i] = eng.execute_statement(sqls[i], sessions[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    before = dict(eng.batch_collector.dispatches)
+    threads = [threading.Thread(target=member, args=(i,)) for i in range(len(sqls))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    sizes = {k: v - before.get(k, 0) for k, v in eng.batch_collector.dispatches.items()
+             if v != before.get(k, 0)}
+    equal = not errors and [r.rows for r in out] == seq
+    log("programs", card=smi, batch=len(sqls), equal_to_sequential=equal,
+        batched=all(r is not None and r.batch_stats is not None for r in out),
+        dispatch_sizes=sizes, batch_ms=batch_ms, errors=errors,
+        batch_stats=[r.batch_stats for r in out if r is not None][:1])
+    if not equal:
+        failures.append("Q6 batch != sequential runs")
+    # idle share of a warm replay, beside the unfused uncached run
+    phase_profile(runner, {f"Q{q}": texts[q] for q in PROGRAM_IDLE_QUERIES},
+                  card=smi, path="programs")
+    eager = LocalQueryRunner(session=Session(), engine=eng)
+    for k, v in runner.session.properties.items():
+        eager.session.properties[k] = v
+    eager.session.set("pipeline_fusion", False)
+    eager.session.set("program_cache", False)
+    phase_profile(eager, {f"Q{q}": texts[q] for q in PROGRAM_IDLE_QUERIES},
+                  card=smi, path="eager")
+    log("programs", card=smi, phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("phase programs: " + "; ".join(failures))
     return launches, k2_err
 
 
@@ -1632,11 +1901,13 @@ def phase_surface(smi: str, runner) -> dict:
     t_phase = time.perf_counter()
     # the main path's run: every count starts at 0 here and is read after;
     # the K2 launches made to hold builds against plain are taken out
+    pool_before = pool_counts(runner.engine)
     _kernels.reset_counts()
     compare = {k: 0 for k in _kernels.LAUNCHES}
     # 1. SHOW
     res = surface_step(runner, "show_catalogs", "show catalogs", smi)
-    check(res.rows == [("blackhole",), ("memory",), ("tpcds",), ("tpch",)], f"catalogs {res.rows}")
+    check(res.rows == [("blackhole",), ("memory",), ("system",), ("tpcds",), ("tpch",)],
+          f"catalogs {res.rows}")
     res = surface_step(runner, "show_schemas", "show schemas from tpch", smi)
     check([r[0] for r in res.rows] == ["tiny", "sf1", "sf10", "sf100"], f"schemas {res.rows}")
     res = surface_step(runner, "show_tables", "show tables from tpch.sf1", smi)
@@ -1794,7 +2065,7 @@ def phase_surface(smi: str, runner) -> dict:
     check(f"output rows: {n_q3}" in lines, f"EXPLAIN ANALYZE does not count {n_q3} rows")
     launches = {k: _kernels.LAUNCHES[k] - compare[k] for k in compare}
     log("surface", card=smi, launches=launches, k2_builds_checked=builds_before,
-        seconds=time.perf_counter() - t_phase)
+        seconds=time.perf_counter() - t_phase, **pool_counts(runner.engine, pool_before))
     check(launches["dense_groupby"] >= 1 and launches["dense_join_build"] >= 1,
           f"launches {launches}")
     runner.engine.execute_statement("drop table memory.default.li1", runner.session)
@@ -1958,8 +2229,9 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
         runs += [(c, q) for c in ("orc", "ttp") for q in FILES_SIDE_QUERIES]
         sessions = {c: session(c, schema, stream_scan_threshold_rows=FILES_STREAM_THRESHOLD)
                     for c in ("pq", "orc", "ttp")}
+        pool_before = pool_counts(engine)
         _kernels.reset_counts()
-        failures, k2_runs = [], {}
+        failures, k2_runs, warm_medians, max_peak = [], {}, [], 0
         for catalog, q in runs:
             times, k2, ingest, peaks = [], [], [], []
             for _ in range(1 + FILES_WARM):
@@ -1975,6 +2247,9 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
                     failures.append(f"{catalog} Q{q}: {bad}")
                     break
             k2_runs[(catalog, q)] = k2[-1]
+            if len(times) > 1:
+                warm_medians.append(statistics.median(times[1:]))
+            max_peak = max([max_peak] + peaks)
             warm_h2d = [i["h2d_bytes"] for i in ingest[1:]]
             if any(warm_h2d):
                 failures.append(f"{catalog} Q{q}: warm runs copied {warm_h2d} bytes")
@@ -1986,7 +2261,8 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
                 peak_device_bytes_per_run=peaks,
                 joinStrategy=(res.exchange_stats or {}).get("joinStrategy"))
         launches = dict(_kernels.LAUNCHES)
-        log("files", card=smi, launches=launches)
+        log("files", card=smi, launches=launches, warm_total_ms=sum(warm_medians),
+            max_peak_device_bytes=max_peak, **pool_counts(engine, pool_before))
         if failures:
             raise AssertionError("files: " + "; ".join(failures))
         check(launches["dense_join_build"] > 0, "no K2 launch over the file catalogs")
@@ -2135,7 +2411,7 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
     failures, warm_ms, k2_runs, peaks = [], {}, {}, {}
     for q, sql in texts.items():
         want = answers["queries"][str(q)]
-        times, k1, k2, cache, retries, run_peaks = [], [], [], [], [], []
+        times, k1, k2, cache, retries, run_peaks, traces = [], [], [], [], [], [], []
         for _ in range(1 + warm):
             before = dict(_kernels.LAUNCHES)
             torch.cuda.synchronize()
@@ -2151,6 +2427,7 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
             cache.append([ing.get("table_cache_hits", 0),
                           ing.get("table_cache_misses", 0)])
             retries.append((res.exchange_stats or {}).get("overflow_retries"))
+            traces.append(res.trace_count)
             types = [t.name for t in res.column_types]
             bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"],
                                    want["order_by"])
@@ -2168,7 +2445,7 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
             matches_reference=bad is None, cold_ms=times[0],
             warm_median_ms=warm_ms[q], warm_ms=times[1:],
             k1_launches_per_run=k1, k2_launches_per_run=k2,
-            overflow_retries_per_run=retries,
+            overflow_retries_per_run=retries, trace_count_per_run=traces,
             table_cache_hits_misses_per_run=cache,
             joinStrategy=stats.get("joinStrategy"),
             peak_device_bytes=peaks[q], peak_device_bytes_per_run=run_peaks,
@@ -2249,6 +2526,7 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
         disk_cache=tpcds.disk_cache_stats())
     torch.cuda.empty_cache()
     texts = DS.queries(f"tpcds.{TPCDS_SCHEMA}")
+    pool_before = pool_counts(runner.engine)
     # the main path's run: every count starts at 0 here and is read after
     _kernels.reset_counts()
     warm_ms, k2_runs, peaks, failures = run_against_answers(
@@ -2270,7 +2548,8 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     failures += failures10
     launches = dict(_kernels.LAUNCHES)
     log("tpcds", card=smi, launches=launches,
-        warm_total_ms=sum(warm_ms.values()), table_cache=runner.engine.table_cache.snapshot())
+        warm_total_ms=sum(warm_ms.values()), table_cache=runner.engine.table_cache.snapshot(),
+        **pool_counts(runner.engine, pool_before))
     if failures:
         raise AssertionError("rows differ from the reference: " + "; ".join(failures))
     if launches["dense_join_build"] < 1:
@@ -2302,17 +2581,14 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
         **peak_attribution(runner, texts10[95], top=12, with_joins=True))
     # and its cold run (its cold peak is its query peak): the same run with
     # the capacities it grew forgotten, the cached tables kept
-    for key in [k for k in runner.engine.caps_store if k[0] == fingerprint_of(runner, texts10[95])]:
-        del runner.engine.caps_store[key]
+    runner.engine.drop_query_cache(fingerprint_of(runner, texts10[95]))
     log("peak", card=smi, query="Q95@sf10-cold",
         **peak_attribution(runner, texts10[95], top=12, with_joins=True))
     return launches, k2_err
 
 
 def fingerprint_of(runner, sql: str) -> str:
-    from trino_tpu_torch.engine import plan_fingerprint
-
-    return plan_fingerprint(runner.plan(sql))
+    return runner.engine.fingerprint(sql, runner.session)[0]
 
 
 def phase_spill_alone(smi: str) -> None:
@@ -2342,6 +2618,7 @@ def main() -> int:
         # a part of the script, for work on one phase: no result lines
         for name in sys.argv[2].split(","):
             {"tpch22": lambda smi: phase_tpch22(smi, tpch_sf1_runner(smi)),
+             "programs": lambda smi: phase_programs(smi, tpch_sf1_runner(smi)),
              "surface": lambda smi: phase_surface(smi, tpch_sf1_runner(smi)),
              "files": lambda smi: phase_files(smi, tpch_sf1_runner(smi)),
              "tpcds": phase_tpcds, "spill": phase_spill_alone}[name](smi)
@@ -2373,6 +2650,9 @@ def main() -> int:
     t22, t22_k2_err = phase_tpch22(smi, sf1_runner)
     if t22["dense_join_build"] < 1:
         raise AssertionError("the TPC-H queries launched no join-build kernel")
+    progs, progs_k2_err = phase_programs(smi, sf1_runner)
+    if progs["dense_join_build"] < 1:
+        raise AssertionError("the programs launched no join-build kernel")
     surface, surface_k1_err, surface_k2_err = phase_surface(smi, sf1_runner)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2390,7 +2670,8 @@ def main() -> int:
         "replaces": "trino_tpu/ops/dense_groupby.py:229",
         "launches": (sql_launches["dense_groupby"] + join_launches["dense_groupby"]
                      + spill_launches["dense_groupby"] + tpch_launches
-                     + t22["dense_groupby"] + surface["dense_groupby"]
+                     + t22["dense_groupby"] + progs["dense_groupby"]
+                     + surface["dense_groupby"]
                      + files["dense_groupby"] + ds["dense_groupby"]),
         "matches_plain": True,
         "max_abs_err": max(kern["max_abs_err"], surface_k1_err),
@@ -2405,11 +2686,13 @@ def main() -> int:
         "source": "trino_tpu_torch/csrc/dense_join_build.cu",
         "replaces": "trino_tpu/ops/dense_join.py:344",
         "launches": (join_launches["dense_join_build"] + spill_launches["dense_join_build"]
-                     + t22["dense_join_build"] + surface["dense_join_build"]
+                     + t22["dense_join_build"] + progs["dense_join_build"]
+                     + surface["dense_join_build"]
                      + files["dense_join_build"] + ds["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
-                           + [join_k2_err, t22_k2_err, surface_k2_err, files_k2_err,
+                           + [join_k2_err, t22_k2_err, progs_k2_err, surface_k2_err,
+                              files_k2_err,
                               ds_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],

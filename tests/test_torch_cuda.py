@@ -502,3 +502,34 @@ def test_synthetic_device_chunks_equal_the_host_path(cuda):
     assert chunk.columns[0].data.device.type == "cuda"
     host = conn.read_split("default", "events", ["k", "v"], last)
     assert host.num_rows == rows - off and chunk.to_pylist() == host.to_pylist()
+
+
+@pytest.mark.cuda
+def test_fused_q3_program_replays_literal_variants(cuda):
+    """TPC-H Q3 at ``tpch.tiny`` through the program cache: its cold run
+    captures its fragments' and fused units' CUDA graphs; two literal
+    variants then replay them, each whole run under
+    ``programs.checked_syncs`` (sync debug mode ``"error"`` but for the
+    counted host reads), each equal to the same text run eagerly with
+    the program cache off."""
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.exec.programs import checked_syncs
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    r = LocalQueryRunner(device=cuda)
+    r.session.set("execution_mode", "distributed")
+    eager = LocalQueryRunner(engine=r.engine)
+    eager.session.set("execution_mode", "distributed")
+    eager.session.set("program_cache", False)
+    sql = B.queries("tpch.tiny")[3]
+    before = r.engine.program_pool.captures
+    cold = r.engine.execute_statement(sql, r.session)
+    assert cold.trace_count >= 1 and r.engine.program_pool.captures > before
+    assert cold.exchange_stats.get("fusedFragments", 0) >= 2
+    for day in ("1995-03-08", "1995-03-22"):
+        variant = sql.replace("date '1995-03-15'", f"date '{day}'")
+        with checked_syncs(cuda):
+            hit = r.engine.execute_statement(variant, r.session)
+        want = r.engine.execute_statement(variant, eager.session)
+        assert hit.program_cache_hits >= 1
+        assert hit.rows == want.rows and hit.rows

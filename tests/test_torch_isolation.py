@@ -52,7 +52,8 @@ def test_port_imports_neither_jax_nor_reference():
                    "stats", "datetimefmt", "connectors.blackhole", "serde",
                    "formats.parquet", "formats.orc", "connectors.parquet",
                    "connectors.orc", "connectors.file", "connectors.synthetic",
-                   "connectors.diskcache"):
+                   "connectors.diskcache", "planner.serde", "planner.canonicalize",
+                   "events", "connectors.system", "exec.batching", "exec.programs"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 
@@ -164,6 +165,56 @@ def test_every_reference_handler_and_executor_has_a_counterpart():
         assert len(names) > 10
         missing += [n for n in names if not hasattr(port, n)]
     assert sorted(missing) == sorted(NOT_PORTED)
+
+
+# the program tier's modules and their reference counterparts; the port's
+# program (a CUDA graph of a unit's device work, exec/programs.py) has its
+# own module, where the reference's program is a jitted function kept in
+# trino_tpu/exec/fragments.py
+PROGRAM_TIER = {
+    "planner/serde.py": "trino_tpu/planner/serde.py",
+    "planner/canonicalize.py": "trino_tpu/planner/canonicalize.py",
+    "events.py": "trino_tpu/events.py",
+    "connectors/system.py": "trino_tpu/connectors/system.py",
+    "exec/batching.py": "trino_tpu/exec/batching.py",
+    "exec/programs.py": None,
+}
+
+# the reference FragmentedExecutor's run methods whose work the port does
+# under another name: its spans (obs/trace.py) are not ported, and its
+# batched K-unrolled programs are K replays of the one program here
+RUN_METHOD_COUNTERPARTS = {
+    "_run_fragment_spanned": "_run_fragment",
+    "_run_fragment_batched": "execute_batched",
+    "_run_fused_unit_batched": "execute_batched",
+    "run_fragment_program_batched": "_replay_batch",
+    "run_fused_program_batched": "_replay_batch",
+}
+# run methods that wait for the N-shard mesh (ROADMAP item 8b): the skew
+# and exchange paths; none of the reference's run methods is one today
+RUN_METHODS_FOR_8B: dict = {}
+
+
+def test_program_tier_modules_map_to_the_reference():
+    for port, ref in PROGRAM_TIER.items():
+        assert os.path.exists(os.path.join(REPO, "trino_tpu_torch", port)), port
+        if ref is not None:
+            assert os.path.exists(os.path.join(REPO, ref)), ref
+
+
+def test_every_reference_run_method_has_a_counterpart():
+    """Every ``_run_*``/``run_*`` method of the reference's
+    ``FragmentedExecutor`` exists in the port under its name, or under
+    the named counterpart, or waits for item 8b."""
+    from trino_tpu.exec.fragments import FragmentedExecutor as RefExecutor
+    from trino_tpu_torch.exec.fragments import FragmentedExecutor
+
+    names = [n for n in dir(RefExecutor) if n.startswith(("_run_", "run_"))]
+    assert len(names) >= 10
+    for name in names:
+        if name in RUN_METHODS_FOR_8B:
+            continue
+        assert hasattr(FragmentedExecutor, RUN_METHOD_COUNTERPARTS.get(name, name)), name
 
 
 def test_port_opens_no_data_path_of_the_reference(tmp_path):

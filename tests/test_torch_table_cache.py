@@ -1,5 +1,6 @@
 """The port's repairs of three faults against the JAX reference, on the
-CPU: capacities kept per plan fingerprint, and the device table cache.
+CPU: capacities kept per program-cache entry (canonical plan
+fingerprint), and the device table cache.
 
 - A join whose first capacities overflow (a build key repeated past the
   output capacity and the dense table's probe window) reruns its
@@ -28,7 +29,6 @@ from trino_tpu.testing import LocalQueryRunner as RefRunner
 from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import batch_from_numpy
 from trino_tpu_torch.connectors.api import ColumnSchema, TableSchema
-from trino_tpu_torch.engine import plan_fingerprint
 from trino_tpu_torch.testing import LocalQueryRunner
 
 # one intra-op thread: test processes run side by side (pytest-xdist), and
@@ -121,8 +121,11 @@ def test_capacities_do_not_leak_between_queries():
     assert alone_b[0][1] >= 1 and alone_b[1][1] == 0
     fresh_join = run(port_runner(), JOIN)
     assert after_a[0][:2] == fresh_join[:2]
-    assert plan_fingerprint(warm.plan(GROUPS_A)) != plan_fingerprint(warm.plan(GROUPS_B))
-    assert plan_fingerprint(warm.plan(JOIN)) == plan_fingerprint(fresh.plan(JOIN))
+    def fingerprint(r, sql):
+        return r.engine.fingerprint(sql, r.session)[0]
+
+    assert fingerprint(warm, GROUPS_A) != fingerprint(warm, GROUPS_B)
+    assert fingerprint(warm, JOIN) == fingerprint(fresh, JOIN)
 
 
 def test_table_cache_counts_as_the_reference(reference):
@@ -228,6 +231,52 @@ def test_a_rerun_releases_the_failed_attempt(monkeypatch):
 
     monkeypatch.setattr(F, "join_output", join_output)
     monkeypatch.setattr(F._FragmentTracer, "__init__", init)
-    rows, retries, _ = run(port_runner(), JOIN)
+    # one fragment a program: in a fused unit the join's output is the
+    # next member's input, alive when that member's tracer starts
+    r = port_runner()
+    r.session.set("pipeline_fusion", False)
+    rows, retries, _ = run(r, JOIN)
     assert retries >= 1 and len(alive_at_start) > 2 and outputs
     assert max(alive_at_start) == 0
+
+
+def test_a_fused_rerun_releases_the_failed_attempt(monkeypatch):
+    """The same leak on the default path, where the join's fragment is a
+    member of a fused unit. A join output belongs to a failed attempt
+    once a tracer of its fragment has started again; whenever a tracer
+    starts for a fragment that already ran (a rerun), every such output
+    must be gone. Outputs of earlier units, and of earlier members of the
+    running attempt, are legitimately alive and not counted."""
+    import weakref
+
+    from trino_tpu_torch.exec import fragments as F
+
+    # (index of the tracer that made it, weak reference) per join output;
+    # the fragment of each tracer, by index; the last index of a fragment
+    outputs, order, last, alive_at_rerun = [], [], {}, []
+    real_output, real_init = F.join_output, F._FragmentTracer.__init__
+
+    def join_output(*args, **kwargs):
+        res = real_output(*args, **kwargs)
+        outputs.extend((len(order) - 1, weakref.ref(c.data)) for c in res.batch.columns)
+        return res
+
+    def init(self, base, inputs, input_layouts, caps=None, fragment_id=0, *args, **kwargs):
+        rerun = fragment_id in last
+        last[fragment_id] = len(order)
+        order.append(fragment_id)
+        if rerun:
+            alive_at_rerun.append(sum(
+                w() is not None for i, w in outputs if last[order[i]] > i
+            ))
+        real_init(self, base, inputs, input_layouts, caps, fragment_id, *args, **kwargs)
+
+    monkeypatch.setattr(F, "join_output", join_output)
+    monkeypatch.setattr(F._FragmentTracer, "__init__", init)
+    r = port_runner()
+    assert r.session.get("pipeline_fusion")
+    rows, retries, _ = run(r, JOIN)
+    res = r.engine.execute_statement(JOIN, r.session)
+    assert res.rows == rows and res.exchange_stats["fusedFragments"] >= 2
+    assert retries >= 1 and alive_at_rerun and outputs
+    assert max(alive_at_rerun) == 0

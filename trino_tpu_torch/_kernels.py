@@ -14,7 +14,8 @@ which path it took. A count is one call of the kernel's C entry point, made
 where the wrapper launches it and nowhere else: one group-by for
 ``dense_groupby`` (one grid per launch group, one for every plan of the
 main path), one whole table build for ``dense_join_build`` (at most six
-launches on one stream).
+launches on one stream). A CUDA graph's replay launches the kernels its
+capture recorded and counts them as its capture did (:func:`count_replay`).
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ _ENTRY = {
     ),
 }
 
+# kernel name -> C function run once when the library loads (launch facts
+# that a launch inside a CUDA graph capture may not query)
+_INIT = {"dense_join_build": "tt_dense_join_build_init"}
+
 LAUNCHES: dict[str, int] = {name: 0 for name in _ENTRY}
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in _ENTRY}
 
@@ -63,6 +68,15 @@ def reset_counts() -> None:
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+
+
+def count_replay(launches: dict[str, int]) -> None:
+    """Count the kernel launches of one CUDA graph replay: a graph
+    (``exec/programs.py``) launches again every kernel its capture
+    recorded, without passing through the wrappers, so each replay adds
+    the launches its capture counted."""
+    for name, n in launches.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -137,6 +151,10 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            if name in _INIT:
+                init = getattr(lib, _INIT[name])
+                init.restype = ctypes.c_int
+                check(name, init())
             _loaded[name] = lib
     return lib
 

@@ -44,7 +44,7 @@ class Dictionary:
 
     Codes are dense int32; a NULL string has code -1."""
 
-    __slots__ = ("values", "_index", "_ranks")
+    __slots__ = ("values", "_index", "_ranks", "__weakref__")
 
     def __init__(self, values: Sequence[str]):
         self.values: list[str] = list(values)

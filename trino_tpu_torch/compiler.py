@@ -52,6 +52,7 @@ from trino_tpu_torch.columnar import Column, Dictionary, as_tensor, torch_dtype
 from trino_tpu_torch.ir import (
     Call,
     Constant,
+    HoistedConstant,
     InputRef,
     RowExpr,
     SpecialForm,
@@ -166,11 +167,42 @@ def _trunc_div(a, b):
     return torch.where((a >= 0) == (b >= 0), q, -q)
 
 
+def param_tensor(params, device) -> torch.Tensor | None:
+    """A canonical plan's hoisted literals, ``[(value, type), ...]``, as
+    one int64 tensor on ``device`` (floating values by their float64
+    bits), built once a query run: one host-to-device copy, from pinned
+    memory on a card. None when there are none."""
+    if not params:
+        return None
+    words = []
+    for v, t in params:
+        if torch_dtype(t.storage_dtype).is_floating_point:
+            words.append(torch.tensor([float(v)], dtype=torch.float64).view(torch.int64))
+        else:
+            words.append(torch.tensor([int(v)], dtype=torch.int64))
+    host = torch.cat(words)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
+def param_value(params: torch.Tensor, index: int, t: T.SqlType) -> torch.Tensor:
+    """Element ``index`` of a parameter tensor as a 0-d tensor of the
+    storage dtype of ``t``: equal to what ``torch.full`` would bake."""
+    dt = torch_dtype(t.storage_dtype)
+    w = params[index : index + 1]
+    if dt.is_floating_point:
+        return w.view(torch.float64).to(dt)[0]
+    return w.to(dt)[0]
+
+
 class ExprCompiler:
     """Evaluates a RowExpr tree over a batch's columns."""
 
     def __init__(self, columns: Sequence[Column], device,
-                 string_dictionary: Dictionary | None = None):
+                 string_dictionary: Dictionary | None = None,
+                 params: torch.Tensor | None = None):
         self.columns = list(columns)
         self.n = self.columns[0].capacity if self.columns else 1
         self.device = torch.device(device)
@@ -178,6 +210,11 @@ class ExprCompiler:
         # against it (the executor remaps the referenced string columns
         # into it first, see exec.local.unify_strings)
         self.string_dictionary = string_dictionary
+        # the query's parameter tensor (:func:`param_tensor`): a
+        # HoistedConstant reads its element on the device, so literal
+        # variants share one captured program (reference:
+        # trino_tpu/compiler.py:222-250)
+        self.params = params
 
     # -- entry points -----------------------------------------------------
     def evaluate(self, expr: RowExpr) -> Pair:
@@ -196,6 +233,18 @@ class ExprCompiler:
         if isinstance(expr, InputRef):
             c = self.columns[expr.channel]
             return c.data, c.valid_mask()
+        if isinstance(expr, HoistedConstant):
+            if self.params is not None:
+                data = param_value(self.params, expr.index, expr.type)
+                return data.expand(self.n), self._ones()
+            if expr.value is None:
+                # only reachable by executing a serde round-tripped
+                # canonical plan without its parameter tensor
+                raise ValueError(
+                    f"hoisted constant param[{expr.index}] evaluated "
+                    "without a parameter tensor"
+                )
+            # no parameter tensor: bake the kept value
         if isinstance(expr, Constant):
             if T.is_string(expr.type) and expr.value is not None:
                 if self.string_dictionary is None:
@@ -1040,7 +1089,9 @@ def _check_int_overflow(name, rt, a64, b64, r64, valid):
     else:
         same_sign = (a64 >= 0) == ((b64 >= 0) if name == "add" else (b64 < 0))
         bad = valid & same_sign & ((r64 >= 0) != (a64 >= 0))
-    if bool(bad.any()):
+    from trino_tpu_torch.exec.programs import defer_error
+
+    if not defer_error(f"{rt.name} overflow", bad.any()) and bool(bad.any()):
         raise ArithmeticError(f"{rt.name} overflow")
 
 

@@ -334,6 +334,28 @@ rounds_kernel(int2* wa, int2* wb, int* __restrict__ len, int window,
 
 }  // namespace
 
+// Per-process launch facts, set once by tt_dense_join_build_init when the
+// library loads: the SM count, the resident blocks of rounds_kernel a SM
+// holds (a grid barrier needs them all resident) and round 0's dynamic
+// shared memory raised to its largest window. None of these calls is made
+// at launch, so a build can be captured into a CUDA graph.
+static int g_sms = 0;
+static int g_rounds_per_sm = 0;
+
+extern "C" int tt_dense_join_build_init() {
+  int device = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) ||
+      (err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, device)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g_rounds_per_sm, rounds_kernel,
+                                                           kThreads, 0)) ||
+      (err = cudaFuncSetAttribute(round0_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)(kWindow * sizeof(int32_t)))))
+    return (int)err;
+  return 0;
+}
+
 // table: cap int32 out; work: 2 * max(n, 1) int2 scratch (the two
 // worklists); counts: window + 1 + 4 * 4096 int32, of which the first
 // window + 1 are out: counts[d] = rows entering round d (counts[0] = live
@@ -346,6 +368,7 @@ extern "C" int tt_dense_join_build(const void* base, const void* use, long long 
                                    void* stream) {
   if (n < 0 || n >= kProposal || cap < 1 || (cap & (cap - 1)) || window < 1)
     return (int)cudaErrorInvalidValue;
+  if (g_sms == 0) return (int)cudaErrorInitializationError;  // init not run
   cudaStream_t s = (cudaStream_t)stream;
   const uint32_t mask = (uint32_t)(cap - 1);
   // buckets of kWindow slots, at most kMaxBuckets; round 0 walks a wider
@@ -386,30 +409,26 @@ extern "C" int tt_dense_join_build(const void* base, const void* use, long long 
   scatter_kernel<<<sblocks, kThreads, 0, s>>>(nxt, len, mask, shift, (int)nb, cursor, cur);
   if ((err = cudaGetLastError())) return (int)err;
   const size_t smem = (size_t)win * sizeof(int32_t);
-  if ((err = cudaFuncSetAttribute(round0_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)))
-    return (int)err;
   round0_kernel<<<(int)nb, kRound0Threads, smem, s>>>(
       cur, start, (int)nb, (int)span, win, mask, tab, nxt, len + 1);
   if ((err = cudaGetLastError())) return (int)err;
   if (window > 1) {
     // as many blocks as are resident at once, as a grid barrier needs
-    int device = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&device)) ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rounds_kernel,
-                                                             kThreads, 0)))
-      return (int)err;
-    int rblocks = sms * per_sm < blocks ? sms * per_sm : blocks;
-    int32_t* tabp = tab;
-    int* lenp = len;
-    int win_arg = window;
-    uint32_t mask_arg = mask;
-    void* args[] = {&nxt, &cur, &lenp, &win_arg, &mask_arg, &tabp};
-    if ((err = cudaLaunchCooperativeKernel((const void*)rounds_kernel,
-                                           rblocks > 0 ? rblocks : 1, kThreads,
-                                           args, 0, s)))
+    const int resident = g_sms * g_rounds_per_sm;
+    const int rblocks = resident < blocks ? resident : blocks;
+    // the cooperative attribute of cudaLaunchKernelEx is what stream
+    // capture records as a cooperative kernel node
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(rblocks > 0 ? rblocks : 1);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, rounds_kernel, nxt, cur, len, window, mask, tab)))
       return (int)err;
   }
   return 0;

@@ -10,24 +10,30 @@ and prepared statements, under the reference's access control
 The ``tpch`` and ``tpcds`` catalogs generate their tables
 (``connectors/tpch.py``, ``connectors/tpcds.py``); ``memory`` tables are
 written by SQL (``connectors/memory.py``); ``blackhole`` discards writes.
-The engine keeps what outlives one query: the capacities earlier runs of
-a plan grew to (by plan fingerprint), the device table cache
-(``ingest.py``) and the memory pool (``memory.py``) that each query's
-memory context reserves from.
+The ``system`` catalog (``connectors/system.py``) reads the engine's
+runtime state; query events fire through an :class:`EventListenerManager`.
+The engine keeps what outlives one query: the program-cache entries (a
+distributed SELECT is canonicalized, ``planner/canonicalize.py``, and its
+entry, keyed by the canonical fingerprint, the catalogs' data versions
+and the access-control generation, holds the first plan object, the
+programs and the capacities every run of it grew to), the programs'
+shared graph pool (``exec/programs.py``), the batch collector
+(``exec/batching.py``), the device table cache (``ingest.py``) and the
+memory pool (``memory.py``) that each query's memory context reserves
+from.
 
-Not ported: the ``system`` catalog, query events and the runtime tables
-(ROADMAP item 6); the program cache, cross-query batching and the result
-cache (item 8); the cluster scheduler and scaled writers (item 9).
+Not ported: the result cache and the history store; the cluster
+scheduler, scaled writers and the server's stage and task state
+(ROADMAP item 9).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import hashlib
-import itertools
-import re
+import threading
 import time
+from collections import OrderedDict, deque
 from typing import Any, Optional
 
 import numpy as np
@@ -62,8 +68,9 @@ class StatementResult:
     dynamic_filters: int = 0
     # per-exchange counters of a distributed run; None for local runs
     exchange_stats: Optional[dict[str, Any]] = None
-    # programs traced / compile time: the port runs eagerly, so a query
-    # traces nothing and these stay 0
+    # the program cache (reference: CacheStatsMBean's counters): the
+    # capture (on a card) or warm-up (on the CPU) wall of the programs
+    # this run made, how many, and the stored programs it replayed
     compile_ms: float = 0.0
     trace_count: int = 0
     program_cache_hits: int = 0
@@ -73,15 +80,12 @@ class StatementResult:
     fragment_modes: Optional[dict[int, str]] = None
     # spilled operators by kind, partitions and host partitioning seconds
     spill_stats: Optional[dict[str, Any]] = None
-
-
-def plan_fingerprint(plan: P.PlanNode) -> str:
-    """Identity of an optimized plan: its printed text with the planner's
-    symbol counters stripped (``_123`` suffixes), hashed. Two runs of one
-    query text share it; plans that differ in shape or in a literal do
-    not. Stands in for ``planner/canonicalize.py`` until that is ported."""
-    text = re.sub(r"(?:_\d+)+\b", "_#", P.plan_text(plan))
-    return hashlib.sha1(text.encode()).hexdigest()
+    # cross-query batching (exec/batching.py): batchedQueries, batchSize,
+    # batchWaitMs of a query that shared its replays; None when alone
+    batch_stats: Optional[dict[str, Any]] = None
+    # in-program operator row flow: {stable_site: {kind, rows_in,
+    # rows_out}}; None when operator_stats is off or nothing ran a program
+    operator_stats: Optional[dict[str, Any]] = None
 
 
 # the reference's table-cache budget, sized for its 16 GiB pool; kept on
@@ -130,43 +134,296 @@ class Engine:
 
         self.transaction_manager = TransactionManager(self.catalogs)
         self.access_control = AccessControlManager()
-        # capacities grown by earlier runs, by (plan fingerprint, kind,
-        # fragment id): a repeat of a plan starts where its last run ended
-        self.caps_store: dict = {}
         # scanned tables kept on the device across queries (session
         # property ``table_cache``)
         self.table_cache = DeviceTableCache()
         self.memory_pool = MemoryPool(device_pool_bytes(self.device))
-        self._query_ids = itertools.count(1)
+        self._query_seq = 0
+        self._seq_lock = threading.Lock()
+        # observability (reference: QueryMonitor -> EventListenerManager;
+        # the system catalog's runtime tables)
+        from trino_tpu_torch.events import EventListenerManager
 
-    def execute_statement(self, sql: str, session: Session) -> StatementResult:
-        """Run one statement. A session inside an explicit transaction has
-        it validated and pinned for the statement's duration: an unknown or
-        expired id fails (and is cleared from the session), and a live one
-        is not idle-expired mid-statement (reference: engine.py:512-537)."""
-        txn_info = None
-        txn_id = session.properties.get("__txn")
-        if txn_id:
-            try:
-                txn_info = self.transaction_manager.get(txn_id)  # touches
-                txn_info.busy += 1
-            except Exception:
-                session.properties.pop("__txn", None)
-                raise
+        self.event_listeners = EventListenerManager()
+        self._recent_queries: "deque[dict]" = deque(maxlen=200)
+        from trino_tpu_torch.connectors.system import SystemConnector
+
+        self.catalogs.register("system", SystemConnector(self))
+        # program-cache entries by (canonical fingerprint, data versions,
+        # access-control generation), least recently used first
+        self._query_cache: "OrderedDict[tuple, dict]" = OrderedDict()
+        self._query_cache_lock = threading.Lock()
+        # every entry's programs: one shared graph memory pool
+        from trino_tpu_torch.exec.programs import ProgramPool
+
+        self.program_pool = ProgramPool(self.device)
+        # compatible queries (one entry, one session signature) share
+        # their replays when the session's batch_window_ms > 0
+        from trino_tpu_torch.exec.batching import BatchCollector
+
+        self.batch_collector = BatchCollector(self)
+
+    _QUERY_CACHE_MAX = 64
+    # statements whose results depend on evaluation time or randomness
+    # never reuse a cached plan; whole lexer identifiers, not substrings
+    _UNCACHEABLE_IDENTS = frozenset({
+        "random", "rand", "now", "uuid", "current_time", "current_date",
+        "current_timestamp", "localtime", "localtimestamp",
+    })
+
+    def _sql_cacheable(self, sql: str) -> bool:
+        from trino_tpu_torch.sql.lexer import SqlSyntaxError, tokenize
+
         try:
-            return self._dispatch_parsed(parse_statement(sql), session)
+            tokens = tokenize(sql)
+        except SqlSyntaxError:
+            return False  # the parser reports the real error, uncached
+        return not any(
+            tok.kind in ("IDENT", "KW") and tok.text.lower() in self._UNCACHEABLE_IDENTS
+            for tok in tokens
+        )
+
+    def _query_cache_entry(self, fingerprint: str) -> dict:
+        """The program-cache entry of a canonical fingerprint (reference:
+        ``trino_tpu/engine.py:200-228``). The key adds what the
+        fingerprint cannot see: the catalogs' data versions (dictionaries
+        and string truth tables are fixed in a captured program, so new
+        data must capture again) and the access-control generation. An
+        entry holds the first plan object, the program store (the
+        fragmented subplan, the fused units, every ``_Caps`` and every
+        program) and a lock; the map keeps the ``_QUERY_CACHE_MAX`` most
+        recently used entries."""
+        versions = tuple(
+            (name, getattr(self.catalogs.get(name), "_version", 0))
+            for name in sorted(self.catalogs.names())
+        )
+        key = (fingerprint, versions, self.access_control.generation)
+        with self._query_cache_lock:
+            entry = self._query_cache.get(key)
+            if entry is None:
+                entry = {"plan": None, "programs": {}, "lock": threading.Lock()}
+                self._query_cache[key] = entry
+                while len(self._query_cache) > self._QUERY_CACHE_MAX:
+                    _, old = self._query_cache.popitem(last=False)
+                    self._drop_programs(old["programs"])
+            else:
+                self._query_cache.move_to_end(key)
+        return entry
+
+    def drop_query_cache(self, fingerprint: str) -> int:
+        """Forget every entry of ``fingerprint`` (its programs and the
+        capacities its runs grew to); returns how many went."""
+        with self._query_cache_lock:
+            keys = [k for k in self._query_cache if k[0] == fingerprint]
+            for k in keys:
+                self._drop_programs(self._query_cache.pop(k)["programs"])
+        return len(keys)
+
+    def _drop_programs(self, programs: dict) -> None:
+        from trino_tpu_torch.exec.programs import Program
+
+        for val in programs.values():
+            if isinstance(val, Program):
+                self.program_pool.forget(val)
+
+    def fingerprint(self, sql: str, session: Session) -> tuple[Optional[str], list]:
+        """Canonical-plan fingerprint and hoisted parameters of a SELECT,
+        None for an uncacheable statement (reference ``:892``)."""
+        from trino_tpu_torch.planner.canonicalize import canonicalize_plan
+
+        stmt = parse_statement(sql)
+        if not isinstance(stmt, t.Query) or not self._sql_cacheable(sql):
+            return None, []
+        _, params, fp = canonicalize_plan(self.plan(stmt, session), session, 1)
+        return fp, params
+
+    # --- runtime introspection (the system connector's backends) ----------
+
+    def _next_query_id(self) -> str:
+        with self._seq_lock:
+            self._query_seq += 1
+            return f"q{self._query_seq}"
+
+    def runtime_queries(self) -> list[dict]:
+        out = []
+        for rec in list(self._recent_queries):
+            rec = dict(rec)
+            if rec["state"] == "RUNNING":
+                rec["elapsedTimeMillis"] = int((time.monotonic() - rec["_start"]) * 1000)
+            rec.pop("_start", None)
+            out.append(rec)
+        return out
+
+    def runtime_nodes(self) -> list[tuple]:
+        """One node: this engine on its device."""
+        return [("local", "local://", "trino-tpu-0.1", True, "ACTIVE")]
+
+    def runtime_tasks(self) -> list[dict]:
+        """Worker tasks belong to the cluster (ROADMAP item 9): none."""
+        return []
+
+    def runtime_metrics(self) -> list[tuple]:
+        """The metrics registry belongs to the server (ROADMAP item 9):
+        no rows."""
+        return []
+
+    def runtime_history(self) -> list[dict]:
+        """The history store is not ported: no rows, as the reference
+        gives with ``query_history`` off."""
+        return []
+
+    def runtime_programs(self) -> list[dict]:
+        """One row a stored program (reference ``:284``): its entry's
+        fingerprint and store counters, and on a card the graph pool's
+        reserved bytes after its capture (``peak_hbm_bytes``). The XLA
+        cost columns (flops, bytes accessed) have no counterpart: None."""
+        from trino_tpu_torch.exec.programs import Program
+
+        with self._query_cache_lock:
+            items = [(key[0], entry["programs"]) for key, entry in self._query_cache.items()]
+        rows = []
+        for fingerprint, programs in items:
+            stats = programs.get("__stats__") or {}
+            for val in list(programs.values()):
+                if not isinstance(val, Program):
+                    continue
+                rows.append({
+                    "fingerprint": fingerprint,
+                    "program": val.label,
+                    "hits": int(stats.get("hits", 0)),
+                    "misses": int(stats.get("misses", 0)),
+                    "compile_ms": float(stats.get("compile_ms", 0.0)),
+                    "flops": None,
+                    "peak_hbm_bytes": val.pool_bytes,
+                    "bytes_accessed": None,
+                })
+        return rows
+
+    def execute_statement(self, sql: str, session: Session,
+                          query_id: Optional[str] = None,
+                          fire_events: bool = True) -> StatementResult:
+        """Run one statement (reference ``:463``): a query record for
+        ``system.runtime.queries`` and the created and completed events.
+        A session inside an explicit transaction has it validated and
+        pinned for the statement's duration: an unknown or expired id
+        fails (and is cleared from the session), and a live one is not
+        idle-expired mid-statement."""
+        from trino_tpu_torch.events import QueryCompletedEvent, QueryCreatedEvent
+
+        qid = query_id or self._next_query_id()
+        t0 = time.time()
+        t0m = time.monotonic()
+        if fire_events:
+            self.event_listeners.fire_created(QueryCreatedEvent(qid, sql, session.user, t0))
+        record = {
+            "queryId": qid, "state": "RUNNING", "user": session.user,
+            "source": session.source, "query": sql, "elapsedTimeMillis": 0,
+            "peakMemoryBytes": 0, "outputRows": 0, "_start": t0m,
+        }
+        self._recent_queries.append(record)
+        error: Optional[str] = None
+        exc: Optional[BaseException] = None
+        res: Optional[StatementResult] = None
+        txn_info = None
+        try:
+            txn_id = session.properties.get("__txn")
+            if txn_id:
+                try:
+                    txn_info = self.transaction_manager.get(txn_id)  # touches
+                    txn_info.busy += 1
+                except Exception:
+                    session.properties.pop("__txn", None)
+                    raise
+            res = self._dispatch_parsed(parse_statement(sql), session, qid, sql_text=sql)
+            return res
+        except Exception as e:  # noqa: BLE001
+            error, exc = str(e), e
+            raise
         finally:
             if txn_info is not None:
                 txn_info.busy -= 1
                 txn_info.last_access = time.time()
+            wall = time.monotonic() - t0m
+            record["state"] = "FINISHED" if error is None else "FAILED"
+            record["elapsedTimeMillis"] = int(wall * 1000)
+            if res is not None:
+                record["peakMemoryBytes"] = res.peak_memory_bytes
+                record["outputRows"] = len(res.rows)
+            if fire_events:
+                err_code = err_type = None
+                if exc is not None:
+                    from trino_tpu_torch.errors import classify_error
 
-    def _dispatch_parsed(self, stmt: t.Node, session: Session) -> StatementResult:
+                    err_code, _, err_type = classify_error(exc)
+                self.event_listeners.fire_completed(QueryCompletedEvent(
+                    qid, sql, session.user, t0, time.time(), record["state"],
+                    output_rows=record["outputRows"],
+                    peak_memory_bytes=record["peakMemoryBytes"],
+                    error_message=error, wall_seconds=wall,
+                    error_code=err_code, error_type=err_type,
+                ))
+
+    def _dispatch_parsed(self, stmt: t.Node, session: Session,
+                         query_id: Optional[str] = None,
+                         sql_text: Optional[str] = None) -> StatementResult:
         handler = getattr(self, f"_do_{type(stmt).__name__.lower()}", None)
         if handler is not None:
             return handler(stmt, session)
         if isinstance(stmt, t.Query):
-            return self._execute_query_plan(self.plan(stmt, session), session)
+            return self._run_query(stmt, session, query_id, sql_text)
         raise SemanticError(f"unsupported statement: {type(stmt).__name__}")
+
+    def _run_query(self, stmt: t.Query, session: Session,
+                   query_id: Optional[str], sql_text: Optional[str]) -> StatementResult:
+        """A SELECT (reference ``:768-890``): planned every time; in
+        distributed mode with the program cache on, canonicalized, so the
+        canonical fingerprint (not the text) picks the entry whose
+        programs it runs, its hoisted literals riding the parameter
+        tensor. A second concurrent run of one entry runs uncached."""
+        plan = self.plan(stmt, session)
+        exec_plan, params, entry = plan, [], None
+        if (
+            sql_text is not None
+            and session.get("execution_mode") == "distributed"
+            and session.get("fragment_execution")
+            and bool(session.get("program_cache"))
+            and self._sql_cacheable(sql_text)
+        ):
+            from trino_tpu_torch.planner.canonicalize import canonicalize_plan
+
+            canonical, params, fp = canonicalize_plan(plan, session, 1)
+            if fp is not None:
+                exec_plan = canonical
+                entry = self._query_cache_entry(fp)
+            else:
+                params = []  # unserializable shape: run baked, uncached
+        if (
+            entry is not None
+            and int(session.get("batch_window_ms")) > 0
+            and "__txn" not in session.properties
+        ):
+            return self.batch_collector.submit(
+                entry, exec_plan, session, params, query_id or self._next_query_id()
+            )
+        # a store and its capacities serve one executor at a time
+        if entry is not None and not entry["lock"].acquire(blocking=False):
+            entry = None
+            exec_plan, params = plan, []
+        try:
+            programs = None
+            if entry is not None:
+                if entry["plan"] is None:
+                    entry["plan"] = exec_plan
+                # the FIRST plan object of the fingerprint: its node
+                # identities name the programs and capacity sites
+                exec_plan = entry["plan"]
+                programs = entry["programs"]
+            return self._execute_query_plan(
+                exec_plan, session, query_id=query_id, programs=programs, params=params,
+            )
+        finally:
+            if entry is not None:
+                entry["lock"].release()
 
     def plan(self, stmt: t.Node, session: Session) -> P.PlanNode:
         from trino_tpu_torch.planner.optimizer import optimize
@@ -176,42 +433,85 @@ class Engine:
 
     # === DQL ==============================================================
 
-    def _execute_query_plan(
-        self, plan: P.PlanNode, session: Session, collector=None
-    ) -> StatementResult:
-        ctx = QueryMemoryContext(
-            self.memory_pool, f"q{next(self._query_ids)}",
+    def _memory_ctx(self, session: Session, query_id: Optional[str]) -> QueryMemoryContext:
+        return QueryMemoryContext(
+            self.memory_pool, query_id or self._next_query_id(),
             max_bytes=int(session.get("query_max_memory_bytes")),
         )
+
+    def _result(self, executor, batch: Batch, names, ctx, **extra) -> StatementResult:
+        snap = getattr(executor, "exchange_stats_snapshot", None)
+        exchange_stats = snap() if callable(snap) else None
+        cs = getattr(executor, "compile_stats", None) or {}
+        from trino_tpu_torch.exec.programs import allow_sync
+
+        with allow_sync(batch.device):  # the result's read
+            rows = batch.to_pylist()
+        return StatementResult(
+            rows,
+            list(names),
+            [c.type for c in batch.columns],
+            peak_memory_bytes=ctx.peak_bytes,
+            dynamic_filters=len(executor.dynamic_filters),
+            exchange_stats=exchange_stats,
+            compile_ms=round(float(cs.get("compile_ms", 0.0)), 3),
+            trace_count=int(cs.get("trace_count", 0)),
+            program_cache_hits=int(cs.get("program_cache_hits", 0)),
+            program_cache_misses=int(cs.get("program_cache_misses", 0)),
+            fragment_modes=dict(getattr(executor, "fragment_modes", {}) or {}) or None,
+            ingest_stats=dict(executor.ingest_stats) or None,
+            spill_stats=dict(executor.spill_stats) or None,
+            operator_stats=(exchange_stats or {}).get("operators"),
+            **extra,
+        )
+
+    def _execute_query_plan(
+        self, plan: P.PlanNode, session: Session, collector=None,
+        query_id: Optional[str] = None, programs: Optional[dict] = None,
+        params: Optional[list] = None,
+    ) -> StatementResult:
+        ctx = self._memory_ctx(session, query_id)
         try:
-            executor = self._executor(session, plan, ctx)
+            executor = self._executor(session, ctx, programs=programs, params=params)
             executor.stats_collector = collector
             batch, names = executor.execute(plan)
         finally:
             ctx.close()
-        return StatementResult(
-            batch.to_pylist(),
-            names,
-            [c.type for c in batch.columns],
-            peak_memory_bytes=ctx.peak_bytes,
-            dynamic_filters=len(executor.dynamic_filters),
-            exchange_stats=dict(getattr(executor, "exchange_stats", {}) or {})
-            or None,
-            fragment_modes=dict(getattr(executor, "fragment_modes", {}) or {})
-            or None,
-            ingest_stats=dict(executor.ingest_stats) or None,
-            spill_stats=dict(executor.spill_stats) or None,
-        )
+        return self._result(executor, batch, names, ctx)
 
-    def _executor(self, session: Session, plan: P.PlanNode,
-                  ctx: Optional[QueryMemoryContext] = None) -> LocalExecutor:
+    def _execute_query_plan_batched(
+        self, plan: P.PlanNode, session: Session, query_ids: list[str],
+        param_lists: list[list], programs: Optional[dict] = None,
+    ) -> list[StatementResult]:
+        """K literal variants of one cached plan as K replays of its
+        programs, one host read a program for the group (reference
+        ``:1009``); one memory context and executor serve the batch.
+        Raises ``BatchUnsupported``, or any execution error, for
+        ``exec/batching.py`` to run the members one after the other."""
+        from trino_tpu_torch.exec.fragments import BatchUnsupported, FragmentedExecutor
+
+        ctx = self._memory_ctx(session, query_ids[0])
+        try:
+            executor = self._executor(session, ctx, programs=programs, params=param_lists[0])
+            if not isinstance(executor, FragmentedExecutor):
+                raise BatchUnsupported("fragment execution disabled")
+            batches, names = executor.execute_batched(plan, param_lists)
+        finally:
+            ctx.close()
+        return [self._result(executor, b, names, ctx) for b in batches]
+
+    def _executor(self, session: Session, ctx: Optional[QueryMemoryContext] = None,
+                  programs: Optional[dict] = None,
+                  params: Optional[list] = None) -> LocalExecutor:
         mode = session.get("execution_mode")
         if mode == "distributed" and session.get("fragment_execution"):
             from trino_tpu_torch.exec.fragments import FragmentedExecutor
 
             return FragmentedExecutor(
                 self.catalogs, session, self.device,
-                caps_store=self.caps_store, fingerprint=plan_fingerprint(plan),
+                programs=programs, params=params,
+                # programs are captured only into an entry's store
+                pool=self.program_pool if programs is not None else None,
                 table_cache=self.table_cache,
                 table_cache_bytes=table_cache_budget(
                     session, self.memory_pool, self.device
@@ -238,12 +538,9 @@ class Engine:
     def _run_query_rows(self, query: t.Query, session: Session) -> tuple[Batch, list[str]]:
         """A query's rows as one host batch (the input of a write)."""
         plan = self.plan(query, session)
-        ctx = QueryMemoryContext(
-            self.memory_pool, f"q{next(self._query_ids)}",
-            max_bytes=int(session.get("query_max_memory_bytes")),
-        )
+        ctx = self._memory_ctx(session, None)
         try:
-            return self._executor(session, plan, ctx).execute(plan)
+            return self._executor(session, ctx).execute(plan)
         finally:
             ctx.close()
 
@@ -292,8 +589,9 @@ class Engine:
         plan with each node's wall time, rows and bytes (local runs), the
         fragments' records and capacity sites (distributed runs), then the
         query's peak memory, dynamic filters, output rows and wall time.
-        The reference's device-program and operator-counter sections wait
-        for the profiler and the fused path (ROADMAP items 8 and 9)."""
+        Distributed runs add the operator section: each site's rows in and
+        out, read with the programs' flags. The reference's device-program
+        section (XLA cost analysis) has no counterpart."""
         from trino_tpu_torch import stats as S
 
         if getattr(stmt, "analyze", False):
@@ -309,6 +607,8 @@ class Engine:
             caps = (res.exchange_stats or {}).get("capacities")
             if isinstance(caps, dict) and caps:
                 text += "\n\n" + S.render_capacity_stats(caps)
+            if res.operator_stats:
+                text += "\n\n" + S.render_operator_stats(res.operator_stats)
             wall_ms = collector.total_wall() * 1000
             text += (
                 f"\n\npeak memory: {res.peak_memory_bytes} bytes"

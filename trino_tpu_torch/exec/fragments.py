@@ -6,34 +6,44 @@ run leaves first, each consumer reading its producers' results through
 ``RemoteSource`` nodes. This engine runs on a mesh of one device, so
 every exchange (hash, broadcast, gather) is the identity.
 
+With ``pipeline_fusion`` on, exchange-connected fragments group into
+fused units (``fuse_groups``, the reference's grouping); a unit, or a
+fragment alone, whose nodes all run as device work at fixed capacities
+(``fragment_fusable``) is one program (``exec/programs.py``): on a card a
+CUDA graph of its device work, kept across queries in the store of the
+query's program-cache entry under its key and capacity signature, and
+replayed by later runs and literal variants (the hoisted literals ride a
+parameter tensor). A unit's member fragments run back to back and nothing
+is read on the host between them; all its overflow flags, match counts
+and operator row counters come back in one host read a run. A fired flag
+grows its site and the unit runs again (at most 12 times); an
+out-of-memory evicts the pool's least recently used programs, then
+halves every capacity.
+
 A scan→(filter|project|join)*→aggregate fragment over a large table streams
 (``exec/streaming.py``: the dense group-by kernel over the device-resident
 slab, else the sort-based chunk step over the slab or host chunks, under
 its own overflow retry; the joins on its probe spine build their tables
-once and probe them with every chunk). Otherwise the fragment runs
-materialized through :class:`_FragmentTracer`: completed build fragments
-first prune its probe scans (dynamic filtering), then its joins run the
-dense open-addressing tier (``ops/dense_join.py``, whose build is kernel
-K2) or the sort tier, with fixed output capacities. Every capacity site
-reports an overflow flag; the fragment reads all its flags in one host
-read, grows each fired site (``_Caps``) and runs again, at most 12 times.
+once and probe them with every chunk). Completed build fragments prune a
+fragment's probe scans first (dynamic filtering); its joins run the dense
+open-addressing tier (``ops/dense_join.py``, whose build is kernel K2) or
+the sort tier, with fixed output capacities.
 
-Nodes the reference's fused path does not trace run the local executor's
-version inside the fragment: CROSS joins other than a scalar subquery,
-LEFT joins with a non-equi ON filter (both through the sort tier),
-windows, DISTINCT and set operations (the reference interprets a query
-with any of them whole). FULL OUTER equi-joins trace: the probe runs as a
-LEFT join that carries each build row's id, and the build rows no probe
-row matched are appended after it.
+Nodes the program path does not take (the reference's fused path does
+not trace them either) make their fragment run eagerly through
+:class:`_FragmentTracer`, with the local executor's version of the node:
+CROSS joins other than a scalar subquery, LEFT joins with a non-equi ON
+filter, windows, DISTINCT and set operations. FULL OUTER equi-joins
+trace: the probe runs as a LEFT join that carries each build row's id,
+and the build rows no probe row matched are appended after it.
 
 A join site sizes its output to its matches on its first run (one host
-read) and keeps that capacity; later runs of the same plan read nothing.
-Capacities and the device table cache outlive the query (see
-:class:`FragmentedExecutor`).
+read) and keeps that capacity; an aggregate site first holds its input's
+rows, then the groups it counted. Capacities, programs and the device
+table cache outlive the query (see :class:`FragmentedExecutor`).
 
-Not ported yet: fused multi-fragment programs, cross-query program
-caching and batching, the history store, skew handling and operator
-counters.
+Not ported yet: the history store and the N-shard mesh's skew handling
+and exchange counters (ROADMAP item 8b).
 """
 
 from __future__ import annotations
@@ -44,25 +54,36 @@ from typing import Optional
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.columnar import Batch, Column, bucket_capacity
+from trino_tpu_torch.columnar import Batch, Column, bucket_capacity, torch_dtype
 from trino_tpu_torch.exec.local import (
     SCALAR_ROWS_ERROR,
     ExecutionError,
     LocalExecutor,
     Result,
+    acc_columns,
     agg_inputs_for,
     append_unmatched_build,
     bound_filter_mask,
     check_join_ported,
+    finalize_aggs,
     flipped_right_join,
     join_output,
     mark_column,
+    rank_codes,
     with_mark,
 )
+from trino_tpu_torch.ops.aggregation import AggSpec, group_aggregate
 from trino_tpu_torch.ops import join as J
 from trino_tpu_torch.ops.sort import sort_indices
 from trino_tpu_torch.planner import plan as P
-from trino_tpu_torch.planner.fragmenter import PlanFragment, SubPlan, fragment_plan
+from trino_tpu_torch.planner.fragmenter import (
+    FusedFragment,
+    PlanFragment,
+    SubPlan,
+    filtered_broadcast_fids,
+    fragment_plan,
+    fuse_groups,
+)
 
 MAX_ATTEMPTS = 12
 
@@ -102,6 +123,8 @@ def grow_or_raise(name: str, caps: "_Caps", needed: Optional[int] = None) -> Non
     least ``needed`` slots when the site counted what it needed); ``err!``
     names are data-dependent runtime errors and fail the query."""
     if name.startswith("err!"):
+        if name.endswith(" overflow"):
+            raise ArithmeticError(name[4:])
         raise ExecutionError(name[4:])
     caps.grow(name, 4 if name.startswith(("agg", "spill", "hot")) else 2)
     if needed is not None and needed > caps.vals[name]:
@@ -208,7 +231,7 @@ class _FragmentTracer(LocalExecutor):
     def __init__(self, base: LocalExecutor, inputs, input_layouts,
                  caps: Optional[_Caps] = None, fragment_id: int = 0,
                  root: Optional[P.PlanNode] = None,
-                 builds: Optional[dict] = None):
+                 builds: Optional[dict] = None, params=None):
         super().__init__(base.catalogs, base.session, base.device)
         self._inputs = inputs
         self._input_layouts = input_layouts
@@ -218,10 +241,23 @@ class _FragmentTracer(LocalExecutor):
         self.overflows: list[tuple[str, torch.Tensor]] = []
         # output sites' match counts: an overflowed site grows to fit them
         self.needed: dict[str, torch.Tensor] = {}
+        # operator row counters (reference: the op! channel): read with
+        # the flags, so they cost no host read of their own
+        self.counters: list[tuple[str, torch.Tensor]] = []
+        self._op_enabled = bool(base.session.get("operator_stats"))
+        self._op_rowcounts: dict[int, torch.Tensor] = {}
+        # the parameter tensor of the program's inputs, else the query's
+        self.params = params if params is not None else base.params
+        # per node: its ordinal among the fragment's nodes of its kind
+        # (joins, aggregates, scans, filters), which names its sites
         self._ordinals: dict[int, int] = {}
         if root is not None:
-            joins = [n for n in P.walk_plan(root) if isinstance(n, P.Join)]
-            self._ordinals = {id(n): k for k, n in enumerate(joins)}
+            seen: dict[type, int] = {}
+            for n in P.walk_plan(root):
+                if isinstance(n, (P.Join, P.Aggregate, P.TableScan, P.Filter)):
+                    k = seen.get(type(n), 0)
+                    self._ordinals[id(n)] = k
+                    seen[type(n)] = k + 1
         # join builds by node, shared by the chunk tracers of one stream
         # attempt (exec/streaming.py) so each join builds its table once;
         # None: every join builds its own. Shared builds keep their key
@@ -236,7 +272,140 @@ class _FragmentTracer(LocalExecutor):
         key = id(node)
         if key not in self._memo:
             self._memo[key] = super()._exec(node)
+            self._op_count(node)
         return self._memo[key]
+
+    # --- operator telemetry (reference: _op_rows/_op_count) ---------------
+
+    def _op_rows(self, node: P.PlanNode) -> torch.Tensor:
+        """The selected-row count of a memoized node result, once a node."""
+        key = id(node)
+        r = self._op_rowcounts.get(key)
+        if r is None:
+            r = self._memo[key].batch.selection_mask().sum().to(torch.int64)
+            self._op_rowcounts[key] = r
+        return r
+
+    def _op_count(self, node: P.PlanNode) -> None:
+        """Rows into and out of an aggregate, join, scan or filter, under
+        its restart-stable site (``agg@3#0``), as two counters."""
+        if not self._op_enabled:
+            return
+        if isinstance(node, P.Aggregate):
+            kind = {"partial": "partial-agg", "final": "final-agg"}.get(node.step, "agg")
+            site = self._site("agg", node)
+        elif isinstance(node, P.Join):
+            semi = node.join_type in ("SEMI", "ANTI")
+            kind = "semijoin" if semi else "join"
+            site = self._site("join", node)
+        elif isinstance(node, P.TableScan):
+            kind, site = "scan", self._site("scan", node)
+        elif isinstance(node, P.Filter):
+            kind, site = "filter", self._site("filter", node)
+        else:
+            return
+        if id(node) not in self._ordinals:
+            return  # a rewrite's node (a flipped RIGHT join)
+        sources = [] if isinstance(node, P.TableScan) else list(node.sources)
+        if sources and all(id(s) in self._memo for s in sources):
+            rows_in = self._op_rows(sources[0])
+            for s in sources[1:]:
+                rows_in = rows_in + self._op_rows(s)
+        else:
+            rows_in = self._op_rows(node)
+        self.counters.append((f"op!{kind}!in!{site}", rows_in))
+        self.counters.append((f"op!{kind}!out!{site}", self._op_rows(node)))
+
+    # --- aggregates: fixed capacities, no host reads -----------------------
+
+    def _exec_aggregate(self, node: P.Aggregate) -> Result:
+        """GROUP BY at a fixed group capacity (the ``agg@fid#k`` site):
+        groups past it are dropped and the overflow flag set, and the
+        counted groups size the rerun (reference: the traced
+        ``_agg_partial``/``_agg_final``/``_agg_single``). Output rows past
+        the group count are unselected. A global aggregate, an
+        ``array_agg`` or a spilled one runs the local step."""
+        res = self._exec(node.source)
+        if not node.group_keys or any(
+            fn.kind == "array_agg" for _, fn in node.aggregates
+        ):
+            return LocalExecutor._exec_aggregate(self, node)
+        site = self._site("agg", node)
+        sel = res.batch.selection_mask()
+        if node.step == "final":
+            inputs, specs, sdicts, fold = self._final_inputs(node, res)
+        else:
+            inputs, specs, sdicts = self._agg_inputs(node, res)
+            fold = None
+        cap = self.caps.get(site, bucket_capacity(min(sel.shape[0], 1 << 12), minimum=1))
+        keys = [res.opt_pair(k) for k in node.group_keys]
+        (kd, kv), raw, ng, overflow = group_aggregate(keys, sel, inputs, specs, cap)
+        self.overflows.append((site, overflow))
+        self.needed[site] = ng
+        cols = [
+            Column(k.type, kd[i].to(torch_dtype(k.type.storage_dtype)), kv[i],
+                   res.column(k).dictionary)
+            for i, k in enumerate(node.group_keys)
+        ]
+        if node.step == "partial":
+            acc_cols, acc_layout = acc_columns(node, raw, len(cols), sdicts)
+            layout = {k.name: i for i, k in enumerate(node.group_keys)}
+            layout.update(acc_layout)
+            cols += acc_cols
+        else:
+            if fold is not None:
+                raw = fold([r[0] if isinstance(r, tuple) else r for r in raw])
+            cols += finalize_aggs(node, raw, sdicts)
+            layout = {s.name: i for i, s in enumerate(node.output_symbols)}
+        live = torch.arange(cap, device=sel.device) < ng
+        return Result(Batch(cols, cap, live, self.device), layout)
+
+    @staticmethod
+    def _final_inputs(node: P.Aggregate, res: Result):
+        """The FINAL step's combine inputs over the partials' accumulator
+        columns and the fold of their results back to (value, count)
+        pairs (``LocalExecutor._aggregate_final``'s)."""
+        combine_inputs: list = []
+        combine_specs: list = []
+        sdicts: list = []
+        for (vsym, csym), (_, fn) in zip(node.acc_symbols, node.aggregates):
+            vcol = res.column(vsym)
+            sdicts.append(None)
+            if fn.kind in ("count", "count_star"):
+                combine_inputs.append((vcol.data, vcol.valid))
+                combine_specs.append(AggSpec("sum"))
+                continue
+            ccol = res.column(csym)
+            if vcol.dictionary is not None and fn.kind in ("min", "max"):
+                sdicts[-1] = vcol.dictionary
+                combine_inputs.append((
+                    rank_codes(vcol.dictionary, vcol.data),
+                    (ccol.data > 0) & (vcol.data >= 0),
+                ))
+                combine_specs.append(AggSpec(fn.kind))
+                combine_inputs.append((ccol.data, ccol.valid))
+                combine_specs.append(AggSpec("sum"))
+                continue
+            combine_inputs.append((vcol.data, ccol.data > 0))
+            if fn.kind in ("sum", "avg"):
+                combine_specs.append(AggSpec("sum128w" if vcol.data.ndim == 2 else "sum"))
+            else:
+                combine_specs.append(AggSpec(fn.kind))
+            combine_inputs.append((ccol.data, ccol.valid))
+            combine_specs.append(AggSpec("sum"))
+
+        def fold(raw):
+            out, j = [], 0
+            for _, fn in node.aggregates:
+                if fn.kind in ("count", "count_star"):
+                    out.append(raw[j])
+                    j += 1
+                else:
+                    out.append((raw[j], raw[j + 1]))
+                    j += 2
+            return out
+
+        return combine_inputs, combine_specs, sdicts, fold
 
     def _exec_tablescan(self, node: P.TableScan) -> Result:
         key = f"scan{id(node)}"
@@ -398,7 +567,7 @@ class _FragmentTracer(LocalExecutor):
         result = join_output(node, left, right, out_cols, cap, out_sel)
         if node.filter is not None:  # INNER only: LEFT took the local path
             expr = self._bind(node.filter, result.layout)
-            mask = bound_filter_mask(expr, result.batch.columns, self.device)
+            mask = bound_filter_mask(expr, result.batch.columns, self.device, self.params)
             result = Result(
                 Batch(result.batch.columns, cap, mask & out_sel), result.layout
             )
@@ -471,15 +640,17 @@ class _FragmentTracer(LocalExecutor):
         rsel = right.batch.selection_mask()
         cnt = rsel.sum()
         self.overflows.append((f"err!{SCALAR_ROWS_ERROR}", cnt > 1))
-        pick = torch.argmax(rsel.to(torch.uint8))  # the first selected row
+        # the first selected row, as a 1-element index: a 0-d index
+        # tensor is read on the host
+        pick = torch.argmax(rsel.to(torch.uint8)).reshape(1)
         has_row = cnt >= 1
         cap = left.batch.capacity
         cols = [left.column(s) for s in node.left.output_symbols]
         for s in node.right.output_symbols:
             c = right.column(s)
-            val = c.data[pick]
+            val = c.data[pick][0]
             data = val.expand((cap,) + tuple(val.shape)).contiguous()
-            valid = (c.valid_mask()[pick] & has_row).expand(cap).contiguous()
+            valid = (c.valid_mask()[pick][0] & has_row).expand(cap).contiguous()
             cols.append(Column(s.type, data, valid, c.dictionary))
         layout = {
             s.name: i
@@ -545,6 +716,213 @@ class _FragmentTracer(LocalExecutor):
         )
 
 
+
+
+# --- fusability (reference: fragment_fusable) -------------------------------
+
+_FUSABLE_NODES = (
+    P.TableScan, P.RemoteSource, P.Filter, P.Project, P.Aggregate, P.Join,
+    P.TopN, P.Limit, P.Sort, P.Output, P.Values,
+)
+
+
+def _is_wide_type(t) -> bool:
+    return isinstance(t, T.DecimalType) and t.wide
+
+
+def _expr_blocks_fusion(e) -> bool:
+    """Modulus/cast touching wide DECIMAL narrows at runtime with a
+    data-dependent check: those fragments run eagerly."""
+    from trino_tpu_torch.ir import Call, SpecialForm
+
+    if isinstance(e, Call):
+        if e.name == "modulus" and (
+            _is_wide_type(e.type) or any(_is_wide_type(a.type) for a in e.args)
+        ):
+            return True
+        if e.name == "cast" and any(_is_wide_type(a.type) for a in e.args):
+            st, rt = e.args[0].type, e.type
+            traced = (
+                isinstance(rt, (T.DoubleType, T.RealType))
+                or (
+                    isinstance(rt, T.DecimalType)
+                    and isinstance(st, T.DecimalType)
+                    and (rt.wide and rt.scale >= st.scale or st.scale - rt.scale <= 18)
+                )
+            )
+            if not traced:
+                return True
+        return any(_expr_blocks_fusion(a) for a in e.args)
+    if isinstance(e, SpecialForm):
+        return any(_expr_blocks_fusion(a) for a in e.args)
+    return False
+
+
+def fragment_fusable(frag: PlanFragment) -> bool:
+    """True when every node of the fragment runs as device work at fixed
+    capacities, so the fragment can be one program (a copy of the
+    reference's test, so that the two packages' census agree)."""
+    for n in P.walk_plan(frag.root):
+        if not isinstance(n, _FUSABLE_NODES):
+            return False
+        if isinstance(n, P.Join):
+            if n.join_type in ("SEMI", "ANTI"):
+                if n.filter is not None or any(
+                    _is_wide_type(a.type) or _is_wide_type(b.type) for a, b in n.criteria
+                ):
+                    return False
+                continue
+            if n.join_type == "CROSS" and n.single_row:
+                continue
+            if (
+                n.join_type not in ("INNER", "LEFT")
+                or not n.criteria
+                or (n.single_row and n.join_type != "LEFT")
+                or (n.join_type == "LEFT" and n.filter is not None)
+                or any(_is_wide_type(a.type) or _is_wide_type(b.type) for a, b in n.criteria)
+            ):
+                return False
+            if n.filter is not None and _expr_blocks_fusion(n.filter):
+                return False
+        if isinstance(n, P.Aggregate):
+            if any(fn.distinct for _, fn in n.aggregates) and n.step != "single":
+                return False
+            if any(_is_wide_type(k.type) for k in n.group_keys):
+                return False
+            for _, fn in n.aggregates:
+                if fn.kind not in ("sum", "count", "count_star", "min", "max", "avg"):
+                    return False
+        if isinstance(n, P.Filter) and _expr_blocks_fusion(n.predicate):
+            return False
+        if isinstance(n, P.Project) and any(
+            _expr_blocks_fusion(e) for _, e in n.assignments
+        ):
+            return False
+    return True
+
+
+def query_fusable(sub: SubPlan) -> bool:
+    return all(fragment_fusable(frag) for frag in sub.all_fragments())
+
+
+# failures that a smaller program can fix: the card's memory exhausted
+_RESOURCE_ERROR_MARKERS = (
+    "RESOURCE_EXHAUSTED", "Resource exhausted", "resource exhausted",
+    "out of memory", "Out of memory", "OutOfMemoryError",
+)
+
+
+def _is_resource_exhausted(e: BaseException) -> bool:
+    """True when a failure should enter the capacity-halving ladder
+    (``torch.cuda.OutOfMemoryError`` and its kind) instead of failing the
+    query."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    msg = f"{type(e).__name__}: {e}"
+    return any(m in msg for m in _RESOURCE_ERROR_MARKERS)
+
+
+def _shrink_all(caps: _Caps, factor: int = 2, floor: int = 64) -> bool:
+    """``_Caps.shrink_all``: halve every capacity still above ``floor``
+    (reference ``fragments.py:352``). False when nothing can shrink."""
+    changed = False
+    for nm, v in list(caps.vals.items()):
+        nv = max(floor, bucket_capacity(max(1, v // factor), minimum=1))
+        if nv < v:
+            caps.vals[nm] = nv
+            prev = caps.provenance.get(nm, "default")
+            if not prev.endswith("+halved"):
+                caps.provenance[nm] = prev + "+halved"
+            changed = True
+    return changed
+
+
+_Caps.shrink_all = _shrink_all
+
+
+class BatchUnsupported(Exception):
+    """A plan or input shape the batched replays cannot carry (a streamed
+    or eager fragment, an overflow inside the batch): the collector runs
+    the members one after the other instead, bit-identically."""
+
+
+def program_label(program_key) -> str:
+    """Stable display label of a program key (reference ``:482``)."""
+    if isinstance(program_key, tuple) and len(program_key) >= 2:
+        if program_key[0] == "frag":
+            return f"frag:{program_key[1]}"
+        if program_key[0] == "fused":
+            return "fused:" + "+".join(str(i) for i in program_key[1])
+    return repr(program_key)
+
+
+class _Meta:
+    """What a program's function fixed when it ran: the output layout,
+    the names of the words it returns (flags, match counts, counters) and
+    its exchange statics."""
+
+    def __init__(self):
+        self.layout: dict = {}
+        self.flag_names: list[str] = []
+        self.needed_names: list[str] = []
+        self.counter_names: list[str] = []
+        self.exchange_static: dict = {}
+
+    def capture(self, res: Result, summary) -> None:
+        self.layout = dict(res.layout)
+        self.flag_names = [nm for nm, _ in summary.overflows]
+        self.needed_names = [nm for nm, _ in summary.needed]
+        self.counter_names = [nm for nm, _ in summary.counters]
+        self.exchange_static = dict(summary.exchange_static)
+
+    @staticmethod
+    def words(summary, device) -> torch.Tensor:
+        """Every flag, match count and counter as one int64 tensor: the
+        program's one host read."""
+        parts = (
+            [f for _, f in summary.overflows]
+            + [t for _, t in summary.needed]
+            + [c for _, c in summary.counters]
+        )
+        if not parts:
+            return torch.zeros(0, dtype=torch.int64, device=device)
+        return torch.stack([p.reshape(()).to(torch.int64) for p in parts])
+
+
+class _TracerSummary:
+    """The member tracers of a fused unit merged (reference ``:422``):
+    flags, match counts and counters concatenate (sites are unique per
+    fragment id), statics sum."""
+
+    def __init__(self):
+        self.overflows: list = []
+        self.needed: list = []
+        self.counters: list = []
+        self.exchange_static: dict = {}
+
+    def absorb(self, tracer) -> None:
+        self.overflows.extend(tracer.overflows)
+        self.needed.extend(tracer.needed.items())
+        self.counters.extend(tracer.counters)
+
+
+class _BatchSummary:
+    """The K members' words of one batched program merged (reference
+    ``:444``): the members replay one program, so their word lists align;
+    a flag fires when any member's does (max), a match count is the
+    largest, a counter sums."""
+
+    def __init__(self, meta: _Meta):
+        self.nflags = len(meta.flag_names)
+        self.nneeded = len(meta.needed_names)
+
+    def merge(self, rows: list[list[int]]) -> list[int]:
+        out = []
+        for j, col in enumerate(zip(*rows)):
+            out.append(max(col) if j < self.nflags + self.nneeded else sum(col))
+        return out
+
+
 def _post_order(sub: SubPlan) -> list[PlanFragment]:
     """Fragments with every producer before its consumers."""
     out: list[PlanFragment] = []
@@ -554,38 +932,67 @@ def _post_order(sub: SubPlan) -> list[PlanFragment]:
     return out
 
 
-class FragmentedExecutor(LocalExecutor):
-    """Distributed-mode executor: one plan fragment at a time.
+def _root_key(root: P.PlanNode, original: P.PlanNode):
+    """A fragment root's part of a program key: the cached plan's node by
+    identity; a root that dynamic filtering rewrote by its serialized
+    form (the pushed domains are constants of the program), so an equal
+    rewrite of a later run hits the same program."""
+    if root is original:
+        return id(root)
+    import hashlib
+    import json
 
-    Capacities live in ``caps_store`` under ``(fingerprint, "join" |
-    "stream", fragment id)``: the engine passes one store to every query
-    with the fingerprint of its optimized plan, so a repeat of a query
-    starts at the capacities its earlier runs grew to (reference: the
-    ``("caps", frag.id)`` entries of the plan fingerprint's program store,
-    ``trino_tpu/exec/fragments.py:1759``), and no other query's growth
-    leaks into it. ``table_cache`` (a :class:`DeviceTableCache`) keeps
-    scanned tables on the device across queries when the session's
-    ``table_cache`` is on, within ``table_cache_bytes`` (the engine
-    resolves the session's ``table_cache_max_bytes`` against the card,
-    ``engine.table_cache_budget``)."""
+    from trino_tpu_torch.planner.serde import node_to_json
+
+    try:
+        text = json.dumps(node_to_json(root), sort_keys=True, default=str)
+    except (TypeError, ValueError):
+        return ("unserializable", id(root))
+    return hashlib.sha1(text.encode()).hexdigest()
+
+
+class FragmentedExecutor(LocalExecutor):
+    """Distributed-mode executor: the plan's fragments bottom-up, grouped
+    into fused units, each unit one program.
+
+    ``programs`` is the store of the query's program-cache entry
+    (``Engine._query_cache_entry``): the fragmented subplan, the fused
+    units, each fragment's or unit's ``_Caps`` under ``("caps", ...)``
+    and the programs under ``(program_key, caps.signature())``; None
+    gives a store of the query's own. ``pool`` (:class:`ProgramPool`)
+    captures programs as CUDA graphs; without it nothing is captured and
+    every run is eager. ``params`` are the canonical plan's hoisted
+    literals ``[(value, type), ...]``, made one device tensor a run.
+    ``table_cache`` (a :class:`DeviceTableCache`) keeps scanned tables on
+    the device across queries when the session's ``table_cache`` is on,
+    within ``table_cache_bytes``."""
 
     def __init__(self, catalogs, session, device,
-                 caps_store: Optional[dict] = None, fingerprint: str = "",
+                 programs: Optional[dict] = None, params=None, pool=None,
                  table_cache=None, table_cache_bytes: int = 1 << 30,
                  memory_ctx=None):
         super().__init__(catalogs, session, device, memory_ctx=memory_ctx)
         self.exchange_stats: dict = {"overflow_retries": 0, "joinStrategy": {}}
-        # fragment id -> "streamed" | "materialized" (which path ran)
+        # fragment id -> "streamed" | "materialized" (one program, a fused
+        # unit's member or an eager fragment)
         self.fragment_modes: dict[int, str] = {}
-        self.caps_store: dict = caps_store if caps_store is not None else {}
-        self.fingerprint = fingerprint
-        # this query's materialized fragments' capacities, by fragment id
-        self._caps: dict[int, _Caps] = {}
+        self.programs: dict = {} if programs is None else programs
+        self.pool = pool
+        self._param_list = list(params or [])
+        # per-query compile telemetry (reference: compile_stats)
+        self.compile_stats: dict = {
+            "trace_count": 0, "compile_ms": 0.0,
+            "program_cache_hits": 0, "program_cache_misses": 0,
+        }
+        # per-query operator row flow: {stable_site: {kind, rows_in, rows_out}}
+        self.operator_stats: dict[str, dict] = {}
         self.table_cache = table_cache
         self.table_cache_bytes = table_cache_bytes
 
-    def _fragment_caps(self, kind: str, fid: int) -> _Caps:
-        return self.caps_store.setdefault((self.fingerprint, kind, fid), _Caps())
+    def _caps(self, *scope) -> _Caps:
+        return self.programs.setdefault(("caps",) + scope, _Caps())
+
+    # --- scans ------------------------------------------------------------
 
     def _scan_batch(self, node: P.TableScan) -> Result:
         """A fragment's table scan, through the device table cache when
@@ -593,13 +1000,14 @@ class FragmentedExecutor(LocalExecutor):
         ``trino_tpu/parallel/distributed.py:200-286``): a hit returns the
         device batch of an earlier scan of the same table version, columns
         and splits; a miss scans and admits the result."""
+        connector = self.catalogs.get(node.catalog)
         if self.table_cache is None or not self.session.get("table_cache") or (
             node.limit is not None  # a limit hint stops reading early
-        ):
+        ) or not getattr(connector, "supports_result_caching", True):
+            # live state (the system catalog) is read anew every scan
             return LocalExecutor._exec_tablescan(self, node)
         from trino_tpu_torch.ingest import batch_nbytes, table_cache_key
 
-        connector = self.catalogs.get(node.catalog)
         splits = self._scan_splits(node)
         key = table_cache_key(
             node.catalog, node.schema, node.table,
@@ -614,122 +1022,296 @@ class FragmentedExecutor(LocalExecutor):
             return Result(cached, {s.name: i for i, s in enumerate(node.symbols)})
         stats["table_cache_misses"] = stats.get("table_cache_misses", 0) + 1
         res = LocalExecutor._exec_tablescan(self, node, splits)
-        self.table_cache.admit(
-            key, res.batch, batch_nbytes(res.batch), self.table_cache_bytes
-        )
+        nbytes = batch_nbytes(res.batch)
+        admitted = self.table_cache.admit(key, res.batch, nbytes, self.table_cache_bytes)
+        if not admitted and nbytes <= self.table_cache_bytes and self.pool is not None \
+                and self.pool.on_card:
+            # the card lacks headroom: the allocator's free blocks (the
+            # warm-ups' and eager runs') go back first
+            torch.cuda.empty_cache()
+            self.table_cache.admit(key, res.batch, nbytes, self.table_cache_bytes)
         stats["tableCache"] = self.table_cache.snapshot()
         return res
 
+    # --- the query ----------------------------------------------------------
+
     def execute(self, node: P.PlanNode) -> tuple[Batch, list[str]]:
-        return self._execute_fragments(fragment_plan(node, self.session))
+        from trino_tpu_torch.compiler import param_tensor
+
+        # the fragmentation is cached with the entry: program keys and
+        # capacity sites name its nodes
+        sub = self.programs.get("__subplan__")
+        if sub is None:
+            sub = fragment_plan(node, self.session)
+            self.programs["__subplan__"] = sub
+        self.params = param_tensor(self._param_list, self.device)
+        return self._execute_fragments(sub)
 
     def _execute_fragments(self, sub: SubPlan) -> tuple[Batch, list[str]]:
         results: dict[int, Result] = {}
         names_holder: dict[int, list[str]] = {}
-        for frag in _post_order(sub):
-            results[frag.id] = self._run_fragment(frag, results, names_holder)
-        for caps in self._caps.values():
-            self.exchange_stats["joinStrategy"].update(caps.join_strategies)
+        for unit in self._fusion_units(sub):
+            if isinstance(unit, FusedFragment):
+                results[unit.id] = self._run_fused_unit(unit, results, names_holder)
+            else:
+                results[unit.id] = self._run_fragment(unit, results, names_holder)
         if self.stats_collector is not None:
             # EXPLAIN ANALYZE's capacity section; no other reader
             self.exchange_stats["capacities"] = self._capacity_report()
-        out = results[sub.fragment.id].batch.compact()
+        from trino_tpu_torch.exec.programs import allow_sync
+
+        # the result's read: its selected rows gathered to the host
+        self._count("result_reads")
+        with allow_sync(self.device):
+            out = results[sub.fragment.id].batch.compact()
         names = names_holder.get(sub.fragment.id) or [
             s.name for s in sub.fragment.root.output_symbols
         ]
         return out, names
 
+    def exchange_stats_snapshot(self) -> dict:
+        """The query's exchange counters, with the join strategy of every
+        capacity site of its entry and the operator row flow."""
+        st = dict(self.exchange_stats)
+        strategies = dict(st.get("joinStrategy") or {})
+        for key, val in self.programs.items():
+            if isinstance(key, tuple) and key and key[0] == "caps" and isinstance(val, _Caps):
+                strategies.update(val.join_strategies)
+        st["joinStrategy"] = strategies
+        if self.operator_stats:
+            st["operators"] = {k: dict(v) for k, v in self.operator_stats.items()}
+        if self.pool is not None and self.pool.on_card:
+            st["program_pool_bytes"] = self.pool.reserved_bytes()
+        return st
+
     def _capacity_report(self) -> dict:
-        """Every capacity site this query's fragments ran at: its final
-        value and provenance (``default``, ``seeded``, ``+grown``), the
+        """Every capacity site of the query's entry: its final value and
+        provenance (``default``, ``seeded``, ``+grown``, ``+halved``), the
         reference's ``exchange_stats["capacities"]``."""
         report = {}
-        for fid in sorted(self.fragment_modes):
-            kind = "stream" if self.fragment_modes[fid] == "streamed" else "join"
-            caps = self._caps.get(fid) or self.caps_store.get(
-                (self.fingerprint, kind, fid)
-            )
-            for name, value in sorted((caps.vals if caps else {}).items()):
+        for key, caps in sorted(
+            ((k, v) for k, v in self.programs.items()
+             if isinstance(k, tuple) and k and k[0] == "caps"),
+            key=lambda kv: repr(kv[0]),
+        ):
+            for name, value in sorted(caps.vals.items()):
                 report[name] = {
                     "site": name, "value": value,
                     "provenance": caps.provenance.get(name, "default"),
                 }
         return report
 
+    def _count(self, key: str, n: int = 1) -> None:
+        self.exchange_stats[key] = self.exchange_stats.get(key, 0) + n
+
     def _df_build_lookup(self, results: dict[int, Result]):
         """Dynamic-filter domain accessor over completed fragment results:
         ``build_lookup(fid)`` gives ``(get_column, selected rows)``, where
         ``get_column(name)`` copies one build column and its live mask to
-        the host, or None when the fragment has no result."""
+        the host, or None when the fragment has no result (a fused unit's
+        interior member). Each copy is a counted host read."""
+        from trino_tpu_torch.exec.programs import allow_sync
 
         def build_lookup(fid):
             res = results.get(fid)
             if res is None:
                 return None
             sel = res.batch.selection_mask()
+            self._count("host_reads")
+            with allow_sync(self.device):
+                n = int(sel.sum())
 
             def get_column(name):
                 idx = res.layout.get(name)
                 if idx is None:
                     return None
                 c = res.batch.columns[idx]
-                return c.data.cpu().numpy(), (c.valid_mask() & sel).cpu().numpy()
+                self._count("host_reads")
+                with allow_sync(self.device):
+                    return c.data.cpu().numpy(), (c.valid_mask() & sel).cpu().numpy()
 
-            return get_column, int(sel.sum())
+            return get_column, n
 
         return build_lookup
 
-    def _run_fragment(
-        self,
-        frag: PlanFragment,
-        results: dict[int, Result],
-        names_holder: dict[int, list[str]],
-    ) -> Result:
+    # --- fused units (reference: _fusion_units, _fusion_blocked) -----------
+
+    def _fusion_units(self, sub: SubPlan) -> list:
+        """Bottom-up execution units: :class:`FusedFragment` groups where
+        pipeline fusion applies, plain fragments elsewhere; cached in the
+        entry's store with the subplan whose fragments they name."""
+        units = self.programs.get("__fusedunits__")
+        if units is None:
+            if bool(self.session.get("pipeline_fusion")):
+                blocked = set(self._fusion_blocked(sub))
+                if bool(self.session.get("enable_dynamic_filtering")):
+                    # a selective broadcast build stays a fragment
+                    # boundary: dynamic filtering prunes the probe from
+                    # the materialized build, which a fused interior
+                    # member never produces
+                    blocked |= filtered_broadcast_fids(sub)
+                units = fuse_groups(
+                    sub,
+                    fusable=fragment_fusable,
+                    max_fragments=max(1, int(self.session.get("fusion_max_fragments"))),
+                    blocked=frozenset(blocked),
+                    broadcast_links=bool(self.session.get("dense_join")),
+                )
+            else:
+                units = _post_order(sub)
+            self.programs["__fusedunits__"] = units
+        return units
+
+    def _graceful_overflow(self) -> bool:
+        """True when the dense join tier's graceful overflow is active: a
+        spill-sized join input stays on the program path because a table
+        overflow re-hashes at doubled capacity in the retry ladder."""
+        return bool(self.session.get("dense_join")) and str(
+            self.session.get("join_strategy") or "auto"
+        ).lower() != "sort"
+
+    def _fusion_blocked(self, sub: SubPlan) -> set:
+        """Fragment ids that stay on the per-fragment path: scans big
+        enough for the streaming chunk loop, or for the spill fallback."""
+        from trino_tpu_torch.exec.streaming import streamable_chain
+
+        blocked: set[int] = set()
+        stream_threshold = int(self.session.get("stream_scan_threshold_rows"))
+        spill_threshold = (
+            int(self.session.get("spill_threshold_rows"))
+            if self.session.get("spill_enabled") and not self._graceful_overflow()
+            else None
+        )
+        for frag in sub.all_fragments():
+            chain = streamable_chain(frag.root)
+            stream_scan = chain[1] if chain is not None else None
+            for n in P.walk_plan(frag.root):
+                if not isinstance(n, P.TableScan):
+                    continue
+                est = self.catalogs.get(n.catalog).estimate_rows(n.schema, n.table)
+                if est is None:
+                    continue
+                if n is stream_scan and est > stream_threshold:
+                    blocked.add(frag.id)
+                if spill_threshold is not None and est > spill_threshold:
+                    blocked.add(frag.id)
+        return blocked
+
+    def _unit_inputs(self, members, results, names_holder, rewrite: bool = True):
+        """The dynamic-filter-rewritten members and the unit's inputs:
+        every member's scans, and the results of producers outside the
+        unit. Returns ``(members, inputs, layouts, copied)``: ``copied``
+        names the inputs a replay copies into static buffers (all but the
+        scans, which are read in place)."""
+        from trino_tpu_torch.dynfilter import fragment_dynamic_filters
+
+        member_ids = {f.id for f in members}
+        lookup = self._df_build_lookup(results)
+        out_members = []
+        for frag in members:
+            root = frag.root
+            if rewrite:
+                root = fragment_dynamic_filters(
+                    frag.root, lookup, self.session, self.dynamic_filters
+                )
+            out_members.append((frag, root))
+        inputs: dict = {}
+        layouts: dict = {}
+        copied: set = set()
+        for frag, root in out_members:
+            for n in P.walk_plan(root):
+                if isinstance(n, P.TableScan):
+                    res = self._scan_batch(n)
+                    inputs[f"scan{id(n)}"] = res.batch
+                    layouts[f"scan{id(n)}"] = res.layout
+                elif isinstance(n, P.RemoteSource) and n.fragment_id not in member_ids:
+                    r = results[n.fragment_id]
+                    inputs[f"remote{n.fragment_id}"] = r.batch
+                    layouts[f"remote{n.fragment_id}"] = r.layout
+                    copied.add(f"remote{n.fragment_id}")
+                elif isinstance(n, P.Output):
+                    names_holder[frag.id] = list(n.column_names)
+        return out_members, inputs, layouts, copied
+
+    def _run_fused_unit(self, unit: FusedFragment, results, names_holder) -> Result:
+        """A fused unit as one program; ``FusedUnsupported``,
+        ``CapacityRetryExceeded`` or an operator that needs the host
+        (``NotCapturable``) falls back to its members' per-fragment runs
+        (reference ``:1150-1175``), counted in ``fused_fallbacks``."""
+        from trino_tpu_torch.exec.programs import NotCapturable
+
+        try:
+            if ("eager", unit.fragment_ids) in self.programs:
+                raise FusedUnsupported("an earlier run fell back")
+            return self._run_fused_spanned(unit, results, names_holder)
+        except (FusedUnsupported, CapacityRetryExceeded, NotCapturable) as e:
+            if isinstance(e, NotCapturable):
+                # remembered with the entry: later runs skip the attempt
+                self.programs[("eager", unit.fragment_ids)] = True
+            self._count("fused_fallbacks")
+            for frag in unit.fragments:
+                results[frag.id] = self._run_fragment(frag, results, names_holder)
+            return results[unit.id]
+
+    def _run_fused_spanned(self, unit: FusedFragment, results, names_holder) -> Result:
         t0 = time.perf_counter()
-        streamed = self._try_streaming(frag, names_holder, results)
+        members, inputs, layouts, copied = self._unit_inputs(
+            unit.fragments, results, names_holder
+        )
+        out = self.run_fused_program(members, inputs, layouts, copied)
+        for frag in unit.fragments:
+            self.fragment_modes[frag.id] = "materialized"
+        self._count("fusedFragments", len(unit.fragments))
+        self._record_fragment(unit.id, "fused-pipeline", t0, out,
+                              fragments=list(unit.fragment_ids))
+        return out
+
+    def _run_fragment(self, frag: PlanFragment, results, names_holder) -> Result:
+        """One fragment: the streaming chunk loop when it qualifies, else
+        one program when it is fusable (``run_fragment_program``), else
+        the eager retry loop over its nodes (``_run_with_retries``)."""
+        from trino_tpu_torch.exec.programs import NotCapturable, allow_sync
+
+        t0 = time.perf_counter()
+        # a fragment that is no program (a streamed chunk loop, an eager
+        # fragment) reads the device on the host as it goes: a run
+        # checked by programs.checked_syncs lets it, and
+        # host_synced_fragments counts it
+        tried = self.exchange_stats.get("stream_fallbacks", 0)
+        with allow_sync(self.device):
+            streamed = self._try_streaming(frag, names_holder, results)
+        if streamed is not None or self.exchange_stats.get("stream_fallbacks", 0) != tried:
+            self._count("host_synced_fragments")
         if streamed is not None:
             self.fragment_modes[frag.id] = "streamed"
             self._record_fragment(frag.id, "streamed", t0, streamed)
             return streamed
-        from trino_tpu_torch.dynfilter import fragment_dynamic_filters
-
-        # dynamic filtering: completed build fragments prune this
-        # fragment's probe scans before any input materializes
-        root = fragment_dynamic_filters(
-            frag.root, self._df_build_lookup(results), self.session,
-            self.dynamic_filters,
+        [(frag, root)], inputs, layouts, copied = self._unit_inputs(
+            [frag], results, names_holder
         )
-        inputs: dict[str, Batch] = {}
-        layouts: dict[str, dict[str, int]] = {}
-        for n in P.walk_plan(root):
-            if isinstance(n, P.TableScan):
-                res = self._scan_batch(n)
-                inputs[f"scan{id(n)}"] = res.batch
-                layouts[f"scan{id(n)}"] = res.layout
-            elif isinstance(n, P.RemoteSource):
-                res = results[n.fragment_id]
-                inputs[f"remote{n.fragment_id}"] = res.batch
-                layouts[f"remote{n.fragment_id}"] = res.layout
-            elif isinstance(n, P.Output):
-                names_holder[frag.id] = list(n.column_names)
         self.fragment_modes[frag.id] = "materialized"
-        # output exchanges are the identity on a mesh of one device
-        retries = self.exchange_stats["overflow_retries"]
-        res = self._run_with_retries(frag.id, root, inputs, layouts)
-        if self.stats_collector is not None:
-            self._record_fragment(
-                frag.id, "materialized", t0, res,
-                attempts=1 + self.exchange_stats["overflow_retries"] - retries,
-                input_rows=sum(b.count_rows() for b in inputs.values()),
-            )
-        return res
+        out = None
+        if fragment_fusable(frag) and ("eager", frag.id) not in self.programs:
+            try:
+                out = self.run_fragment_program(frag, root, inputs, layouts, copied)
+                self._record_fragment(frag.id, "program", t0, out)
+            except NotCapturable:
+                # an operator needs the host: the fragment runs eagerly,
+                # in this run and the later ones of the entry
+                self.programs[("eager", frag.id)] = True
+                self._count("program_fallbacks")
+        if out is None:
+            self._count("host_synced_fragments")
+            with allow_sync(self.device):
+                out = self._run_with_retries(frag.id, root, inputs, layouts)
+            self._record_fragment(frag.id, "materialized", t0, out)
+        return out
 
     def _record_fragment(self, fid: int, mode: str, t0: float, res: Result,
                          **extra) -> None:
         """EXPLAIN ANALYZE's record of one fragment (its wall time includes
         a device sync for the output row count); nothing without a
-        collector. Its row counts are host reads: callers build ``extra``
-        only under a collector."""
+        collector."""
         if self.stats_collector is None:
             return
         self.stats_collector.record_fragment(fid, {
@@ -737,38 +1319,353 @@ class FragmentedExecutor(LocalExecutor):
             "wall_s": time.perf_counter() - t0, **extra,
         })
 
+    # --- programs (reference: run_fragment_program, run_fused_program) ------
+
+    def run_fragment_program(self, frag: PlanFragment, root: P.PlanNode, inputs,
+                             layouts, copied) -> Result:
+        """One fragment as one program (reference ``:1737``)."""
+        caps = self._caps(frag.id)
+        key = ("frag", frag.id, _root_key(root, frag.root))
+        return self._retry_traced(caps, self._unit_fn([(frag, root)], layouts, caps),
+                                  inputs, copied, key)
+
+    def run_fused_program(self, members, inputs, layouts, copied) -> Result:
+        """A fused unit as one program (reference ``:1802``): the members
+        run back to back, each producer's result feeding its consumer's
+        RemoteSource on the device, nothing read on the host between
+        them."""
+        fids = tuple(f.id for f, _ in members)
+        caps = self._caps("fused", fids)
+        key = ("fused", fids, tuple(_root_key(r, f.root) for f, r in members))
+        return self._retry_traced(caps, self._unit_fn(members, layouts, caps),
+                                  inputs, copied, key)
+
+    def _unit_fn(self, members, input_layouts, caps):
+        """``build(meta) -> fn(inputs) -> (result, words)``: the unit's
+        device work over its inputs (the program's function)."""
+
+        from trino_tpu_torch.exec import programs as PR
+
+        def build(meta: _Meta):
+            def fn(inp):
+                avail = dict(inp)
+                layouts = dict(input_layouts)
+                combined = _TracerSummary()
+                res = None
+                for k, (frag, root) in enumerate(members):
+                    tracer = _FragmentTracer(
+                        self, avail, layouts, caps, frag.id, root,
+                        params=inp.get("__params__"),
+                    )
+                    res = tracer._exec(root)
+                    combined.absorb(tracer)
+                    combined.overflows.extend(PR.take_deferred_errors())
+                    if k + 1 < len(members):
+                        avail[f"remote{frag.id}"] = res.batch
+                        layouts[f"remote{frag.id}"] = res.layout
+                combined.exchange_static = {"dispatchRoundTrips": 1}
+                meta.capture(res, combined)
+                return res, _Meta.words(combined, self.device)
+
+            return fn
+
+        return build
+
+    def _program_inputs(self, inputs: dict, params=None) -> dict:
+        params = self.params if params is None else params
+        if params is None:
+            return inputs
+        return {**inputs, "__params__": params}
+
+    def _program_key(self, key, inputs: dict, copied: set):
+        from trino_tpu_torch.exec.programs import batch_signature
+
+        # scans by position: a rewritten root names its scans anew
+        sig = tuple(
+            (k if k in copied else "scan", batch_signature(v, k not in copied))
+            for k, v in inputs.items() if k != "__params__"
+        )
+        return key + (sig, None if self.params is None else tuple(self.params.shape))
+
+    def _retry_traced(self, caps: _Caps, build, inputs: dict, copied: set,
+                      key) -> Result:
+        """Run a program under the capacity-overflow protocol (reference
+        ``:1495``). A program stored under ``(key, caps.signature())``
+        replays; otherwise its function runs eagerly, all its flags read
+        in one host read, each fired site grows and it runs again; the run
+        that fires nothing is the warm-up of its capture, stored under
+        the signature it settled at. A flag that fires on a replay grows
+        its site, and the next attempt captures again. An out-of-memory
+        evicts the pool's least recently used programs (half their bytes,
+        then all), then halves every capacity (``_Caps.shrink_all``)
+        until the program fits."""
+        from trino_tpu_torch.exec import programs as PR
+
+        inputs = self._program_inputs(inputs)
+        copied = set(copied) | ({"__params__"} if "__params__" in inputs else set())
+        pkey = self._program_key(key, inputs, copied)
+        store_stats = self.programs.setdefault(
+            "__stats__", {"hits": 0, "misses": 0, "trace_count": 0, "compile_ms": 0.0}
+        )
+        evictions = 0
+        for _ in range(MAX_ATTEMPTS):
+            prog = self.programs.get((pkey, caps.signature()))
+            try:
+                if prog is not None:
+                    self.compile_stats["program_cache_hits"] += 1
+                    store_stats["hits"] += 1
+                    if self.pool is not None:
+                        self.pool.touch(self.programs, (pkey, caps.signature()))
+                    # the inputs under the names the program was made with
+                    named = dict(zip(prog.input_keys, inputs.values()))
+                    res, words = PR.replay(self.pool, prog, named, copied)
+                    vals = PR.host_read(words, self.exchange_stats)
+                    if self._settle(prog.meta, vals, caps, fresh=()):
+                        return res
+                    continue
+                meta = _Meta()
+                fn = build(meta)
+                sized_before = set(caps.vals)
+                recorder = PR.ConstantRecorder()
+                t0 = time.perf_counter()
+                with PR.program_run():
+                    if self.pool is not None and self.pool.on_card:
+                        with recorder.record():
+                            res, words = fn(inputs)
+                    else:
+                        res, words = fn(inputs)
+                vals = PR.host_read(words, self.exchange_stats)
+                fresh = set(caps.vals) - sized_before
+                if not self._settle(meta, vals, caps, fresh):
+                    del res, words
+                    continue
+                fitted = self._fit_fresh(meta, vals, caps, fresh)
+                self.compile_stats["program_cache_misses"] += 1
+                store_stats["misses"] += 1
+                prog = PR.Program(pkey, program_label(key), fn, meta)
+                prog.input_keys = list(inputs)
+                if self.pool is not None:
+                    PR.capture(self.pool, prog, inputs, copied, recorder)
+                    self._store_program(pkey, caps.signature(), prog)
+                if fitted and self.pool is not None:
+                    # the result at the fitted capacities, shaped as every
+                    # later run's: its consumers' programs then hold
+                    del res, words
+                    res, words = PR.replay(self.pool, prog, inputs, copied)
+                    PR.host_read(words, self.exchange_stats)
+                ms = prog.capture_ms if prog.graph is not None else (
+                    (time.perf_counter() - t0) * 1000.0)
+                self.compile_stats["trace_count"] += 1
+                self.compile_stats["compile_ms"] += ms
+                store_stats["trace_count"] += 1
+                store_stats["compile_ms"] = round(store_stats["compile_ms"] + ms, 3)
+                return res
+            except (FusedUnsupported, CapacityRetryExceeded, PR.CaptureError):
+                raise  # NotCapturable too: the caller runs the fragment eagerly
+            except Exception as e:  # noqa: BLE001 — inspect and rethrow
+                if not _is_resource_exhausted(e):
+                    raise
+                # the least recently used half of the stored programs'
+                # bytes first, then every program (which releases the
+                # pool's segments), then the capacities
+                if evictions < 2 and self.pool is not None and self.pool.evict_lru(
+                    self.pool.held_bytes() // 2 if evictions == 0 else 0
+                ):
+                    evictions += 1
+                    self._count("program_evictions")
+                elif caps.shrink_all():
+                    self._count("compile_halvings")
+                else:
+                    raise
+        raise CapacityRetryExceeded(
+            "traced-program", fragment_id=key[1], capacities=caps.vals,
+            attempts=MAX_ATTEMPTS,
+        )
+
+    def _settle(self, meta: _Meta, vals: list, caps: _Caps, fresh) -> bool:
+        """Act on one run's words: True when no flag fired (its counters
+        then count); else the fired sites grow (to their counted need),
+        the sites first sized in this run from rows an overflowed site
+        may have cut short are sized again, and the run is retried."""
+        nf, nn = len(meta.flag_names), len(meta.needed_names)
+        flags, needed = vals[:nf], dict(zip(meta.needed_names, vals[nf:nf + nn]))
+        fired = [nm for nm, f in zip(meta.flag_names, flags) if f]
+        if not fired:
+            self._accumulate(meta, vals[nf + nn:])
+            return True
+        for nm in set(fresh) - set(fired):
+            caps.vals.pop(nm, None)
+        for nm in fired:
+            grow_or_raise(nm, caps, needed.get(nm))
+        self.exchange_stats["overflow_retries"] += 1
+        return False
+
+    @staticmethod
+    def _fit_fresh(meta: _Meta, vals: list, caps: _Caps, fresh) -> bool:
+        """Aggregate sites first sized in the warm-up at their input's
+        capacity shrink to the groups it counted, so the captured program
+        holds that many (a literal variant that counts more regrows).
+        True when a site shrank."""
+        nf, nn = len(meta.flag_names), len(meta.needed_names)
+        shrank = False
+        for nm, need in zip(meta.needed_names, vals[nf:nf + nn]):
+            if nm in fresh and nm.startswith("agg@"):
+                fit = bucket_capacity(max(1, int(need)), minimum=1)
+                if fit < caps.vals[nm]:
+                    caps.vals[nm] = fit
+                    shrank = True
+        return shrank
+
+    def _accumulate(self, meta: _Meta, counters: list) -> None:
+        for k, v in meta.exchange_static.items():
+            self._count(k, v)
+        for nm, v in zip(meta.counter_names, counters):
+            _, kind, io, site = nm.split("!", 3)
+            ent = self.operator_stats.setdefault(
+                site, {"kind": kind, "rows_in": 0, "rows_out": 0}
+            )
+            ent["rows_in" if io == "in" else "rows_out"] += int(v)
+
+    def _store_program(self, pkey, sig, prog) -> None:
+        """Store a program under ``(program_key, capacity signature)``
+        (reference ``:593``). A fragment traced against a rewritten root
+        (dynamic filtering) or other inputs than the stored one's evicts
+        that one: one program a fragment and signature lives on."""
+        prefix = pkey[:2]
+        for k in [
+            k for k in self.programs
+            if isinstance(k, tuple) and len(k) == 2 and isinstance(k[0], tuple)
+            and k[0][:2] == prefix and k[0] != pkey
+        ]:
+            old = self.programs.pop(k)
+            if self.pool is not None:
+                self.pool.forget(old)
+        self.programs[(pkey, sig)] = prog
+        if self.pool is not None:
+            self.pool.touch(self.programs, (pkey, sig))
+
+    # --- cross-query batching (reference: execute_batched, :1936-2367) -----
+
+    def execute_batched(self, node: P.PlanNode, param_lists: list) -> tuple[list[Batch], list[str]]:
+        """K literal variants of the plan this executor's entry holds, one
+        result a member in submission order: each unit's program replays
+        K times back to back, one parameter tensor a member, and the K
+        members' words come back in one host read. Dynamic filtering is
+        off on this path (a member's builds would prune another's
+        probes); the loss is pruning only. Raises
+        :class:`BatchUnsupported` for what it cannot carry (a streamed or
+        eager fragment, an overflow inside the batch): the collector then
+        runs the members one after the other, bit-identically."""
+        from trino_tpu_torch.compiler import param_tensor
+
+        if self.stats_collector is not None:
+            raise BatchUnsupported("stats collector attached")
+        if not param_lists or not param_lists[0]:
+            raise BatchUnsupported("no hoisted parameters")
+        sub = self.programs.get("__subplan__")
+        if sub is None:
+            sub = fragment_plan(node, self.session)
+            self.programs["__subplan__"] = sub
+        if not query_fusable(sub):
+            raise BatchUnsupported("plan not fusable")
+        if self._fusion_blocked(sub):
+            raise BatchUnsupported("streaming-sized scan")
+        tensors = [param_tensor(pl, self.device) for pl in param_lists]
+        self.params = tensors[0]
+        self.exchange_stats["batchedQueries"] = len(tensors)
+        results: list[dict[int, Result]] = [{} for _ in tensors]
+        names_holder: dict[int, list[str]] = {}
+        for unit in self._fusion_units(sub):
+            frags = unit.fragments if isinstance(unit, FusedFragment) else (unit,)
+            members, inputs, layouts, copied = [], [], None, None
+            for k in range(len(tensors)):
+                members, inp, layouts, copied = self._unit_inputs(
+                    frags, results[k], names_holder, rewrite=False
+                )
+                inputs.append(inp)
+            if isinstance(unit, FusedFragment):
+                fids = tuple(f.id for f in frags)
+                caps = self._caps("fused", fids)
+                key = ("fused", fids, tuple(id(f.root) for f in frags))
+                self._count("fusedFragments", len(frags))
+            else:
+                caps = self._caps(unit.id)
+                key = ("frag", unit.id, id(unit.root))
+            outs = self._replay_batch(
+                caps, self._unit_fn(members, layouts, caps), inputs, tensors, copied, key
+            )
+            for k, out in enumerate(outs):
+                results[k][unit.id] = out
+            for frag in frags:
+                self.fragment_modes[frag.id] = "materialized"
+        names = names_holder.get(sub.fragment.id) or [
+            s.name for s in sub.fragment.root.output_symbols
+        ]
+        return [r[sub.fragment.id].batch.compact() for r in results], names
+
+    def _replay_batch(self, caps: _Caps, build, inputs: list, tensors: list,
+                      copied: set, key) -> list[Result]:
+        """One unit for the K members: the first member through
+        ``_retry_traced`` when the program is not stored yet (its
+        warm-up and capture), then the others' replays back to back and
+        one host read of all their words."""
+        from trino_tpu_torch.exec import programs as PR
+
+        copied = set(copied) | {"__params__"}
+        member_inputs = [self._program_inputs(i, p) for i, p in zip(inputs, tensors)]
+        pkeys = {self._program_key(key, i, copied) for i in member_inputs}
+        if len(pkeys) != 1:
+            raise BatchUnsupported("members' inputs differ in shape")
+        pkey = pkeys.pop()
+        outs: list[Result] = []
+        if self.programs.get((pkey, caps.signature())) is None:
+            self.params = tensors[0]
+            outs.append(self._retry_traced(caps, build, inputs[0], copied, key))
+        prog = self.programs.get((pkey, caps.signature()))
+        if prog is None:
+            raise BatchUnsupported("no stored program")
+        words = []
+        for inp in member_inputs[len(outs):]:
+            inp = dict(zip(prog.input_keys, inp.values()))
+            res, w = PR.replay(self.pool, prog, inp, copied)
+            outs.append(res)
+            words.append(w)
+        n = len(words)
+        self.compile_stats["program_cache_hits"] += n
+        self.programs.setdefault("__stats__", {"hits": 0, "misses": 0, "trace_count": 0,
+                                               "compile_ms": 0.0})["hits"] += n
+        if words:
+            rows = PR.host_read(torch.stack(words), self.exchange_stats)
+            merged = _BatchSummary(prog.meta).merge(rows)
+            nf = len(prog.meta.flag_names)
+            if any(merged[:nf]):
+                raise BatchUnsupported("a capacity overflowed inside the batch")
+            self._accumulate(prog.meta, merged[nf + len(prog.meta.needed_names):])
+        return outs
+
+    # --- eager fragments ------------------------------------------------------
+
     def _run_with_retries(self, fid: int, root: P.PlanNode, inputs,
                           layouts) -> Result:
-        """Run a fragment under the capacity-overflow protocol: all its
-        overflow flags come back in one host read per run; each fired site
-        grows (``grow_or_raise``) and the fragment runs again."""
-        caps = self._caps.setdefault(fid, self._fragment_caps("join", fid))
+        """Run a fragment that is not one program (a node the program path
+        does not take) eagerly, under the same overflow protocol: its
+        flags in one host read a run, each fired site grown."""
+        from trino_tpu_torch.exec.programs import host_read
+
+        caps = self._caps(fid)
         for _ in range(MAX_ATTEMPTS):
             sized_before = set(caps.vals)
             tracer = _FragmentTracer(self, inputs, layouts, caps, fid, root)
             res = tracer._exec(root)
-            if not tracer.overflows:
+            meta = _Meta()
+            summary = _TracerSummary()
+            summary.absorb(tracer)
+            meta.capture(res, summary)
+            words = _Meta.words(summary, self.device)
+            vals = host_read(words, self.exchange_stats) if words.numel() else []
+            if self._settle(meta, vals, caps, set(caps.vals) - sized_before):
                 return res
-            needed = list(tracer.needed.items())
-            read = torch.stack(
-                [f.reshape(()).to(torch.int64) for _, f in tracer.overflows]
-                + [t.reshape(()).to(torch.int64) for _, t in needed]
-            ).cpu().tolist()
-            flags, counts = read[: len(tracer.overflows)], read[len(tracer.overflows):]
-            fired = [nm for (nm, _), f in zip(tracer.overflows, flags) if f]
-            if not fired:
-                return res
-            totals = {nm: c for (nm, _), c in zip(needed, counts)}
-            # sites first sized in this run from rows that an overflowed
-            # site upstream may have cut short are sized again next run
-            for nm in set(caps.vals) - sized_before - set(fired):
-                del caps.vals[nm]
-            for nm in fired:
-                grow_or_raise(nm, caps, totals.get(nm))
-            self.exchange_stats["overflow_retries"] += 1
-            # the failed attempt's output and intermediates (the tracer's
-            # memo of every node's output) die before the rerun allocates
-            # its own
+            # the failed attempt's intermediates die before the rerun
             del tracer, res
         raise CapacityRetryExceeded(
             "materialized-fragment", fragment_id=fid, capacities=caps.vals,
@@ -787,10 +1684,10 @@ class FragmentedExecutor(LocalExecutor):
         the reference), remote sources from the completed upstream
         fragments. An overflowed group budget or join site grows
         (``grow_or_raise``) and the stream reruns, at most 12 times; the
-        fragment's ``_Caps`` are kept for later runs of the same plan
-        (``caps_store``). None when the shape or the table does not
-        qualify, or the step meets a shape it does not take
-        (``FusedUnsupported``, counted in ``stream_fallbacks``)."""
+        fragment's ``_Caps`` are kept in the entry's store. None when the
+        shape or the table does not qualify, or the step meets a shape it
+        does not take (``FusedUnsupported``, counted in
+        ``stream_fallbacks``)."""
         from trino_tpu_torch.exec.streaming import (
             StreamingAggregator,
             StreamOverflow,
@@ -823,7 +1720,7 @@ class FragmentedExecutor(LocalExecutor):
                     upstream = results[n.fragment_id]
                     build_inputs[f"remote{n.fragment_id}"] = upstream.batch
                     build_layouts[f"remote{n.fragment_id}"] = upstream.layout
-        caps = self._fragment_caps("stream", frag.id)
+        caps = self._caps("stream", frag.id)
         for _ in range(MAX_ATTEMPTS):
             stream = StreamingAggregator(
                 self, frag, agg, scan, caps, build_roots=build_roots,
@@ -833,9 +1730,7 @@ class FragmentedExecutor(LocalExecutor):
                 res = stream.run()
                 break
             except FusedUnsupported:
-                self.exchange_stats["stream_fallbacks"] = (
-                    self.exchange_stats.get("stream_fallbacks", 0) + 1
-                )
+                self._count("stream_fallbacks")
                 return None
             except StreamOverflow as e:
                 for nm in e.fresh - set(e.names):
@@ -853,8 +1748,6 @@ class FragmentedExecutor(LocalExecutor):
                 {"fragment": frag.id, "chunks": stream.chunks,
                  "builds": len(stream.builds)}
             )
-        for nm, strategy in caps.join_strategies.items():
-            self.exchange_stats["joinStrategy"][nm] = strategy
         if isinstance(frag.root, P.Output):
             names_holder[frag.id] = list(frag.root.column_names)
             cols = [res.column(s) for s in frag.root.symbols]

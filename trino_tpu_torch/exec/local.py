@@ -274,12 +274,13 @@ def append_unmatched_build(node: P.Join, out: Result, right: Result,
     return Result(Batch(cols, keep.shape[0], keep), out.layout)
 
 
-def bound_filter_mask(expr: RowExpr, columns: list[Column], device) -> torch.Tensor:
+def bound_filter_mask(expr: RowExpr, columns: list[Column], device,
+                      params=None) -> torch.Tensor:
     """A bound predicate's mask over ``columns``, string calls lowered
     first (the lowering appends columns to a copy)."""
     work = list(columns)
     expr = lower_string_calls(lower_datetime_format_calls(expr, work), work)
-    return ExprCompiler(work, device=device).predicate_mask(expr)
+    return ExprCompiler(work, device=device, params=params).predicate_mask(expr)
 
 
 def unify_strings(expr: RowExpr, columns: list[Column]):
@@ -384,6 +385,9 @@ class LocalExecutor:
         # the query's ingest accounting (ingest.py): split decode, the
         # host-to-device copies of its scans, the table cache
         self.ingest_stats: dict = {}
+        # the parameter tensor of a canonical plan's hoisted literals
+        # (compiler.param_tensor), or None: expressions read it
+        self.params = None
 
     def _read_splits(self, connector, schema, table, columns, splits):
         """Decode splits through the ingest tier: double-buffered (a
@@ -517,7 +521,7 @@ class LocalExecutor:
     def _exec_filter(self, node: P.Filter) -> Result:
         res = self._exec(node.source)
         expr = self._bind(node.predicate, res.layout)
-        mask = bound_filter_mask(expr, res.batch.columns, self.device)
+        mask = bound_filter_mask(expr, res.batch.columns, self.device, self.params)
         sel = mask if res.batch.sel is None else (mask & res.batch.sel)
         return Result(
             Batch(res.batch.columns, res.batch.num_rows, sel, res.batch.device),
@@ -566,11 +570,14 @@ class LocalExecutor:
                 # a dictionary unified over what it references
                 new_cols, union = unify_strings(bound, work_cols)
                 data, valid = ExprCompiler(
-                    new_cols, device=self.device, string_dictionary=union
+                    new_cols, device=self.device, string_dictionary=union,
+                    params=self.params,
                 ).evaluate(bound)
                 cols.append(Column(sym.type, data.to(torch.int32), valid, union))
                 continue
-            data, valid = ExprCompiler(work_cols, device=self.device).evaluate(bound)
+            data, valid = ExprCompiler(
+                work_cols, device=self.device, params=self.params
+            ).evaluate(bound)
             cols.append(
                 Column(sym.type, data.to(torch_dtype(sym.type.storage_dtype)), valid)
             )
@@ -838,7 +845,7 @@ class LocalExecutor:
         if node.filter is None:
             return out
         expr = self._bind(node.filter, out.layout)
-        mask = bound_filter_mask(expr, out.batch.columns, self.device)
+        mask = bound_filter_mask(expr, out.batch.columns, self.device, self.params)
         if node.join_type != "LEFT":
             return Result(
                 Batch(out.batch.columns, out_capacity, mask & osel), out.layout
@@ -975,7 +982,7 @@ class LocalExecutor:
                     fcols.append(side.column(s).take(idx))
                     flayout[s.name] = len(fcols) - 1
             fexpr = self._bind(node.filter, flayout)
-            osel = osel & bound_filter_mask(fexpr, fcols, self.device)
+            osel = osel & bound_filter_mask(fexpr, fcols, self.device, self.params)
         matched = torch.zeros(cap + 1, dtype=torch.bool, device=osel.device)
         matched[torch.where(osel, pidx, cap)] = True
         _, bv = J.hash_keys(rkeys)

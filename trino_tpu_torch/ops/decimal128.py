@@ -313,7 +313,14 @@ def div128_round(ahi, alo, bhi, blo, shift: int):
     q_lost = torch.zeros(n, dtype=torch.bool, device=alo.device)
     top = 0
     narrow_den = True
-    if n:
+    from trino_tpu_torch.exec.programs import static_shapes
+
+    if n and static_shapes():
+        # inside a program no host read: the loop walks every bit a
+        # dividend below 2^127 scaled by 10^shift can have
+        top = min(32 * num.shape[1], 128 + (shift * 3322 + 999) // 1000)
+        narrow_den = False
+    elif n:
         # one host read: the limbs' maxima and whether every divisor
         # magnitude fits 63 bits
         den_fits = ((den_hi == 0) & (den_lo >= 0)).all().to(num.dtype).reshape(1)

@@ -131,3 +131,42 @@ def render_plan_with_stats(
     for s in node.sources:
         out.append(render_plan_with_stats(s, collector, indent + 1))
     return "\n".join(out)
+
+
+def _operator_rows(operators: dict, indent: str = "  ") -> list[str]:
+    """One line per operator site: kind, rows in/out, selectivity
+    (rows_out / rows_in; broadcast exchanges exceed 1.0 by design)."""
+    lines = []
+    for site, ent in sorted(operators.items()):
+        if not isinstance(ent, dict):
+            continue
+        rin = int(ent.get("rows_in", 0) or 0)
+        rout = int(ent.get("rows_out", 0) or 0)
+        sel = f"{rout / rin:.4f}" if rin > 0 else "-"
+        lines.append(
+            f"{indent}{site}: {ent.get('kind', '?')} "
+            f"rows_in={rin:,} rows_out={rout:,} selectivity={sel}"
+        )
+    return lines
+
+
+def render_operator_stats(operators: dict) -> str:
+    """EXPLAIN ANALYZE section for in-program operator telemetry
+    (exec/fragments.py ``op!`` counter channel): per-site row flow keyed
+    by restart-stable names. Partial-agg selectivity here IS the
+    per-exchange reduction ratio the mid-query-adaptivity roadmap item
+    consumes from history."""
+    lines = ["Operators (in-program row flow, by stable site):"]
+    lines.extend(_operator_rows(operators))
+    ratios = [
+        int(e.get("rows_out", 0) or 0) / max(1, int(e.get("rows_in", 0) or 0))
+        for e in operators.values()
+        if isinstance(e, dict)
+        and e.get("kind") == "partial-agg"
+        and int(e.get("rows_in", 0) or 0) > 0
+    ]
+    if ratios:
+        lines.append(
+            f"  worst partial-agg reduction ratio: {max(ratios):.4f}"
+        )
+    return "\n".join(lines)

@@ -273,6 +273,10 @@ def lower_string_calls(expr: RowExpr, columns: list[Column]) -> RowExpr:
             if max(len(da), 1) * max(len(db), 1) > _CROSS_DICT_CAP:
                 # big cross (name x name): materialize per ROW instead of
                 # per dictionary pair — O(rows) host work, bounded output
+                from trino_tpu_torch.exec.programs import NotCapturable, static_shapes
+
+                if static_shapes():
+                    raise NotCapturable("a per-row string concatenation")
                 codes_a = ca.data.cpu().numpy()
                 codes_b = cb.data.cpu().numpy()
                 valid = (ca.valid_mask() & cb.valid_mask()).cpu().numpy() & (
