@@ -40,11 +40,19 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    its plain version at the shapes the executor gives it;
 5b. spill: the same three queries over the same memory tables through the
    interpreter (``execution_mode=local``) under the reference's spill
-   defaults, once cold and once warm, against the oracle; Q-J1's and
+   defaults, once each (a repeat is the same work: the interpreter keeps
+   no program), against the oracle; Q-J1's and
    Q-J2's joins must run partitioned, Q-J3's semi join must not. Each
    line gives the spilled operators by kind, partitions, host
    partitioning seconds, the allocator's and the accounted peak and the
    K2 launches.
+5c. mesh (SF10 part): Q-J1 and Q-J2 over the same memory tables on a
+   mesh of 4 shards on the card (``DistributedQueryRunner(n_devices=4,
+   device="cuda")`` over the same engine) with
+   ``join_distribution_type=PARTITIONED``: both sides hash-repartitioned
+   between the shards, one K2 build a shard; once cold and once warm
+   against the oracle, each run with its exchange counters; every K2
+   build of the cold runs held against its plain version as it runs.
 
 6. tpch: TPC-H Q1 (Q-T1) and Q6 (Q-T6), spec text, over ``tpch.sf10``
    generated by the port's tpch connector (the generate-and-stage seconds
@@ -69,7 +77,9 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    mismatch names the query and its first differing row. Each query's
    line gives its cold and warm times, K1 and K2 launches per run, join
    strategies, overflow retries and peak device memory (the peak counter
-   reset per query); the join-build kernel must launch. Q5's and Q6's
+   reset per query); the join-build kernel must launch, and every K2
+   build of the cold runs is held against its plain version as it runs
+   (the cold times include that). Q5's and Q6's
    peaks are then attributed (phase ``peak``): each fragment's own peak
    and the largest allocations alive at the query's peak, with the line
    of the port that made them, from the allocator's history.
@@ -108,8 +118,8 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    the committed SF1 answers, each run's ingest stats on its line
    (``decode_ms``, ``splits_decoded``, ``h2d_bytes``, ``h2d_transfers``,
    ``coalesced_columns``, table-cache hits and misses; a warm run that
-   copies a byte fails), then every K2 build of those queries against
-   plain. Q-E: ``select k, sum(v), count(*)`` over 2^25 rows written as 8
+   copies a byte fails); every K2 build of their cold runs is held
+   against plain as it runs. Q-E: ``select k, sum(v), count(*)`` over 2^25 rows written as 8
    Parquet row groups (seed 7, as ``bench.py``), cold and 3 warm, its
    rate against phase ``sql``'s Q-A, then cold under each setting of
    (``ingest_prefetch``, ``coalesced_h2d``) with the table cache off,
@@ -119,6 +129,22 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    ``ttp.sf1.orders``, which must call ``replace_data`` and nothing else,
    against the source's count.
 
+7d. mesh (SF1 part): the 22 queries over the same staged ``tpch.sf1``
+   tables on a mesh of 4 shards on the card, once cold and twice warm,
+   against the committed answers, each line with its exchange counters
+   (exchanges, shuffled and padded rows and bytes, padding ratio, hot keys,
+   salted rows, overflow retries), times, peak and the graph pools'
+   bytes; then the skew acceptance shape of ``tests/test_skew.py``
+   (Zipf(1.2) join keys over 2,000,000 rows, the join partitioned, on the
+   reference's 8 shards) with
+   skew handling on and off and through the interpreter: equal rows; on,
+   hot keys and no overflow retry; off, a retry and at least twice the
+   padding ratio. The phase's K2 count is the 22 queries' runs; the skew
+   runs' launches have a line of their own, and the interpreter's run is
+   counted nowhere. Every K2 build of the queries' cold runs and of the
+   skew shape's two mesh runs (one a shard) is then held against its
+   plain version.
+
 8. tpcds: all 64 TPC-DS queries of the port's corpus, spec text, over
    ``tpcds.sf1`` from the port's tpcds connector: the 24 tables generated
    and staged on the card (rows, bytes, generation and staging seconds
@@ -126,10 +152,12 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    runner in distributed mode with ``join_strategy=auto``, its rows and
    column types held against ``tpcds_sf1_answers.json`` exactly; then
    Q64 and Q95 over ``tpcds.sf10`` (``BASELINE.json`` config 3), once cold
-   and once warm, against ``tpcds_sf10_answers.json`` the same way. Each query's line adds its
-   table-cache hits and misses per run; the table cache runs at its
+   and once warm, against ``tpcds_sf10_answers.json`` the same way; Q64's
+   warm run must replay every program it stored, with no capture and no
+   program run without its graph. Each query's line adds its
+   table-cache hits and misses per run and its graph pool counts; the table cache runs at its
    default budget and must evict nothing at SF1. Every K2 build of these
-   queries is held against its plain version, the three slowest are
+   queries' cold runs is held against its plain version as it runs, the three slowest are
    profiled, and the query with the largest peak and Q95 at SF10 (warm,
    then with its capacities forgotten) are attributed.
 
@@ -147,10 +175,16 @@ object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
-``python3 chip_smoke.py --only tpch22,surface,files,tpcds,spill`` runs the
-device phase and the named phases alone (``tpch22``, ``surface`` and
-``files`` stage the SF1 tables first, ``spill`` generates the SF10 tables
-first), for work on one of them; it prints no result lines.
+``python3 chip_smoke.py --only tpch22,surface,files,tpcds,spill,mesh``
+runs the device phase and the named phases alone (``tpch22``,
+``surface`` and ``files`` stage the SF1 tables first, ``spill``
+generates the SF10 tables first, ``mesh`` does both), for work on one of
+them; it prints no result lines.
+
+After every phase a ``pool`` line gives the graph pools' bytes of the
+phase's engine, which must be at or under their budget (an eighth of the
+card). The script finds its package beside itself however it is
+launched (another working directory, ``PYTHONSAFEPATH=1``).
 """
 
 from __future__ import annotations
@@ -158,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -166,6 +201,14 @@ from decimal import Decimal
 from typing import Optional
 
 import numpy as np
+
+# the package beside the script, however it is launched (another working
+# directory, PYTHONSAFEPATH=1); child processes get it as PYTHONPATH
+ROOT = os.path.dirname(os.path.abspath(__file__))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
+    p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
 
 ROWS = 1 << 25           # the bench.py headline's table size
 KEYS = 4096              # k in [0, 4096)
@@ -177,8 +220,13 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 L2_BYTES = 50e6          # H100 L2 cache
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line; ``t_s`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, **kv,
+                      "t_s": round(time.perf_counter() - T_START, 1)}), flush=True)
 
 
 # TPC-H generation rules (TPC-H v3 §4.2.3), with BIGINT in place of DECIMAL
@@ -380,7 +428,7 @@ def phase_device():
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
+        capture_output=True, text=True, check=True, timeout=60, env=CHILD_ENV,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _kernels.build_all()
@@ -667,6 +715,7 @@ def phase_sql():
     launches = dict(_kernels.LAUNCHES)
     log("sql", launches=launches)
     phase_profile(runner, {q: sql for q, (sql, _) in queries.items()})
+    check_pool(runner.engine, "sql")
     return launches
 
 
@@ -789,7 +838,7 @@ SPILL_DEFAULTS = {"spill_enabled": True, "spill_threshold_rows": 1 << 23,
 def phase_spill(runner, oracle, smi: str) -> dict:
     """Q-J1..3 over phase ``join``'s SF10 memory tables (``runner`` holds
     them) through the port's interpreter (``execution_mode=local``) under
-    the reference's spill defaults, once cold and once warm, against the
+    the reference's spill defaults, once each, against the
     numpy oracle. Q-J1's and Q-J2's joins see about 75M input rows, past
     the threshold of 2^23, and must run partitioned; Q-J3's EXISTS is a
     semi join, which the reference never spills, and must not. Per run:
@@ -811,7 +860,9 @@ def phase_spill(runner, oracle, smi: str) -> dict:
     try:
         for name, sql in JOIN_QUERIES.items():
             runs = []
-            for label in ("cold", "warm"):
+            # one run: the interpreter keeps no program, so a repeat is
+            # the same work (and took ~18 s a script)
+            for label in ("cold",):
                 before = _kernels.LAUNCHES["dense_join_build"]
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1161,6 +1212,7 @@ def phase_tpch(smi: str) -> int:
                  "pair128": list(plans[0].pair128)})
     phase_profile(runner, {q: sql for q, (sql, _) in runs.items()}, card=smi)
     tpch_spans(runner, {q: runs[q][0] for q in ("Q-T1", "Q-T6")}, smi)
+    check_pool(runner.engine, "tpch")
     return launches["dense_groupby"]
 
 
@@ -1347,25 +1399,24 @@ def pool_counts(eng, before: dict | None = None) -> dict:
     return now
 
 
-def k2_against_plain(runner, texts: dict) -> list:
-    """One more run of each of ``texts`` after every stored program was
-    evicted (the eager warm-up at the query's settled capacities that
-    precedes each capture: the builds a replay repeats), with every K2
-    build held against ``build_table_plain`` on the same inputs (slot
-    bases, live rows, capacity, window): the table and the unplaced count
-    must be equal. The captures' builds are recorded, not run, and are
-    not checked. Returns one record a build, with the query that made
-    it."""
+@contextlib.contextmanager
+def k2_checked(builds: list, query: list):
+    """Within the block every K2 build (``build_table_cuda``) is held
+    against ``build_table_plain`` on the same inputs (slot bases, live
+    rows, capacity, window): one record a build appended to ``builds``,
+    with ``query[0]``, the table's largest difference and the unplaced
+    counts' difference. A capture's builds are recorded, not run, and are
+    not checked (its eager warm-up's were)."""
     import torch
 
     from trino_tpu_torch.ops import dense_join as DJ
 
-    real, builds, query = DJ.build_table_cuda, [], [None]
+    real = DJ.build_table_cuda
 
     def checked(slot_base, use, capacity, window):
         out = real(slot_base, use, capacity, window)
         if torch.cuda.is_current_stream_capturing():
-            return out  # a capture records the build: the warm-up was checked
+            return out
         ptable, punplaced = DJ.build_table_plain(slot_base, use, capacity, window)
         builds.append({
             "query": query[0], "rows": int(slot_base.shape[0]),
@@ -1377,18 +1428,41 @@ def k2_against_plain(runner, texts: dict) -> list:
         })
         return out
 
+    DJ.build_table_cuda = checked
+    try:
+        yield builds
+    finally:
+        DJ.build_table_cuda = real
+
+
+def k2_against_plain(runner, texts: dict) -> list:
+    """One more run of each of ``texts`` after every stored program was
+    evicted (the eager warm-up at the query's settled capacities that
+    precedes each capture: the builds a replay repeats), with every K2
+    build held against ``build_table_plain`` on the same inputs (slot
+    bases, live rows, capacity, window): the table and the unplaced count
+    must be equal. The captures' builds are recorded, not run, and are
+    not checked. Returns one record a build, with the query that made
+    it."""
+    builds, query = [], [None]
     for name, sql in texts.items():
         # a warm run first: the query's program-cache entry may have left
         # the engine's LRU since the phase's runs, and a cold run's
         # capacity ladder builds more tables than a warm run launches
         runner.engine.execute_statement(sql, runner.session)
         query[0] = name
-        runner.engine.program_pool.evict_lru()
-        DJ.build_table_cuda = checked
-        try:
-            runner.engine.execute_statement(sql, runner.session)
-        finally:
-            DJ.build_table_cuda = real
+        pool = runner.engine.program_pool
+        pool.evict_lru()
+        before = (pool.captures, pool.evicted, pool.dropped, len(builds))
+        with k2_checked(builds, query):
+            res = runner.engine.execute_statement(sql, runner.session)
+        st = res.exchange_stats or {}
+        log("k2check", query=name, builds=len(builds) - before[3],
+            trace_count=res.trace_count, captures=pool.captures - before[0],
+            evicted_programs=pool.evicted - before[1], dropped_graphs=pool.dropped - before[2],
+            **{k: st.get(k) for k in ("overflow_retries", "program_evictions",
+                                       "compile_halvings", "fused_fallbacks",
+                                       "program_fallbacks", "fusedFragments")})
     return builds
 
 
@@ -1446,9 +1520,10 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
     once cold and twice warm, its rows and column types held against the
     reference's answers (``tpch_sf1_answers.json``) exactly, in ORDER BY
     order (rows whose ORDER BY keys tie as a multiset). Every K2 build of
-    the queries that launch it is then held against its plain version.
-    Returns the kernel launches of this path's run and the largest K2
-    error over those builds."""
+    the cold runs (the eager warm-ups and their capacity ladders) is held
+    against its plain version as it runs (:func:`k2_checked`; the cold
+    times include that). Returns the kernel launches of this path's run
+    and the largest K2 error over those builds."""
     import torch
 
     from trino_tpu_torch import _kernels
@@ -1458,7 +1533,7 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
     if answers["schema"] != f"tpch.{TPCH22_SCHEMA}":
         raise AssertionError(f"answers are for {answers['schema']}")
     texts = B.queries(f"tpch.{TPCH22_SCHEMA}")
-    failures, warm_ms, k2_runs, peaks = [], {}, {}, {}
+    failures, warm_ms, peaks, builds, cold_launches = [], {}, {}, [], {}
     pool_before = pool_counts(runner.engine)
     # the main path's run: every count starts at 0 here and is read after
     _kernels.reset_counts()
@@ -1466,11 +1541,12 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
         want = answers["queries"][str(q)]
         times, k1, k2, traces = [], [], [], []
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(1 + TPCH22_WARM):
+        for run in range(1 + TPCH22_WARM):
             before = dict(_kernels.LAUNCHES)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = runner.engine.execute_statement(texts[q], runner.session)
+            with (k2_checked(builds, [f"Q{q}"]) if run == 0 else contextlib.nullcontext()):
+                res = runner.engine.execute_statement(texts[q], runner.session)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             k1.append(_kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"])
@@ -1485,7 +1561,7 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
                 failures.append(f"Q{q}: {bad}")
                 break
         warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
-        k2_runs[q] = k2[-1]
+        cold_launches[f"Q{q}"] = k2[0]
         peaks[q] = torch.cuda.max_memory_allocated()
         stats = res.exchange_stats or {}
         log(
@@ -1506,23 +1582,9 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
         **pool_counts(runner.engine, pool_before))
     if failures:
         raise AssertionError("rows differ from the reference: " + "; ".join(failures))
-    # K2 against its plain version at the shapes this path gives it (its
-    # launches here come after the counts were read, and are not counted)
-    builds = k2_against_plain(
-        runner, {f"Q{q}": texts[q] for q in range(1, 23) if k2_runs[q]}
-    )
-    per_query = {f"Q{q}": n for q, n in k2_runs.items() if n}
-    checked = {}
-    for b in builds:
-        checked[b["query"]] = checked.get(b["query"], 0) + 1
-    k2_err = max(max(b["max_abs_err"], b["unplaced_err"]) for b in builds)
-    log("tpch22", card=smi, k2_vs_plain_builds=builds, k2_max_abs_err=k2_err,
-        overflowing_builds=sum(b["unplaced"] > 0 for b in builds),
-        largest_build_rows=max(b["rows"] for b in builds))
-    if checked != per_query:
-        raise AssertionError(f"k2 check pass: builds {checked} != launches {per_query}")
-    if k2_err:
-        raise AssertionError(f"tpch22: K2 != plain on a query's build (max |err| {k2_err})")
+    # every K2 build of the cold runs against its plain version, at the
+    # shapes this path gave it
+    k2_err = check_cold_builds("tpch22", smi, builds, cold_launches)
     slowest = sorted(warm_ms, key=warm_ms.get, reverse=True)[:3]
     three = {f"Q{q}": texts[q] for q in slowest}
     phase_profile(runner, three, card=smi)
@@ -2154,7 +2216,6 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
         register_catalog_spec,
     )
     from trino_tpu_torch.connectors.synthetic import SyntheticConnector
-    from trino_tpu_torch.testing import LocalQueryRunner
 
     answers = answers or B.load_answers()
     engine = runner.engine
@@ -2232,12 +2293,16 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
         pool_before = pool_counts(engine)
         _kernels.reset_counts()
         failures, k2_runs, warm_medians, max_peak = [], {}, [], 0
+        builds, cold_launches = [], {}
         for catalog, q in runs:
             times, k2, ingest, peaks = [], [], [], []
-            for _ in range(1 + FILES_WARM):
+            for run in range(1 + FILES_WARM):
                 before = _kernels.LAUNCHES["dense_join_build"]
                 torch.cuda.reset_peak_memory_stats()
-                res, ms = timed(texts[q], sessions[catalog])
+                # a cold run's K2 builds are held against plain as they run
+                with (k2_checked(builds, [f"{catalog}:Q{q}"]) if run == 0
+                      else contextlib.nullcontext()):
+                    res, ms = timed(texts[q], sessions[catalog])
                 times.append(ms)
                 peaks.append(torch.cuda.max_memory_allocated())
                 k2.append(_kernels.LAUNCHES["dense_join_build"] - before)
@@ -2247,6 +2312,7 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
                     failures.append(f"{catalog} Q{q}: {bad}")
                     break
             k2_runs[(catalog, q)] = k2[-1]
+            cold_launches[f"{catalog}:Q{q}"] = k2[0]
             if len(times) > 1:
                 warm_medians.append(statistics.median(times[1:]))
             max_peak = max([max_peak] + peaks)
@@ -2266,23 +2332,9 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
         if failures:
             raise AssertionError("files: " + "; ".join(failures))
         check(launches["dense_join_build"] > 0, "no K2 launch over the file catalogs")
-        # K2 against its plain version at the shapes this path gives it
-        # (launches made here come after the counts were read)
-        builds = []
-        for catalog in ("pq", "orc", "ttp"):
-            qs = [q for (c, q), n in k2_runs.items() if c == catalog and n]
-            builds += k2_against_plain(
-                LocalQueryRunner(session=sessions[catalog], engine=engine),
-                {f"{catalog}:Q{q}": texts[q] for q in qs})
-        per_query = {f"{c}:Q{q}": n for (c, q), n in k2_runs.items() if n}
-        checked = {}
-        for b in builds:
-            checked[b["query"]] = checked.get(b["query"], 0) + 1
-        k2_err = max(max(b["max_abs_err"], b["unplaced_err"]) for b in builds)
-        log("files", card=smi, k2_vs_plain_builds=len(builds), k2_max_abs_err=k2_err,
-            k2_builds_by_query=checked)
-        check(checked == per_query, f"k2 check pass: builds {checked} != launches {per_query}")
-        check(k2_err == 0, f"K2 != plain on a query's build (max |err| {k2_err})")
+        # every K2 build of the cold runs against its plain version, at the
+        # shapes this path gave it
+        k2_err = check_cold_builds("files", smi, builds, cold_launches)
         check(("orc", 3) in k2_runs and k2_runs[("orc", 3)] > 0
               and k2_runs[("ttp", 3)] > 0, "Q3 over orc/ttp launched no K2")
 
@@ -2395,29 +2447,42 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
 
 
 def run_against_answers(runner, texts: dict, answers: dict, warm: int,
-                        phase: str, smi: str, streamed=()):
+                        phase: str, smi: str, streamed=(), replayed=(),
+                        builds: Optional[list] = None, cold_launches: Optional[dict] = None,
+                        tag: str = ""):
     """Each query of ``texts`` once cold and ``warm`` times warm, its rows
     and column types held against ``answers`` (one line a query: times,
     kernel launches, overflow retries and table-cache hits and misses
     per run, join strategies, fragment modes, peak device memory of each
     run and of the query, the streamed join fragments). A query of
-    ``streamed`` that streams no join fragment is a failure. Returns warm
-    medians, K2 launches of the last run, peaks and failures, by query."""
+    ``streamed`` that streams no join fragment is a failure, and so is a
+    warm run of a query of ``replayed`` that captures a program or runs
+    one without its graph. With ``builds`` given, every K2 build of a cold
+    run is held against its plain version as it runs (:func:`k2_checked`,
+    its query named ``Q<n><tag>``; the cold times include that), and the
+    cold run's K2 launches go into ``cold_launches``
+    (:func:`check_cold_builds`). Returns warm medians, K2 launches of the
+    last run, peaks and failures, by query."""
     import torch
 
     from trino_tpu_torch import _kernels
     from trino_tpu_torch.benchmarks import tpch as B
 
     failures, warm_ms, k2_runs, peaks = [], {}, {}, {}
+    pool = runner.engine.program_pool
     for q, sql in texts.items():
         want = answers["queries"][str(q)]
         times, k1, k2, cache, retries, run_peaks, traces = [], [], [], [], [], [], []
-        for _ in range(1 + warm):
+        graphs = []
+        for run in range(1 + warm):
             before = dict(_kernels.LAUNCHES)
+            counts = (pool.captures, pool.eager_hits, pool.recaptures, pool.dropped)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            res = runner.engine.execute_statement(sql, runner.session)
+            with (k2_checked(builds, [f"Q{q}{tag}"]) if builds is not None and run == 0
+                  else contextlib.nullcontext()):
+                res = runner.engine.execute_statement(sql, runner.session)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             run_peaks.append(torch.cuda.max_memory_allocated())
@@ -2428,6 +2493,9 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
                           ing.get("table_cache_misses", 0)])
             retries.append((res.exchange_stats or {}).get("overflow_retries"))
             traces.append(res.trace_count)
+            # captures, hits run without a graph, captures again, graphs dropped
+            graphs.append([a - b for a, b in zip(
+                (pool.captures, pool.eager_hits, pool.recaptures, pool.dropped), counts)])
             types = [t.name for t in res.column_types]
             bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"],
                                    want["order_by"])
@@ -2438,6 +2506,8 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
                 break
         warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
         k2_runs[q] = k2[-1]
+        if cold_launches is not None:
+            cold_launches[f"Q{q}{tag}"] = k2[0]
         peaks[q] = max(run_peaks)
         stats = res.exchange_stats or {}
         log(
@@ -2446,6 +2516,8 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
             warm_median_ms=warm_ms[q], warm_ms=times[1:],
             k1_launches_per_run=k1, k2_launches_per_run=k2,
             overflow_retries_per_run=retries, trace_count_per_run=traces,
+            captures_eager_hits_recaptures_dropped_per_run=graphs,
+            pool_reserved_bytes=pool.reserved_bytes(),
             table_cache_hits_misses_per_run=cache,
             joinStrategy=stats.get("joinStrategy"),
             peak_device_bytes=peaks[q], peak_device_bytes_per_run=run_peaks,
@@ -2453,6 +2525,9 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
         )
         if q in streamed and not stats.get("join_streams"):
             failures.append(f"Q{q}: no join fragment streamed")
+        if q in replayed and any(g[0] or g[1] for g in graphs[1:]):
+            failures.append(f"Q{q}: a warm run captured or ran a program without its "
+                            f"graph (captures, eager hits, recaptures, drops: {graphs[1:]})")
     return warm_ms, k2_runs, peaks, failures
 
 
@@ -2527,10 +2602,12 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     torch.cuda.empty_cache()
     texts = DS.queries(f"tpcds.{TPCDS_SCHEMA}")
     pool_before = pool_counts(runner.engine)
+    builds, cold_launches = [], {}
     # the main path's run: every count starts at 0 here and is read after
     _kernels.reset_counts()
-    warm_ms, k2_runs, peaks, failures = run_against_answers(
-        runner, texts, answers, TPCDS_WARM, "tpcds", smi, TPCDS_STREAMED
+    warm_ms, _, peaks, failures = run_against_answers(
+        runner, texts, answers, TPCDS_WARM, "tpcds", smi, TPCDS_STREAMED,
+        builds=builds, cold_launches=cold_launches,
     )
     sf1_cache = runner.engine.table_cache.snapshot()
     log("tpcds", card=smi, schema=TPCDS_SCHEMA, table_cache=sf1_cache,
@@ -2542,8 +2619,11 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     answers10 = B.load_answers(DS.ANSWERS_SF10)
     texts10 = DS.queries(answers10["schema"])
     texts10 = {q: texts10[q] for q in TPCDS_SF10_QUERIES}
-    _, k2_runs10, _, failures10 = run_against_answers(
-        runner, texts10, answers10, TPCDS_SF10_WARM, "tpcds_sf10", smi
+    # Q64's warm run replays its stored programs, every graph kept under
+    # the pool's budget
+    _, _, _, failures10 = run_against_answers(
+        runner, texts10, answers10, TPCDS_SF10_WARM, "tpcds_sf10", smi, replayed=(64,),
+        builds=builds, cold_launches=cold_launches, tag="@sf10",
     )
     failures += failures10
     launches = dict(_kernels.LAUNCHES)
@@ -2554,25 +2634,9 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
         raise AssertionError("rows differ from the reference: " + "; ".join(failures))
     if launches["dense_join_build"] < 1:
         raise AssertionError("the TPC-DS queries launched no join-build kernel")
-    # K2 against its plain version at the shapes this path gives it (its
-    # launches here come after the counts were read, and are not counted)
-    checked_texts = {f"Q{q}": texts[q] for q in texts if k2_runs[q]}
-    checked_texts.update({f"Q{q}@sf10": texts10[q] for q in texts10 if k2_runs10[q]})
-    builds = k2_against_plain(runner, checked_texts)
-    per_query = {f"Q{q}": n for q, n in k2_runs.items() if n}
-    per_query.update({f"Q{q}@sf10": n for q, n in k2_runs10.items() if n})
-    checked = {}
-    for b in builds:
-        checked[b["query"]] = checked.get(b["query"], 0) + 1
-    k2_err = max(max(b["max_abs_err"], b["unplaced_err"]) for b in builds)
-    largest = max(builds, key=lambda b: b["rows"])
-    log("tpcds", card=smi, k2_builds=len(builds), k2_max_abs_err=k2_err,
-        overflowing_builds=sum(b["unplaced"] > 0 for b in builds),
-        largest_build=largest)
-    if checked != per_query:
-        raise AssertionError(f"k2 check pass: builds {checked} != launches {per_query}")
-    if k2_err:
-        raise AssertionError(f"tpcds: K2 != plain on a query's build (max |err| {k2_err})")
+    # every K2 build of the cold runs against its plain version, at the
+    # shapes this path gave it
+    k2_err = check_cold_builds("tpcds", smi, builds, cold_launches)
     slowest = sorted(warm_ms, key=warm_ms.get, reverse=True)[:3]
     phase_profile(runner, {f"Q{q}": texts[q] for q in slowest}, card=smi)
     top = max(peaks, key=peaks.get)
@@ -2584,11 +2648,268 @@ def phase_tpcds(smi: str) -> tuple[dict, int]:
     runner.engine.drop_query_cache(fingerprint_of(runner, texts10[95]))
     log("peak", card=smi, query="Q95@sf10-cold",
         **peak_attribution(runner, texts10[95], top=12, with_joins=True))
+    check_pool(runner.engine, "tpcds")
     return launches, k2_err
 
 
 def fingerprint_of(runner, sql: str) -> str:
     return runner.engine.fingerprint(sql, runner.session)[0]
+
+
+MESH_SHARDS = 4           # shards of phase mesh's mesh, all on the one card
+MESH_WARM = 2
+MESH_SKEW_ROWS = 2_000_000  # tests/test_skew.py::TestSkewedJoin2M
+# the skew shape's shards: the reference's acceptance mesh. On 4 shards
+# the hot destination takes ~2.3x a fair share, which the cold bucket
+# (2x) and the spill tier absorb, so skew off would not overflow
+MESH_SKEW_SHARDS = 8
+MESH_EXCHANGE_KEYS = ("exchanges", "shuffle_rows", "padded_shuffle_rows", "shuffle_bytes",
+                      "padding_ratio", "hot_keys", "salted_rows", "overflow_retries")
+
+
+def check_pool(engine, phase: str) -> None:
+    """The engine's graph pools at or under their budget (one line)."""
+    pool = engine.program_pool
+    reserved = pool.reserved_bytes() or 0
+    log("pool", after=phase, pool_reserved_bytes=reserved, budget_bytes=pool.budget_bytes,
+        captures=pool.captures, recaptures=pool.recaptures, evicted_programs=pool.evicted,
+        dropped_graphs=pool.dropped, eager_hits=pool.eager_hits,
+        stored_programs=len(pool._lru))
+    if pool.budget_bytes is not None and reserved > pool.budget_bytes:
+        raise AssertionError(f"{phase}: the program pools hold {reserved} bytes, "
+                             f"past their budget of {pool.budget_bytes}")
+
+
+def mesh_runner(engine, shards: int = MESH_SHARDS):
+    """A ``DistributedQueryRunner`` of ``shards`` shards on the card over
+    ``engine`` (its catalogs and staged tables); the caller sets
+    ``engine.mesh`` back to None after."""
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    return DistributedQueryRunner(n_devices=shards, device="cuda", engine=engine)
+
+
+def mesh_fields(res) -> dict:
+    st = res.exchange_stats or {}
+    return {k: st.get(k) for k in MESH_EXCHANGE_KEYS}
+
+
+def check_cold_builds(phase: str, smi: str, builds: list, cold_launches: dict) -> int:
+    """The K2 builds of the queries' cold runs (``k2_checked``: the eager
+    warm-ups before each capture and their overflow ladders; a replay in a
+    cold run repeats a checked warm-up's builds) each equal plain; a query
+    whose cold run launched K2 must have had its builds checked. Returns
+    the largest error."""
+    per = {}
+    for b in builds:
+        per[b["query"]] = per.get(b["query"], 0) + 1
+    k2_err = max([max(b["max_abs_err"], b["unplaced_err"]) for b in builds] or [0])
+    log(phase, card=smi, k2_checked_builds=per, k2_cold_launches=cold_launches,
+        k2_max_abs_err=k2_err, overflowing_builds=sum(b["unplaced"] > 0 for b in builds),
+        largest_build_rows=max([b["rows"] for b in builds] or [0]))
+    bad = [q for q, n in cold_launches.items() if n and not 0 < per.get(q, 0) <= n]
+    if bad:
+        raise AssertionError(f"{phase}: K2 builds checked {per} against cold launches "
+                             f"{cold_launches} (queries {bad})")
+    if k2_err:
+        raise AssertionError(f"{phase}: K2 != plain on a build (max |err| {k2_err})")
+    return k2_err
+
+
+def phase_mesh_join(runner, oracle, smi: str) -> tuple[dict, int]:
+    """Phase ``mesh``, its SF10 part: Q-J1 and Q-J2 over phase ``join``'s
+    memory tables (``runner``'s engine) on a mesh of
+    :data:`MESH_SHARDS` shards with ``join_distribution_type=PARTITIONED``
+    (both sides hash-repartitioned between the shards, one K2 build a
+    shard), once cold and once warm, against the numpy oracle; each run
+    with its exchange counters, time and peak. Every K2 build of the cold
+    runs is held against its plain version as it runs. Returns the
+    launches of this path's run and the largest K2 error."""
+    import torch
+
+    from trino_tpu_torch import _kernels
+
+    mesh = mesh_runner(runner.engine)
+    mesh.session.set("join_distribution_type", "PARTITIONED")
+    texts = {n: JOIN_QUERIES[n] for n in ("Q-J1", "Q-J2")}
+    try:
+        _kernels.reset_counts()
+        builds, cold_launches = [], {}
+        for name, sql in texts.items():
+            runs = []
+            for label in ("cold", "warm"):
+                before = _kernels.LAUNCHES["dense_join_build"]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with (k2_checked(builds, [name]) if label == "cold"
+                      else contextlib.nullcontext()):
+                    res = mesh.engine.execute_statement(sql, mesh.session)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                rows = res.rows if name == "Q-J1" else sorted(res.rows)
+                if rows != oracle[name]:
+                    raise AssertionError(f"mesh: {name} ({label}) rows differ from the oracle")
+                runs.append({"run": label, "ms": ms,
+                             "k2_launches": _kernels.LAUNCHES["dense_join_build"] - before,
+                             "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                             **mesh_fields(res)})
+            if not res.exchange_stats.get("exchanges"):
+                raise AssertionError(f"mesh: {name} ran no exchange")
+            cold_launches[name] = runs[0]["k2_launches"]
+            log("mesh", card=smi, shards=MESH_SHARDS, query=name, rows=len(res.rows),
+                matches_oracle=True, runs=runs,
+                joinStrategy=(res.exchange_stats or {}).get("joinStrategy"))
+        launches = dict(_kernels.LAUNCHES)
+        log("mesh", card=smi, part="sf10", launches=launches)
+        k2_err = check_cold_builds("mesh", smi, builds, cold_launches)
+        check_pool(runner.engine, "mesh-sf10")
+    finally:
+        runner.engine.mesh = None
+    return launches, k2_err
+
+
+def seed_skew_tables(catalogs, n_rows: int, seed: int) -> None:
+    """``tests/test_skew.py::_seed_tables`` in the port: Zipf(1.2) join
+    keys truncated to 8 values (the top key ~43% of the rows) in
+    ``memory.default.facts``, the 8 keys in ``memory.default.dims``."""
+    import torch
+
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.columnar import Batch, Column
+    from trino_tpu_torch.connectors.api import ColumnSchema, TableSchema
+
+    mem = catalogs.get("memory")
+    rng = np.random.default_rng(seed)
+    raw = rng.zipf(1.2, size=6 * n_rows)
+    keys = raw[raw <= 8][:n_rows].astype(np.int64)
+    vals = rng.integers(0, 1000, n_rows).astype(np.int64)
+    mem.create_table("default", "facts", TableSchema(
+        "facts", (ColumnSchema("k", T.BIGINT), ColumnSchema("v", T.BIGINT))))
+    mem.insert("default", "facts", Batch(
+        [Column(T.BIGINT, torch.from_numpy(keys)), Column(T.BIGINT, torch.from_numpy(vals))],
+        n_rows))
+    dk = np.arange(1, 9, dtype=np.int64)
+    mem.create_table("default", "dims", TableSchema(
+        "dims", (ColumnSchema("k", T.BIGINT), ColumnSchema("name", T.BIGINT))))
+    mem.insert("default", "dims", Batch(
+        [Column(T.BIGINT, torch.from_numpy(dk)), Column(T.BIGINT, torch.from_numpy(dk * 100))],
+        8))
+
+
+SKEW_JOIN_SQL = ("select sum(f.v * d.name) as chk, count(*) as c "
+                 "from memory.default.facts f join memory.default.dims d on f.k = d.k")
+
+
+def phase_mesh(smi: str, runner) -> tuple[dict, int]:
+    """Phase ``mesh``, its SF1 part, over phase ``tpch22``'s engine and
+    staged tables: the 22 TPC-H queries on a mesh of
+    :data:`MESH_SHARDS` shards on the card, once cold and
+    :data:`MESH_WARM` times warm, rows against the committed answers,
+    each with its exchange counters, times, the allocator's peak and the
+    graph pools' bytes; then the skew acceptance shape
+    (``tests/test_skew.py::TestSkewedJoin2M``: Zipf(1.2) over 2,000,000
+    rows, the join partitioned, on the reference's mesh of
+    :data:`MESH_SKEW_SHARDS`) with skew handling on and off against the
+    interpreter: equal rows, hot keys and no overflow retry on, at least
+    one retry and twice the padding off. Every K2 build of the TPC-H
+    queries' cold runs and of the skew shape's mesh runs is then held
+    against its plain version. Returns the launches of the 22 queries'
+    runs (the skew shape's have a line of their own) and the largest K2
+    error."""
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.config import Session
+
+    answers = B.load_answers()
+    texts = B.queries(f"tpch.{TPCH22_SCHEMA}")
+    mesh = mesh_runner(runner.engine)
+    pool = runner.engine.program_pool
+    try:
+        seed_skew_tables(runner.catalogs, MESH_SKEW_ROWS, seed=3)
+        failures, warm_ms, cold_launches, peaks, builds = [], {}, {}, {}, []
+        _kernels.reset_counts()
+        for q in range(1, 23):
+            want = answers["queries"][str(q)]
+            times, k2 = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for run in range(1 + MESH_WARM):
+                before = _kernels.LAUNCHES["dense_join_build"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (k2_checked(builds, [f"Q{q}"]) if run == 0
+                      else contextlib.nullcontext()):
+                    res = mesh.engine.execute_statement(texts[q], mesh.session)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                k2.append(_kernels.LAUNCHES["dense_join_build"] - before)
+                bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"],
+                                       want["order_by"])
+                types = [t.name for t in res.column_types]
+                if bad is None and types != want["types"]:
+                    bad = f"column types {types} != {want['types']}"
+                if bad is not None:
+                    failures.append(f"Q{q}: {bad}")
+                    break
+            warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
+            cold_launches[f"Q{q}"] = k2[0]
+            peaks[q] = torch.cuda.max_memory_allocated()
+            st = res.exchange_stats or {}
+            log("mesh", card=smi, shards=MESH_SHARDS, query=f"Q{q}", rows=len(res.rows),
+                trace_count=res.trace_count, captures=pool.captures,
+                dropped_graphs=pool.dropped, program_evictions=st.get("program_evictions"),
+                matches_reference=bad is None, cold_ms=times[0], warm_median_ms=warm_ms[q],
+                warm_ms=times[1:], k2_launches_per_run=k2, peak_device_bytes=peaks[q],
+                pool_reserved_bytes=pool.reserved_bytes(), fragment_modes=res.fragment_modes,
+                **mesh_fields(res))
+        # the main path's count: the 22 queries on MESH_SHARDS shards alone
+        launches = dict(_kernels.LAUNCHES)
+        log("mesh", card=smi, part="sf1", launches=launches,
+            warm_total_ms=sum(warm_ms.values()), max_peak_device_bytes=max(peaks.values()))
+        skew, skew_launches = {}, {}
+        skew_mesh = mesh_runner(runner.engine, MESH_SKEW_SHARDS)
+        for label, props in (("on", {}), ("off", {"skew_handling": False}),
+                             ("local", {"execution_mode": "local"})):
+            s = Session(properties={"execution_mode": "distributed",
+                                    "join_distribution_type": "PARTITIONED", **props})
+            before = _kernels.LAUNCHES["dense_join_build"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the mesh runs' K2 builds are held against plain too; the
+            # interpreter's run is the rows' reference, counted nowhere
+            with (k2_checked(builds, [f"skew-{label}"]) if label != "local"
+                  else contextlib.nullcontext()):
+                res = skew_mesh.engine.execute_statement(SKEW_JOIN_SQL, s)
+            torch.cuda.synchronize()
+            skew[label] = res
+            if label != "local":
+                cold_launches[f"skew-{label}"] = skew_launches[label] = (
+                    _kernels.LAUNCHES["dense_join_build"] - before)
+            log("mesh", card=smi, part="skew", shards=MESH_SKEW_SHARDS, setting=label,
+                rows=res.rows, trace_count=res.trace_count,
+                ms=(time.perf_counter() - t0) * 1e3, **mesh_fields(res))
+        log("mesh", card=smi, part="skew", shards=MESH_SKEW_SHARDS,
+            k2_launches=skew_launches)
+        # the engine's mesh back to the queries' (a runner sets its own)
+        runner.engine.mesh = mesh.mesh
+        on, off = skew["on"].exchange_stats, skew["off"].exchange_stats
+        if not skew["on"].rows == skew["off"].rows == skew["local"].rows:
+            failures.append("skew: rows differ between skew on, off and the interpreter")
+        if on["hot_keys"] < 1 or on["overflow_retries"] != 0:
+            failures.append(f"skew on: hot_keys {on['hot_keys']}, "
+                            f"overflow_retries {on['overflow_retries']}")
+        if off["overflow_retries"] < 1 or off["padding_ratio"] < 2 * on["padding_ratio"]:
+            failures.append(f"skew off: overflow_retries {off['overflow_retries']}, "
+                            f"padding_ratio {off['padding_ratio']} vs {on['padding_ratio']}")
+        if failures:
+            raise AssertionError("mesh: " + "; ".join(failures))
+        k2_err = check_cold_builds("mesh", smi, builds, cold_launches)
+        check_pool(runner.engine, "mesh")
+    finally:
+        runner.engine.mesh = None
+    return launches, k2_err
 
 
 def phase_spill_alone(smi: str) -> None:
@@ -2606,6 +2927,26 @@ def phase_spill_alone(smi: str) -> None:
     phase_spill(runner, oracle, smi)
 
 
+def phase_mesh_alone(smi: str) -> None:
+    """Phase ``mesh`` on its own: the SF10 tables and their oracle in
+    memory tables, its SF10 part, then the staged SF1 tables and its SF1
+    part."""
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    tables = tpch_tables(SF, seed=7)
+    oracle = tpch_oracle(tables)
+    runner = LocalQueryRunner(device="cuda")
+    runner.session.set("execution_mode", "distributed")
+    load_tpch(runner, tables)
+    phase_mesh_join(runner, oracle, smi)
+    del runner, tables, oracle
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+    phase_mesh(smi, tpch_sf1_runner(smi))
+
+
 def main() -> int:
     import torch
 
@@ -2621,7 +2962,8 @@ def main() -> int:
              "programs": lambda smi: phase_programs(smi, tpch_sf1_runner(smi)),
              "surface": lambda smi: phase_surface(smi, tpch_sf1_runner(smi)),
              "files": lambda smi: phase_files(smi, tpch_sf1_runner(smi)),
-             "tpcds": phase_tpcds, "spill": phase_spill_alone}[name](smi)
+             "tpcds": phase_tpcds, "spill": phase_spill_alone,
+             "mesh": phase_mesh_alone}[name](smi)
             gc.collect()
             torch.cuda.empty_cache()
         return 0
@@ -2638,7 +2980,10 @@ def main() -> int:
     join_launches, join_k2_err, join_runner = phase_join(tables, oracle)
     if join_launches["dense_join_build"] < 1:
         raise AssertionError("the join path launched no join-build kernel")
+    check_pool(join_runner.engine, "join")
     spill_launches = phase_spill(join_runner, oracle, smi)
+    check_pool(join_runner.engine, "spill")
+    mesh_join_launches, mesh_join_k2_err = phase_mesh_join(join_runner, oracle, smi)
     # release the join phase's tables and device memory first
     del tables, oracle, join_runner
     gc.collect()
@@ -2648,15 +2993,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     sf1_runner = tpch_sf1_runner(smi)
     t22, t22_k2_err = phase_tpch22(smi, sf1_runner)
+    check_pool(sf1_runner.engine, "tpch22")
     if t22["dense_join_build"] < 1:
         raise AssertionError("the TPC-H queries launched no join-build kernel")
     progs, progs_k2_err = phase_programs(smi, sf1_runner)
+    check_pool(sf1_runner.engine, "programs")
     if progs["dense_join_build"] < 1:
         raise AssertionError("the programs launched no join-build kernel")
     surface, surface_k1_err, surface_k2_err = phase_surface(smi, sf1_runner)
+    check_pool(sf1_runner.engine, "surface")
     gc.collect()
     torch.cuda.empty_cache()
     files, files_k2_err = phase_files(smi, sf1_runner)
+    check_pool(sf1_runner.engine, "files")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh, mesh_k2_err = phase_mesh(smi, sf1_runner)
     del sf1_runner
     gc.collect()
     torch.cuda.empty_cache()
@@ -2672,7 +3024,8 @@ def main() -> int:
                      + spill_launches["dense_groupby"] + tpch_launches
                      + t22["dense_groupby"] + progs["dense_groupby"]
                      + surface["dense_groupby"]
-                     + files["dense_groupby"] + ds["dense_groupby"]),
+                     + files["dense_groupby"] + ds["dense_groupby"]
+                     + mesh_join_launches["dense_groupby"] + mesh["dense_groupby"]),
         "matches_plain": True,
         "max_abs_err": max(kern["max_abs_err"], surface_k1_err),
         "ms": a["ms"],
@@ -2688,12 +3041,13 @@ def main() -> int:
         "launches": (join_launches["dense_join_build"] + spill_launches["dense_join_build"]
                      + t22["dense_join_build"] + progs["dense_join_build"]
                      + surface["dense_join_build"]
-                     + files["dense_join_build"] + ds["dense_join_build"]),
+                     + files["dense_join_build"] + ds["dense_join_build"]
+                     + mesh_join_launches["dense_join_build"] + mesh["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
                            + [join_k2_err, t22_k2_err, progs_k2_err, surface_k2_err,
                               files_k2_err,
-                              ds_k2_err]),
+                              ds_k2_err, mesh_join_k2_err, mesh_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

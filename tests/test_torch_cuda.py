@@ -533,3 +533,52 @@ def test_fused_q3_program_replays_literal_variants(cuda):
         want = r.engine.execute_statement(variant, eager.session)
         assert hit.program_cache_hits >= 1
         assert hit.rows == want.rows and hit.rows
+
+
+@pytest.mark.cuda
+def test_program_pool_stays_within_its_budget(cuda):
+    """Captures past the program pool's budget: with the budget cut to
+    4 MiB, the TPC-H queries at ``tpch.tiny`` capture one program after
+    another, and after every query the generations' segments are at or
+    under the budget; a warm repeat of the last query still hits its
+    stored program, and every run's rows equal the first run's."""
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    r = LocalQueryRunner(device=cuda)
+    r.session.set("execution_mode", "distributed")
+    pool = r.engine.program_pool
+    # a few MiB: the pool's smallest segments are 2 MiB, so the captures
+    # pass it even where they reuse each other's scratch
+    pool.budget_bytes = 4 << 20
+    qs = B.queries("tpch.tiny")
+    first = {}
+    for q in (1, 3, 5, 6, 10, 12):
+        first[q] = r.engine.execute_statement(qs[q], r.session).rows
+        reserved = pool.reserved_bytes() or 0
+        assert reserved <= pool.budget_bytes, (q, reserved)
+    assert pool.captures >= 6 and pool.dropped >= 1
+    warm = r.engine.execute_statement(qs[12], r.session)
+    assert warm.program_cache_hits >= 1 and warm.rows == first[12]
+    assert (pool.reserved_bytes() or 0) <= pool.budget_bytes
+    for q in (1, 3):
+        assert r.engine.execute_statement(qs[q], r.session).rows == first[q]
+
+
+@pytest.mark.cuda
+def test_sharded_scan_is_one_pinned_copy(cuda):
+    """A scan on 4 shards of the card (``DistributedExecutor._sharded_scan``,
+    the counterpart of the reference's ``ingest.shard_batch_coalesced``):
+    the shards' host parts are assembled into one shard-major batch and
+    moved in one pinned copy, and the rows equal a mesh of one's."""
+    from trino_tpu_torch.testing import DistributedQueryRunner, LocalQueryRunner
+
+    sql = ("select l_returnflag, count(*), sum(l_quantity) from lineitem "
+           "group by l_returnflag")
+    r = DistributedQueryRunner(n_devices=4, device=cuda)
+    r.session.set("coalesce_min_bytes", 0)
+    res = r.engine.execute_statement(sql, r.session)
+    st = res.ingest_stats
+    assert st["h2d_transfers"] == 1 and st["h2d_bytes"] > 0, st
+    one = LocalQueryRunner(device=cuda)
+    assert sorted(res.rows) == sorted(one.engine.execute_statement(sql, one.session).rows)

@@ -53,7 +53,9 @@ def test_port_imports_neither_jax_nor_reference():
                    "formats.parquet", "formats.orc", "connectors.parquet",
                    "connectors.orc", "connectors.file", "connectors.synthetic",
                    "connectors.diskcache", "planner.serde", "planner.canonicalize",
-                   "events", "connectors.system", "exec.batching", "exec.programs"):
+                   "events", "connectors.system", "exec.batching", "exec.programs",
+                   "parallel.mesh", "parallel.exchange", "parallel.distributed",
+                   "ops.skew"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 
@@ -190,9 +192,6 @@ RUN_METHOD_COUNTERPARTS = {
     "run_fragment_program_batched": "_replay_batch",
     "run_fused_program_batched": "_replay_batch",
 }
-# run methods that wait for the N-shard mesh (ROADMAP item 8b): the skew
-# and exchange paths; none of the reference's run methods is one today
-RUN_METHODS_FOR_8B: dict = {}
 
 
 def test_program_tier_modules_map_to_the_reference():
@@ -202,18 +201,56 @@ def test_program_tier_modules_map_to_the_reference():
             assert os.path.exists(os.path.join(REPO, ref)), ref
 
 
+# the N-shard mesh's modules: each function of the reference module has a
+# counterpart of the same name in the port's
+MESH_MODULES = {
+    "parallel.mesh": ("prepare_shards", "shard_batch", "_unify_part_dictionaries",
+                      "make_mesh", "smap"),
+    "parallel.exchange": ("hash_repartition", "skewed_repartition", "skew_split_counts",
+                          "needed_bucket", "broadcast_all"),
+    "ops.skew": ("hot_key_sketch", "is_hot", "hot_key_hashes"),
+}
+
+
+def test_mesh_modules_and_distributed_executor_have_counterparts():
+    """The mesh, exchange and skew functions of the reference exist in the
+    port's modules of the same path, and every ``_exec_*`` override and
+    sharded path of the reference's ``DistributedExecutor`` exists on the
+    port's (whose ``FragmentedExecutor`` is one, as the reference's is)."""
+    import importlib
+
+    from trino_tpu.parallel.distributed import DistributedExecutor as RefDist
+    from trino_tpu_torch.exec.fragments import FragmentedExecutor
+    from trino_tpu_torch.parallel.distributed import DistributedExecutor
+
+    for module, names in MESH_MODULES.items():
+        ref = importlib.import_module(f"trino_tpu.{module}")
+        port = importlib.import_module(f"trino_tpu_torch.{module}")
+        for name in names:
+            assert hasattr(ref, name) and hasattr(port, name), (module, name)
+    overrides = [n for n, v in vars(RefDist).items()
+                 if n.startswith("_exec_") and callable(v)]
+    assert sorted(overrides) == ["_exec_aggregate", "_exec_join", "_exec_tablescan"]
+    for name in overrides + ["_partial_final_agg", "_prepare_agg_inputs", "_final_combine",
+                             "_global_agg_distributed", "_broadcast_join",
+                             "_partitioned_join", "_hybrid_repartition"]:
+        assert name in vars(DistributedExecutor), name
+    assert issubclass(FragmentedExecutor, DistributedExecutor)
+    from trino_tpu_torch.parallel import distributed as D
+
+    assert callable(D._sharded_probe) and callable(D._is_sharded)
+
+
 def test_every_reference_run_method_has_a_counterpart():
     """Every ``_run_*``/``run_*`` method of the reference's
     ``FragmentedExecutor`` exists in the port under its name, or under
-    the named counterpart, or waits for item 8b."""
+    the named counterpart."""
     from trino_tpu.exec.fragments import FragmentedExecutor as RefExecutor
     from trino_tpu_torch.exec.fragments import FragmentedExecutor
 
     names = [n for n in dir(RefExecutor) if n.startswith(("_run_", "run_"))]
     assert len(names) >= 10
     for name in names:
-        if name in RUN_METHODS_FOR_8B:
-            continue
         assert hasattr(FragmentedExecutor, RUN_METHOD_COUNTERPARTS.get(name, name)), name
 
 

@@ -271,17 +271,22 @@ def test_pool_evicts_least_recently_used_to_a_byte_target():
 
 def test_pool_generations_release_least_recently_used_first():
     """Before a capture, past the budget, ``ProgramPool.make_room`` drops
-    least recently used programs until an older generation holds none
-    (it is released, its segments back to the card); the newest
-    generation closes to captures past half the budget. The segment
-    sizes are given here; on the card they come from the allocator."""
+    the graphs of least recently used programs until an older generation
+    holds none (it is released, its segments back to the card); the
+    programs stay stored, without a graph. The newest generation closes
+    to captures once its graphs' live blocks pass half the budget; the
+    freed scratch in its segments does not close it. The segment and
+    live sizes are given here; on the card they come from the
+    allocator."""
     from trino_tpu_torch.exec.programs import Program, ProgramPool
 
     class Pool(ProgramPool):
         sizes: dict = {}
+        live: dict = {}
 
-        def _reserved_by_generation(self):
-            return {id(g): self.sizes[g["name"]] for g in self._gens}
+        def _segments_by_generation(self):
+            return {id(g): (self.sizes[g["name"]], self.live.get(g["name"], 0))
+                    for g in self._gens}
 
     pool, store = Pool("cpu"), {}
     pool.budget_bytes = 100
@@ -296,9 +301,11 @@ def test_pool_generations_release_least_recently_used_first():
     pool.touch(store, 1)  # a's 1 used last: a is released only after it
     Pool.sizes = {"a": 70, "b": 40}
     pool.make_room()
-    # 0, 2, 3, 4 went in LRU order: 4 emptied b, which was released;
-    # 1, the most recently used, stays in a
-    assert sorted(store) == [1] and pool._gens == [gens["a"]] and pool.evicted == 4
+    # the graphs of 0, 2, 3, 4 went in LRU order: 4 emptied b, which was
+    # released; 1, the most recently used, keeps its graph in a
+    assert [k for k in store if store[k].generation is not None] == [1]
+    assert sorted(store) == [0, 1, 2, 3, 4] and pool._gens == [gens["a"]]
+    assert pool.dropped == 4 and pool.evicted == 0
     store2 = {}
     pool._gens = [gens["a"], gens["b"]]
     for g in gens.values():
@@ -309,12 +316,100 @@ def test_pool_generations_release_least_recently_used_first():
         store2[k].generation = gens[g]
         gens[g]["programs"].add(id(store2[k]))
         pool.touch(store2, k)
-    Pool.sizes = {"a": 70, "b": 60}
+    Pool.sizes, Pool.live = {"a": 30, "b": 60}, {"b": 10}
     pool.make_room()
-    # b passed half the budget: closed; 0 then 1 then 2 went, which
-    # emptied a (released); 3 stays in b
-    assert sorted(store2) == [3] and pool._gens == [gens["b"]]
+    # within the budget, and b's segments mostly freed scratch: it stays
+    # open, every graph kept
+    assert gens["b"]["open"] and pool.dropped == 4
+    Pool.sizes, Pool.live = {"a": 70, "b": 60}, {"b": 60}
+    pool.make_room()
+    # b's live blocks passed half the budget: closed; the graphs of 0, 1
+    # and 2 went, which emptied a (released); 3 keeps its graph in b
+    assert [k for k in store2 if store2[k].generation is not None] == [3]
+    assert sorted(store2) == [0, 1, 2, 3] and pool._gens == [gens["b"]]
     assert not gens["b"]["open"]
     Pool.sizes = {"b": 60}
     pool.make_room()
-    assert sorted(store2) == [3]  # one generation within the budget stays
+    # one generation within the budget keeps its graphs
+    assert [k for k in store2 if store2[k].generation is not None] == [3]
+
+
+def test_pool_budget_is_a_bound_with_one_generation():
+    """The generations' segments stay within the budget after every
+    capture and eviction, one generation alone too: ``make_room`` and
+    ``settle`` drop the graphs of least recently used programs until the
+    generations fit (a generation left with no graph is released), a new
+    graph whose generation alone passes the budget goes with its
+    generation's, and a program whose graph went stays stored (a later
+    hit runs it, and captures it again once what its capture took fits).
+    The allocator's segments come from a given snapshot."""
+    from trino_tpu_torch.exec.programs import Program, ProgramPool
+
+    sizes: dict = {}
+    pool, store = ProgramPool("cpu"), {}
+    pool.snapshot = lambda: [
+        {"segment_pool_id": g["handle"], "total_size": sizes[g["name"]]}
+        for g in pool._gens
+    ]
+    pool.budget_bytes = 100
+
+    def reserved():
+        return sum(pool._reserved_by_generation().values())
+
+    def add(k, gen):
+        store[k] = Program(("frag", k), f"frag:{k}", None, None)
+        store[k].generation, store[k].graph = gen, object()
+        if gen is not None:
+            gen["programs"].add(id(store[k]))
+        pool.touch(store, k)
+
+    def holders():
+        return sorted(k for k in store if store[k].graph is not None)
+
+    gen = {"handle": (0, 1), "programs": set(), "open": True, "name": "a"}
+    pool._gens = [gen]
+    for k in range(3):
+        add(k, gen)
+    sizes["a"] = 150  # one generation past the budget
+    pool.make_room()
+    assert holders() == [] and sorted(store) == [0, 1, 2]
+    assert pool._gens == [] and reserved() == 0 and pool.dropped == 3
+    # a capture (5) in a generation with an older program (4): the older
+    # graphs go, least recently used first, until the generations fit
+    gen = {"handle": (0, 2), "programs": set(), "open": True, "name": "b"}
+    other = {"handle": (0, 3), "programs": set(), "open": False, "name": "c"}
+    pool._gens = [other, gen]
+    add(4, gen)
+    add(5, gen)
+    add(6, other)
+    sizes.update(b=60, c=70)
+    pool.settle(store[5])
+    # 4's graph went, freeing nothing; then 6's emptied c (released)
+    assert holders() == [5] and sorted(store) == [0, 1, 2, 4, 5, 6]
+    assert pool._gens == [gen] and reserved() == 60 <= pool.budget_bytes
+    assert store[5].pool_bytes == 60 and pool.evicted == 0
+    # a graph whose generation alone passes the budget goes too
+    sizes["b"] = 120
+    pool.settle(store[5])
+    assert holders() == [] and 5 in store and pool._gens == [] and reserved() == 0
+    assert pool.dropped == 6
+    # its capture size is now its generation's: no room for it again
+    assert store[5].capture_bytes == 120 and not pool.may_recapture(store[5])
+    # programs without a graph hold no segment: the budget passes them by
+    # (5 is the least recently used here) and takes the graphs
+    pool.touch(store, 5)
+    for k, name in ((7, "d"), (8, "e")):
+        g = {"handle": (0, k), "programs": set(), "open": False, "name": name}
+        pool._gens.append(g)
+        add(k, g)
+    sizes.update(d=50, e=70)
+    pool.settle(store[8])
+    assert holders() == [8] and reserved() == 70 and pool.dropped == 7
+    # a program whose graph went is captured again on a hit once what its
+    # capture took fits beside the generations' segments
+    store[6].capture_bytes = 30
+    assert store[6].graph is None and pool.may_recapture(store[6])
+    store[6].capture_bytes = 31
+    assert not pool.may_recapture(store[6])
+    assert not pool.may_recapture(store[8])  # it holds its graph
+    assert pool.evict_lru() == 8 and not store and pool.evicted == 8

@@ -10,10 +10,11 @@ reference, on the CPU.
   and through its distributed executor, whose lineitem fragments stream
   through the sort-based step (``stream_device_chunk_rows`` 2^16 in both
   engines: one chunk of live rows). Rows are compared in ORDER BY order,
-  rows whose ORDER BY keys tie as a multiset. The reference rows come
-  from its distributed run, once per module; Q1-Q11 run here and Q12-Q22
-  in ``test_torch_tpch22.py``, so that two test processes share the
-  reference's cost.
+  rows whose ORDER BY keys tie as a multiset. The reference rows are its
+  answers at ``tpch.tiny`` committed in ``tpch_tiny_answers.json``
+  (``scripts/tpch_sf1_answers.py --schema tpch.tiny``; the ``slow`` test
+  below recomputes them); Q1-Q11 run here and Q12-Q22 in
+  ``test_torch_tpch22.py``.
 - Their optimized plans equal the reference's, symbol counters aside.
 - The committed SF1 answers (``tpch_sf1_answers.json``, which
   ``chip_smoke.py`` holds the card's rows against) equal the reference's
@@ -30,6 +31,7 @@ from decimal import Decimal
 
 import numpy as np
 import pytest
+import torch
 
 from trino_tpu.benchmarks.tpch import queries as ref_queries
 from trino_tpu.connectors.tpch import TpchConnector as RefTpch
@@ -40,6 +42,9 @@ from trino_tpu_torch.benchmarks.tpch import queries
 from trino_tpu_torch.connectors.tpch import TpchConnector
 from trino_tpu_torch.ops import dense_groupby as DG
 from trino_tpu_torch.testing import LocalQueryRunner
+
+# one torch thread a test process: xdist workers' pools oversubscribe
+torch.set_num_threads(1)
 
 PROPS = {
     "execution_mode": "distributed",
@@ -68,14 +73,14 @@ def runners():
 QUERIES_HERE = range(1, 12)  # Q12-Q22: test_torch_tpch22.py
 
 
+ANSWERS_TINY = B.ANSWERS_SF1.replace("tpch_sf1_answers", "tpch_tiny_answers")
+
+
 def reference_rows(runners, qs) -> dict:
-    """The reference's rows and column types of queries ``qs``."""
-    ref, _ = runners
-    out = {}
-    for q in qs:
-        res = ref.engine.execute_statement(ref_queries("tpch.tiny")[q], ref.session)
-        out[q] = (res.rows, [t.name for t in res.column_types])
-    return out
+    """The reference's rows (canonical text) and column types of queries
+    ``qs`` at ``tpch.tiny``, as committed."""
+    answers = B.load_answers(ANSWERS_TINY)["queries"]
+    return {q: (answers[str(q)]["rows"], answers[str(q)]["types"]) for q in qs}
 
 
 @pytest.fixture(scope="module")
@@ -96,8 +101,7 @@ def check_query(runners, want, q, mode) -> None:
     rows, types = want[q]
     assert [t.name for t in res.column_types] == types
     bad = B.first_mismatch(
-        B.canonical_rows(res.rows), B.canonical_rows(rows),
-        B.order_positions(port.plan(sql)),
+        B.canonical_rows(res.rows), rows, B.order_positions(port.plan(sql)),
     )
     assert bad is None, f"Q{q}: {bad}"
     if mode == "local":
@@ -232,6 +236,19 @@ def test_sf1_answers_equal_the_reference():
     spec.loader.exec_module(script)
     fresh = json.loads(json.dumps(script.compute("tpch.sf1")))
     assert fresh == B.load_answers()
+
+
+@pytest.mark.slow
+def test_tiny_answers_equal_the_reference():
+    """``tpch_tiny_answers.json`` equals the reference's rows at
+    ``tpch.tiny`` computed anew (about 2 minutes)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "scripts", "tpch_sf1_answers.py")
+    spec = importlib.util.spec_from_file_location("tpch_sf1_answers", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    fresh = json.loads(json.dumps(script.compute("tpch.tiny")))
+    assert fresh == B.load_answers(ANSWERS_TINY)
 
 
 def test_narrow_decimal_group_by_takes_the_dense_path(runners, monkeypatch):

@@ -1,8 +1,9 @@
 """TPC-H Q12-Q22 through trino_tpu_torch against the JAX reference, on
 the CPU: the second half of ``test_torch_tpch.py``'s query test, in a file
-of its own so that two test processes share the cost of the reference's
-rows (computed once per module, by its distributed run under the same
-session properties). Rows and column types must be equal exactly.
+of its own so that two test processes share its cost. The reference's
+rows are its committed answers at ``tpch.tiny``
+(``tpch_tiny_answers.json``). Rows and column types must be equal
+exactly.
 """
 
 import pytest

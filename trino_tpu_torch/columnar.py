@@ -197,12 +197,19 @@ class Batch:
     filters. Logical rows = first num_rows AND sel. A batch with no
     columns and no selection (a scan that reads no column) keeps the
     device it was made on or moved to in ``placement``.
+
+    ``shards`` > 1 marks a batch sharded over a mesh of that many shards
+    (``parallel/mesh.py``): its rows are shard-major, shard ``s`` holding
+    rows ``[s * cap, (s + 1) * cap)`` of ``cap = capacity // shards``, the
+    reference's row-sharded global array (``_is_sharded``,
+    ``trino_tpu/parallel/distributed.py:859``).
     """
 
     columns: list[Column]
     num_rows: int
     sel: torch.Tensor | None = None
     placement: torch.device | None = None
+    shards: int = 1
 
     @property
     def capacity(self) -> int:

@@ -116,6 +116,9 @@ class Engine:
 
     def __init__(self, catalogs: Optional[CatalogManager] = None, device=None):
         self.device = resolve_device(device)
+        # the mesh of execution_mode=distributed (parallel/mesh.py): None
+        # is a mesh of one shard (reference engine.py:90,108)
+        self.mesh = None
         if catalogs is None:
             from trino_tpu_torch.connectors.blackhole import BlackHoleConnector
             from trino_tpu_torch.connectors.memory import MemoryConnector
@@ -226,6 +229,11 @@ class Engine:
             if isinstance(val, Program):
                 self.program_pool.forget(val)
 
+    @property
+    def mesh_n(self) -> int:
+        """Shards of the engine's mesh, folded into every fingerprint."""
+        return 1 if self.mesh is None else self.mesh.size
+
     def fingerprint(self, sql: str, session: Session) -> tuple[Optional[str], list]:
         """Canonical-plan fingerprint and hoisted parameters of a SELECT,
         None for an uncacheable statement (reference ``:892``)."""
@@ -234,7 +242,7 @@ class Engine:
         stmt = parse_statement(sql)
         if not isinstance(stmt, t.Query) or not self._sql_cacheable(sql):
             return None, []
-        _, params, fp = canonicalize_plan(self.plan(stmt, session), session, 1)
+        _, params, fp = canonicalize_plan(self.plan(stmt, session), session, self.mesh_n)
         return fp, params
 
     # --- runtime introspection (the system connector's backends) ----------
@@ -391,7 +399,7 @@ class Engine:
         ):
             from trino_tpu_torch.planner.canonicalize import canonicalize_plan
 
-            canonical, params, fp = canonicalize_plan(plan, session, 1)
+            canonical, params, fp = canonicalize_plan(plan, session, self.mesh_n)
             if fp is not None:
                 exec_plan = canonical
                 entry = self._query_cache_entry(fp)
@@ -508,7 +516,7 @@ class Engine:
             from trino_tpu_torch.exec.fragments import FragmentedExecutor
 
             return FragmentedExecutor(
-                self.catalogs, session, self.device,
+                self.catalogs, session, self.device, mesh=self.mesh,
                 programs=programs, params=params,
                 # programs are captured only into an entry's store
                 pool=self.program_pool if programs is not None else None,
@@ -522,6 +530,11 @@ class Engine:
             raise SemanticError(
                 f"execution_mode={mode!r} is not yet ported to trino_tpu_torch"
             )
+        if mode == "distributed" and self.mesh_n > 1:
+            from trino_tpu_torch.parallel.distributed import DistributedExecutor
+
+            return DistributedExecutor(self.catalogs, session, self.device, self.mesh,
+                                       memory_ctx=ctx)
         return LocalExecutor(self.catalogs, session, self.device, memory_ctx=ctx)
 
     # === session control ==================================================
@@ -590,7 +603,8 @@ class Engine:
         fragments' records and capacity sites (distributed runs), then the
         query's peak memory, dynamic filters, output rows and wall time.
         Distributed runs add the operator section: each site's rows in and
-        out, read with the programs' flags. The reference's device-program
+        out, read with the programs' flags (``exch@`` sites on N shards,
+        with the exchange section). The reference's device-program
         section (XLA cost analysis) has no counterpart."""
         from trino_tpu_torch import stats as S
 
@@ -607,6 +621,8 @@ class Engine:
             caps = (res.exchange_stats or {}).get("capacities")
             if isinstance(caps, dict) and caps:
                 text += "\n\n" + S.render_capacity_stats(caps)
+            if "shuffle_rows" in (res.exchange_stats or {}):
+                text += "\n\n" + S.render_exchange_stats(res.exchange_stats)
             if res.operator_stats:
                 text += "\n\n" + S.render_operator_stats(res.operator_stats)
             wall_ms = collector.total_wall() * 1000

@@ -1,10 +1,16 @@
-"""Fragmented execution of a distributed plan on one device.
+"""Fragmented execution of a distributed plan over a mesh of N shards.
 
 Counterpart of ``trino_tpu/exec/fragments.py``: the plan is cut into
 fragments at its exchanges (``planner/fragmenter.py``) and the fragments
 run leaves first, each consumer reading its producers' results through
-``RemoteSource`` nodes. This engine runs on a mesh of one device, so
-every exchange (hash, broadcast, gather) is the identity.
+``RemoteSource`` nodes. On a mesh of N > 1 shards (``parallel/mesh.py``,
+every shard on the engine's device) the columns are shard-major global
+tensors: scans split over the shards, partial and final aggregates,
+partial TopN and INNER/LEFT equi-joins run once a shard, and each
+fragment's output exchange runs in its program as collectives
+(``apply_output_exchange``: hash, with the skew handling of a
+partitioned join's two sides, or broadcast); a gather, and every exchange
+on a mesh of one, is the identity.
 
 With ``pipeline_fusion`` on, exchange-connected fragments group into
 fused units (``fuse_groups``, the reference's grouping); a unit, or a
@@ -42,8 +48,8 @@ read) and keeps that capacity; an aggregate site first holds its input's
 rows, then the groups it counted. Capacities, programs and the device
 table cache outlive the query (see :class:`FragmentedExecutor`).
 
-Not ported yet: the history store and the N-shard mesh's skew handling
-and exchange counters (ROADMAP item 8b).
+Not ported yet: the history store and the stats seeding of capacities
+(ROADMAP item 9b).
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ from trino_tpu_torch.exec.local import (
 )
 from trino_tpu_torch.ops.aggregation import AggSpec, group_aggregate
 from trino_tpu_torch.ops import join as J
+from trino_tpu_torch.parallel.distributed import DistributedExecutor
 from trino_tpu_torch.ops.sort import sort_indices
 from trino_tpu_torch.planner import plan as P
 from trino_tpu_torch.planner.fragmenter import (
@@ -231,8 +238,21 @@ class _FragmentTracer(LocalExecutor):
     def __init__(self, base: LocalExecutor, inputs, input_layouts,
                  caps: Optional[_Caps] = None, fragment_id: int = 0,
                  root: Optional[P.PlanNode] = None,
-                 builds: Optional[dict] = None, params=None):
+                 builds: Optional[dict] = None, params=None,
+                 skew: Optional[dict] = None):
         super().__init__(base.catalogs, base.session, base.device)
+        # the mesh: on N > 1 shards aggregates, partial topN and joins run
+        # once a shard over the shard-major columns, and the fragment's
+        # output exchange moves rows between the shards
+        self.mesh = getattr(base, "mesh", None)
+        self.n = 1 if self.mesh is None else self.mesh.size
+        # the output exchange's skew role: {"detect": (k, frac)} on a
+        # probe side, {"salt": True, "hotset_key": ...} on a build side
+        self.skew = skew or {}
+        # exchange wire accounting, static per program run
+        self.exchange_static: dict[str, int] = {}
+        # the hot-key set a detecting exchange found, for its build peer
+        self.aux_out: tuple = ()
         self._inputs = inputs
         self._input_layouts = input_layouts
         self._memo: dict[int, Result] = {}
@@ -326,11 +346,14 @@ class _FragmentTracer(LocalExecutor):
         the group count are unselected. A global aggregate, an
         ``array_agg`` or a spilled one runs the local step."""
         res = self._exec(node.source)
-        if not node.group_keys or any(
-            fn.kind == "array_agg" for _, fn in node.aggregates
-        ):
+        array_agg = any(fn.kind == "array_agg" for _, fn in node.aggregates)
+        if self.n > 1 and node.step == "partial" and not node.group_keys and not array_agg:
+            return self._sharded_global_partial(node, res)
+        if not node.group_keys or array_agg:
             return LocalExecutor._exec_aggregate(self, node)
         site = self._site("agg", node)
+        if self.n > 1 and node.step in ("partial", "final"):
+            return self._sharded_aggregate(node, res, site)
         sel = res.batch.selection_mask()
         if node.step == "final":
             inputs, specs, sdicts, fold = self._final_inputs(node, res)
@@ -359,6 +382,69 @@ class _FragmentTracer(LocalExecutor):
             layout = {s.name: i for i, s in enumerate(node.output_symbols)}
         live = torch.arange(cap, device=sel.device) < ng
         return Result(Batch(cols, cap, live, self.device), layout)
+
+    def _sharded_global_partial(self, node: P.Aggregate, res: Result) -> Result:
+        """A partial aggregate without GROUP BY on N shards: one row of
+        accumulators a shard, ``n`` rows shard-major (the reference's
+        partial step runs in the fragment's per-shard body)."""
+        from trino_tpu_torch.ops.aggregation import global_aggregate
+        from trino_tpu_torch.parallel import mesh as M
+
+        n = self.n
+        res = Result(M.as_sharded(res.batch, n), res.layout)
+        inputs, specs, sdicts = self._agg_inputs(node, res)
+
+        def one_row(sel, ins):
+            return [
+                r.reshape(1) if not isinstance(r, tuple)
+                else (r[0].reshape((1,) + tuple(r[0].shape[1:])), r[1].reshape(1))
+                for r in global_aggregate(sel, ins, specs)
+            ]
+
+        raw = M.smap(one_row, self.mesh, [res.batch.selection_mask(), inputs])
+        cols, layout = acc_columns(node, raw, 0, sdicts)
+        return Result(Batch(cols, n, None, self.device, shards=n), layout)
+
+    def _sharded_aggregate(self, node: P.Aggregate, res: Result, site: str) -> Result:
+        """A partial or final GROUP BY on N shards (reference
+        ``_agg_partial``/``_agg_final``): each shard groups its own rows at
+        the site's per-shard capacity; the output is ``n * cap`` rows,
+        shard-major. A final step's rows come from a hash exchange, so
+        each shard holds whole groups."""
+        from trino_tpu_torch.parallel import mesh as M
+
+        n = self.n
+        res = Result(M.as_sharded(res.batch, n), res.layout)
+        sel = res.batch.selection_mask()
+        if node.step == "final":
+            inputs, specs, sdicts, fold = self._final_inputs(node, res)
+        else:
+            inputs, specs, sdicts = self._agg_inputs(node, res)
+            fold = None
+        per = res.batch.capacity // n
+        cap = self.caps.get(site, bucket_capacity(min(per, 1 << 12), minimum=1))
+        keys = [res.opt_pair(k) for k in node.group_keys]
+        (kd, kv), raw, ng, overflow = M.smap(
+            lambda k, s, i: group_aggregate(k, s, i, specs, cap), self.mesh, [keys, sel, inputs]
+        )
+        self.overflows.append((site, overflow.any()))
+        self.needed[site] = ng.max()
+        cols = [
+            Column(k.type, kd[i].to(torch_dtype(k.type.storage_dtype)), kv[i],
+                   res.column(k).dictionary)
+            for i, k in enumerate(node.group_keys)
+        ]
+        if node.step == "partial":
+            acc_cols, acc_layout = acc_columns(node, raw, len(cols), sdicts)
+            layout = {k.name: i for i, k in enumerate(node.group_keys)}
+            layout.update(acc_layout)
+            cols += acc_cols
+        else:
+            raw = fold([r[0] if isinstance(r, tuple) else r for r in raw])
+            cols += finalize_aggs(node, raw, sdicts)
+            layout = {s.name: i for i, s in enumerate(node.output_symbols)}
+        live = (torch.arange(cap, device=sel.device).unsqueeze(0) < ng.unsqueeze(1)).reshape(-1)
+        return Result(Batch(cols, n * cap, live, self.device, shards=n), layout)
 
     @staticmethod
     def _final_inputs(node: P.Aggregate, res: Result):
@@ -460,9 +546,33 @@ class _FragmentTracer(LocalExecutor):
         return self._traced_sort(self._exec(node.source), node.order_by, None)
 
     def _exec_topn(self, node: P.TopN) -> Result:
-        """Final and partial TopN alike: on a mesh of one the partial
-        step's shard (reference: TopNNode PARTIAL) is the whole input."""
-        return self._traced_sort(self._exec(node.source), node.order_by, node.count)
+        """TopN: on N shards the partial step (reference: TopNNode PARTIAL,
+        ``_partial_topn``) keeps each shard's best ``count`` rows, at most
+        the shard's capacity; on a mesh of one its shard is the whole
+        input, as is the final step's."""
+        res = self._exec(node.source)
+        if node.step == "partial" and self.n > 1:
+            return self._partial_topn(res, node)
+        return self._traced_sort(res, node.order_by, node.count)
+
+    def _partial_topn(self, res: Result, node: P.TopN) -> Result:
+        from trino_tpu_torch.parallel import mesh as M
+
+        n = self.n
+        b = M.as_sharded(res.batch, n)
+        res = Result(b, res.layout)
+        per = b.capacity // n
+        keep = min(node.count, max(1, per))
+        key_pairs, keys, ranks = self._sort_operands(res, node.order_by)
+        sel = b.selection_mask()
+        perms = []
+        for s in range(n):
+            lo, hi = s * per, (s + 1) * per
+            local = [(d[lo:hi], v[lo:hi]) for d, v in key_pairs]
+            perms.append(sort_indices(local, keys, sel[lo:hi], ranks)[:keep] + lo)
+        perm = torch.cat(perms)
+        cols = [c.take(perm) for c in b.columns]
+        return Result(Batch(cols, n * keep, sel[perm], b.device, shards=n), res.layout)
 
     def _traced_sort(self, res: Result, order_by, keep: Optional[int]) -> Result:
         """All rows in ORDER BY order (selected first), cut to ``keep``."""
@@ -526,6 +636,9 @@ class _FragmentTracer(LocalExecutor):
             return LocalExecutor._exec_join(self, node)
         right = self._exec(node.right)
         left = self._exec(node.left)
+        full = node.join_type == "FULL"
+        if self.n > 1 and self.builds is None and not full and not node.single_row:
+            return self._sharded_join(node, left, right)
         lkeys, rkeys = self._join_keys(
             left, right, node.criteria, remap_probe=self.builds is not None
         )
@@ -536,7 +649,6 @@ class _FragmentTracer(LocalExecutor):
             probe_cols += [c.data, c.valid_mask()]
         for kd, kv in lkeys:
             probe_keys += [kd, kv]
-        full = node.join_type == "FULL"
         join_site = self._site("join", node)
         dense_site = self._site("densejoin", node)
         strategy = self._join_strategy(node, lkeys)
@@ -572,6 +684,69 @@ class _FragmentTracer(LocalExecutor):
                 Batch(result.batch.columns, cap, mask & out_sel), result.layout
             )
         return result
+
+    def _sharded_join(self, node: P.Join, left: Result, right: Result) -> Result:
+        """An INNER or LEFT equi-join on N shards (reference ``_exec_join``
+        over ``_sharded_probe``): each shard probes its own rows against
+        its slice of a hash-exchanged build side, or against the whole
+        build side otherwise; the dense and matmul tiers build one K2 table
+        a shard. The output site's capacity is per shard; its first run
+        sizes it to the largest shard's matches."""
+        from trino_tpu_torch.parallel import mesh as M
+        from trino_tpu_torch.parallel.distributed import _sharded_probe
+
+        n = self.n
+        build_sharded = (
+            isinstance(node.right, P.RemoteSource) and node.right.exchange_type == "hash"
+        )
+        left = Result(M.as_sharded(left.batch, n), left.layout)
+        if build_sharded:
+            right = Result(M.as_sharded(right.batch, n), right.layout)
+        lkeys, rkeys = self._join_keys(left, right, node.criteria)
+        ph, _ = J.hash_keys(lkeys)
+        bh, _ = J.hash_keys(rkeys)
+        probe_cols, probe_keys, build_cols, build_keys = [], [], [], []
+        for s in node.left.output_symbols:
+            c = left.column(s)
+            probe_cols += [c.data, c.valid_mask()]
+        for s in node.right.output_symbols:
+            c = right.column(s)
+            build_cols += [c.data, c.valid_mask()]
+        for kd, kv in lkeys:
+            probe_keys += [kd, kv]
+        for kd, kv in rkeys:
+            build_keys += [kd, kv]
+        join_site = self._site("join", node)
+        dense_site = self._site("densejoin", node)
+        strategy = self._join_strategy(node, lkeys)
+        self.caps.join_strategies[dense_site] = strategy
+        bsel = right.batch.selection_mask()
+        table_cap = None
+        if strategy != "sort":
+            rows = 0
+            if dense_site not in self.caps.vals:
+                rows = int(M.shard_view(bsel, n).sum(1).max()) if build_sharded \
+                    else int(bsel.sum())
+            table_cap = self.caps.get(dense_site, bucket_capacity(max(1024, 4 * rows)))
+        cap = self.caps.vals.get(join_site)
+        out_cols, out_sel, ovf, tovf, total = _sharded_probe(
+            self.mesh, probe_cols, probe_keys, ph, left.batch.selection_mask(),
+            build_cols, build_keys, bh, bsel, cap, node.join_type, len(rkeys),
+            build_sharded=build_sharded, strategy=strategy, table_cap=table_cap,
+        )
+        if tovf is not None:
+            self.overflows.append((dense_site, tovf))
+        if cap is None:
+            cap = self.caps.get(join_site, out_sel.shape[0] // n)
+        self.overflows.append((join_site, ovf))
+        self.needed[join_site] = total
+        result = join_output(node, left, right, out_cols, n * cap, out_sel)
+        mask = out_sel
+        if node.filter is not None:
+            expr = self._bind(node.filter, result.layout)
+            mask = bound_filter_mask(expr, result.batch.columns, self.device, self.params) & out_sel
+        return Result(Batch(result.batch.columns, n * cap, mask, self.device, shards=n),
+                      result.layout)
 
     def _join_build(self, node: P.Join, right: Result, rkeys, strategy: str,
                     dense_site: str, full: bool):
@@ -715,7 +890,107 @@ class _FragmentTracer(LocalExecutor):
             node, left, mark_column(node, left, matched[:cap], lkeys, bv_all, bsel)
         )
 
+    # --- the output exchange (reference :3436-3560) -------------------------
 
+    def apply_output_exchange(self, frag: PlanFragment, res: Result) -> Result:
+        """The fragment's output exchange on N shards: ``broadcast``
+        all-gathers the rows to every shard; ``hash`` repartitions them by
+        the output keys' hash through the two-tier exchange (a small cold
+        bucket a (src, dst) pair and a shared spill tier), with a hot
+        region when the fragment has a skew role (``self.skew``: a probe
+        side detects the heavy hitters, its build peer salts with them);
+        ``single`` and the root leave the global columns as they are. The
+        exchange's flags and counters ride the program's words; its wire
+        accounting (slots each source ships) is static."""
+        if self.n <= 1 or frag.output_exchange in (None, "single"):
+            return res
+        from trino_tpu_torch.parallel import exchange as X
+        from trino_tpu_torch.parallel import mesh as M
+
+        n = self.n
+        b = M.as_sharded(res.batch, n)
+        res = Result(b, res.layout)
+        sel = b.selection_mask()
+        # wide DECIMAL columns ship as separate hi/lo lanes
+        arrays, schema = [], []
+        for c in b.columns:
+            if c.data.ndim == 2:
+                arrays += [c.data[:, 0], c.data[:, 1], c.valid_mask()]
+                schema.append((c.type, c.dictionary, 2))
+            else:
+                arrays += [c.data, c.valid_mask()]
+                schema.append((c.type, c.dictionary, 1))
+
+        def rebuild(out, out_sel):
+            cols, i = [], 0
+            for t, d, lanes in schema:
+                if lanes == 2:
+                    cols.append(Column(t, torch.stack([out[i], out[i + 1]], 1), out[i + 2], d))
+                    i += 3
+                else:
+                    cols.append(Column(t, out[i], out[i + 1], d))
+                    i += 2
+            self._op_exchange(frag, sel, out_sel)
+            return Result(Batch(cols, int(out_sel.shape[0]), out_sel, self.device, shards=n),
+                          res.layout)
+
+        if frag.output_exchange == "broadcast":
+            return rebuild(*X.broadcast_all(self.mesh, arrays, sel))
+        khash, _ = J.hash_keys([res.pair(s) for s in frag.output_keys])
+        detect = self.skew.get("detect")
+        hot_set = None
+        if self.skew.get("salt"):
+            hs = self._inputs[self.skew.get("hotset_key", "__hotset__")]
+            hot_set = (hs.columns[0].data, hs.columns[1].data)
+        salted = detect is not None or hot_set is not None
+        # cold tier: ~2x the uniform per-(src, dst) share; half that when a
+        # hot set routes the heavy mass away from the cold path
+        per_pair = b.capacity // (n * n)
+        default_bucket = bucket_capacity(max(64, per_pair if salted else 2 * per_pair),
+                                         minimum=64)
+        fid = frag.id
+        bucket = self.caps.get(f"exch@{fid}", default_bucket)
+        spill = self.caps.get(f"spill@{fid}", max(64, bucket // 2))
+        if detect is not None:
+            # hot rows stay on their source shard: the region holds a
+            # shard's rows
+            hot_mode = "local"
+            hot_cap = self.caps.get(f"hot@{fid}", bucket_capacity(max(64, b.capacity // n),
+                                                                  minimum=64))
+        elif hot_set is not None:
+            # the hot slice of a near-unique build side is small
+            hot_mode = "replicate"
+            hot_cap = self.caps.get(f"hot@{fid}", bucket_capacity(max(64, per_pair), minimum=64))
+        else:
+            hot_mode, hot_cap = None, 0
+        out, out_sel, (sp_ovf, hot_ovf), (sent, hot_rows, hot_keys), hotset = \
+            X.skewed_repartition(self.mesh, arrays, khash, sel, bucket, spill,
+                                 hot_mode=hot_mode, hot_cap=hot_cap, hot_set=hot_set,
+                                 detect=detect)
+        self.overflows.append((f"spill@{fid}", sp_ovf))
+        if hot_mode is not None:
+            self.overflows.append((f"hot@{fid}", hot_ovf))
+            self.counters.append((f"salted@{fid}", hot_rows))
+        if detect is not None:
+            self.aux_out = hotset[:2]
+            self.counters.append((f"hotkeys@{fid}", hot_keys))
+        self.counters.append((f"sent@{fid}", sent))
+        wire_slots = n * bucket + spill + (hot_cap if hot_mode == "replicate" else 0)
+        row_bytes = sum(a.element_size() for a in arrays)
+        st = self.exchange_static
+        st["exchanges"] = st.get("exchanges", 0) + 1
+        st["padded_shuffle_rows"] = st.get("padded_shuffle_rows", 0) + n * wire_slots
+        st["shuffle_bytes"] = st.get("shuffle_bytes", 0) + n * wire_slots * row_bytes
+        return rebuild(out, out_sel)
+
+    def _op_exchange(self, frag: PlanFragment, sel_in, sel_out) -> None:
+        """The exchange's leg of the operator counters (``exch@{fid}``):
+        rows offered and rows landed (a broadcast lands n copies)."""
+        if not self._op_enabled:
+            return
+        site = f"exch@{frag.id}"
+        self.counters.append((f"op!exchange!in!{site}", sel_in.sum(dtype=torch.int64)))
+        self.counters.append((f"op!exchange!out!{site}", sel_out.sum(dtype=torch.int64)))
 
 
 # --- fusability (reference: fragment_fusable) -------------------------------
@@ -904,6 +1179,8 @@ class _TracerSummary:
         self.overflows.extend(tracer.overflows)
         self.needed.extend(tracer.needed.items())
         self.counters.extend(tracer.counters)
+        for k, v in tracer.exchange_static.items():
+            self.exchange_static[k] = self.exchange_static.get(k, 0) + v
 
 
 class _BatchSummary:
@@ -921,6 +1198,13 @@ class _BatchSummary:
         for j, col in enumerate(zip(*rows)):
             out.append(max(col) if j < self.nflags + self.nneeded else sum(col))
         return out
+
+
+def _hotset_batch(hot_set) -> Batch:
+    """A hot-key set ``(hashes, valid)`` as a program input."""
+    hh, hv = hot_set[0], hot_set[1]
+    return Batch([Column(T.BIGINT, hh), Column(T.BOOLEAN, hv)], int(hh.shape[0]), None,
+                 hh.device)
 
 
 def _post_order(sub: SubPlan) -> list[PlanFragment]:
@@ -951,7 +1235,7 @@ def _root_key(root: P.PlanNode, original: P.PlanNode):
     return hashlib.sha1(text.encode()).hexdigest()
 
 
-class FragmentedExecutor(LocalExecutor):
+class FragmentedExecutor(DistributedExecutor):
     """Distributed-mode executor: the plan's fragments bottom-up, grouped
     into fused units, each unit one program.
 
@@ -967,12 +1251,16 @@ class FragmentedExecutor(LocalExecutor):
     the device across queries when the session's ``table_cache`` is on,
     within ``table_cache_bytes``."""
 
-    def __init__(self, catalogs, session, device,
+    def __init__(self, catalogs, session, device, mesh=None,
                  programs: Optional[dict] = None, params=None, pool=None,
                  table_cache=None, table_cache_bytes: int = 1 << 30,
                  memory_ctx=None):
-        super().__init__(catalogs, session, device, memory_ctx=memory_ctx)
-        self.exchange_stats: dict = {"overflow_retries": 0, "joinStrategy": {}}
+        super().__init__(catalogs, session, device, mesh, memory_ctx=memory_ctx)
+        if self.n_shards == 1:
+            self.exchange_stats = {"overflow_retries": 0}
+        self.exchange_stats["joinStrategy"] = {}
+        # hot-key sets of the probe exchanges that ran, by fragment id
+        self._hot_sets: dict[int, tuple] = {}
         # fragment id -> "streamed" | "materialized" (one program, a fused
         # unit's member or an eager fragment)
         self.fragment_modes: dict[int, str] = {}
@@ -1005,7 +1293,7 @@ class FragmentedExecutor(LocalExecutor):
             node.limit is not None  # a limit hint stops reading early
         ) or not getattr(connector, "supports_result_caching", True):
             # live state (the system catalog) is read anew every scan
-            return LocalExecutor._exec_tablescan(self, node)
+            return self._exec_tablescan(node)
         from trino_tpu_torch.ingest import batch_nbytes, table_cache_key
 
         splits = self._scan_splits(node)
@@ -1013,7 +1301,7 @@ class FragmentedExecutor(LocalExecutor):
             node.catalog, node.schema, node.table,
             connector.data_version(node.schema, node.table),
             node.column_names, splits, self.device,
-        )
+        ) + ((("shards", self.n_shards),) if self.n_shards > 1 else ())
         stats = self.ingest_stats
         cached = self.table_cache.lookup(key)
         stats["tableCache"] = self.table_cache.snapshot()
@@ -1021,7 +1309,7 @@ class FragmentedExecutor(LocalExecutor):
             stats["table_cache_hits"] = stats.get("table_cache_hits", 0) + 1
             return Result(cached, {s.name: i for i, s in enumerate(node.symbols)})
         stats["table_cache_misses"] = stats.get("table_cache_misses", 0) + 1
-        res = LocalExecutor._exec_tablescan(self, node, splits)
+        res = self._exec_tablescan(node, splits)
         nbytes = batch_nbytes(res.batch)
         admitted = self.table_cache.admit(key, res.batch, nbytes, self.table_cache_bytes)
         if not admitted and nbytes <= self.table_cache_bytes and self.pool is not None \
@@ -1078,6 +1366,10 @@ class FragmentedExecutor(LocalExecutor):
             if isinstance(key, tuple) and key and key[0] == "caps" and isinstance(val, _Caps):
                 strategies.update(val.join_strategies)
         st["joinStrategy"] = strategies
+        if self.n_shards > 1:
+            st["capacities"] = self._capacity_report()
+            st["padding_ratio"] = round(
+                st.get("padded_shuffle_rows", 0) / max(1, st.get("shuffle_rows", 0)), 4)
         if self.operator_stats:
             st["operators"] = {k: dict(v) for k, v in self.operator_stats.items()}
         if self.pool is not None and self.pool.on_card:
@@ -1258,7 +1550,9 @@ class FragmentedExecutor(LocalExecutor):
         members, inputs, layouts, copied = self._unit_inputs(
             unit.fragments, results, names_holder
         )
-        out = self.run_fused_program(members, inputs, layouts, copied)
+        skew = self._root_skew(unit.id, inputs, copied)
+        out = self.run_fused_program(members, inputs, layouts, copied, skew)
+        self._keep_hot_set(unit.id, out)
         for frag in unit.fragments:
             self.fragment_modes[frag.id] = "materialized"
         self._count("fusedFragments", len(unit.fragments))
@@ -1280,6 +1574,11 @@ class FragmentedExecutor(LocalExecutor):
         tried = self.exchange_stats.get("stream_fallbacks", 0)
         with allow_sync(self.device):
             streamed = self._try_streaming(frag, names_holder, results)
+            if streamed is not None and self.n_shards > 1:
+                skew_inputs: dict = {}
+                skew = self._root_skew(frag.id, skew_inputs, set())
+                streamed = self._exchange_eagerly(frag, streamed, skew, skew_inputs)
+                self._keep_hot_set(frag.id, streamed)
         if streamed is not None or self.exchange_stats.get("stream_fallbacks", 0) != tried:
             self._count("host_synced_fragments")
         if streamed is not None:
@@ -1291,9 +1590,10 @@ class FragmentedExecutor(LocalExecutor):
         )
         self.fragment_modes[frag.id] = "materialized"
         out = None
+        skew = self._root_skew(frag.id, inputs, copied)
         if fragment_fusable(frag) and ("eager", frag.id) not in self.programs:
             try:
-                out = self.run_fragment_program(frag, root, inputs, layouts, copied)
+                out = self.run_fragment_program(frag, root, inputs, layouts, copied, skew)
                 self._record_fragment(frag.id, "program", t0, out)
             except NotCapturable:
                 # an operator needs the host: the fragment runs eagerly,
@@ -1303,9 +1603,89 @@ class FragmentedExecutor(LocalExecutor):
         if out is None:
             self._count("host_synced_fragments")
             with allow_sync(self.device):
-                out = self._run_with_retries(frag.id, root, inputs, layouts)
+                out = self._run_with_retries(frag.id, root, inputs, layouts, frag, skew)
             self._record_fragment(frag.id, "materialized", t0, out)
+        self._keep_hot_set(frag.id, out)
         return out
+
+    # --- skew roles and hot-key sets (reference :643, :1230-1260) -----------
+
+    def _skew_roles(self) -> dict[int, dict]:
+        """Producer fragment id -> skew role for every partitioned
+        (hash/hash) INNER or LEFT equi-join on N shards: the probe side's
+        exchange detects the heavy hitters over the probe key hashes (the
+        fragmenter cuts ``Join.left`` first, so it runs first) and the
+        build side's salts with that hot set. SEMI/ANTI and single-row
+        joins keep the plain two-tier exchange."""
+        roles = self.programs.get("__skewroles__")
+        if roles is None:
+            roles = {}
+            sub = self.programs.get("__subplan__")
+            if sub is not None and self.n_shards > 1 and bool(self.session.get("skew_handling")):
+                for frag in sub.all_fragments():
+                    for node in P.walk_plan(frag.root):
+                        if (
+                            isinstance(node, P.Join)
+                            and node.join_type in ("INNER", "LEFT")
+                            and node.criteria
+                            and not node.single_row
+                            and isinstance(node.left, P.RemoteSource)
+                            and node.left.exchange_type == "hash"
+                            and isinstance(node.right, P.RemoteSource)
+                            and node.right.exchange_type == "hash"
+                        ):
+                            roles[node.left.fragment_id] = {"role": "probe"}
+                            roles[node.right.fragment_id] = {
+                                "role": "build", "peer": node.left.fragment_id,
+                            }
+            self.programs["__skewroles__"] = roles
+        return roles
+
+    def _detect(self) -> tuple:
+        return (max(1, int(self.session.get("skew_hot_k"))),
+                float(self.session.get("skew_hot_threshold_frac")))
+
+    def _root_skew(self, fid: int, inputs: dict, copied: set) -> Optional[dict]:
+        """The skew role of a unit's root exchange: a probe detects; a
+        build whose probe peer ran gets the peer's hot set as the
+        ``__hotset__`` input (copied into a replay, never a constant)."""
+        if self.n_shards == 1:
+            return None
+        role = self._skew_roles().get(fid)
+        if role is None:
+            return None
+        if role["role"] == "probe":
+            return {"detect": self._detect()}
+        hs = self._hot_sets.get(role["peer"])
+        if hs is None:
+            return None
+        inputs["__hotset__"] = _hotset_batch(hs)
+        copied.add("__hotset__")
+        return {"salt": True}
+
+    def _keep_hot_set(self, fid: int, res: Result) -> None:
+        aux = getattr(res, "aux", ())
+        if aux:
+            self._hot_sets[fid] = aux
+
+    def _exchange_eagerly(self, frag: PlanFragment, res: Result, skew, inputs) -> Result:
+        """A streamed fragment's output exchange, under the overflow
+        protocol of its own sites (one host read a run)."""
+        from trino_tpu_torch.exec.programs import host_read
+
+        caps = self._caps("exchange", frag.id)
+        for _ in range(MAX_ATTEMPTS):
+            tracer = _FragmentTracer(self, inputs, {}, caps, frag.id, None, skew=skew)
+            out = tracer.apply_output_exchange(frag, res)
+            meta, summary = _Meta(), _TracerSummary()
+            summary.absorb(tracer)
+            meta.capture(out, summary)
+            vals = host_read(_Meta.words(summary, self.device), self.exchange_stats)
+            if self._settle(meta, vals, caps, set()):
+                out.aux = tracer.aux_out
+                return out
+        raise CapacityRetryExceeded("exchange", fragment_id=frag.id, capacities=caps.vals,
+                                    attempts=MAX_ATTEMPTS)
 
     def _record_fragment(self, fid: int, mode: str, t0: float, res: Result,
                          **extra) -> None:
@@ -1322,14 +1702,14 @@ class FragmentedExecutor(LocalExecutor):
     # --- programs (reference: run_fragment_program, run_fused_program) ------
 
     def run_fragment_program(self, frag: PlanFragment, root: P.PlanNode, inputs,
-                             layouts, copied) -> Result:
+                             layouts, copied, skew=None) -> Result:
         """One fragment as one program (reference ``:1737``)."""
         caps = self._caps(frag.id)
         key = ("frag", frag.id, _root_key(root, frag.root))
-        return self._retry_traced(caps, self._unit_fn([(frag, root)], layouts, caps),
+        return self._retry_traced(caps, self._unit_fn([(frag, root)], layouts, caps, skew),
                                   inputs, copied, key)
 
-    def run_fused_program(self, members, inputs, layouts, copied) -> Result:
+    def run_fused_program(self, members, inputs, layouts, copied, skew=None) -> Result:
         """A fused unit as one program (reference ``:1802``): the members
         run back to back, each producer's result feeding its consumer's
         RemoteSource on the device, nothing read on the host between
@@ -1337,33 +1717,63 @@ class FragmentedExecutor(LocalExecutor):
         fids = tuple(f.id for f, _ in members)
         caps = self._caps("fused", fids)
         key = ("fused", fids, tuple(_root_key(r, f.root) for f, r in members))
-        return self._retry_traced(caps, self._unit_fn(members, layouts, caps),
+        return self._retry_traced(caps, self._unit_fn(members, layouts, caps, skew),
                                   inputs, copied, key)
 
-    def _unit_fn(self, members, input_layouts, caps):
+    def _unit_fn(self, members, input_layouts, caps, skew=None):
         """``build(meta) -> fn(inputs) -> (result, words)``: the unit's
-        device work over its inputs (the program's function)."""
+        device work over its inputs (the program's function). On N shards
+        each member's output exchange runs in the program as collectives;
+        a partitioned join's probe member hands its hot-key set to its
+        build member inside the program, and the root's exchange takes
+        ``skew`` (reference ``run_fused_program``, :1802-1935)."""
 
         from trino_tpu_torch.exec import programs as PR
+
+        roles = self._skew_roles() if self.n_shards > 1 else {}
+        member_ids = {f.id for f, _ in members}
+        member_skew: dict[int, dict] = {}
+        for frag, _ in members[:-1]:
+            role = roles.get(frag.id)
+            if role is None:
+                continue
+            if role["role"] == "probe":
+                member_skew[frag.id] = {"detect": self._detect()}
+            elif role["peer"] in member_ids:
+                member_skew[frag.id] = {"salt": True, "peer": role["peer"]}
 
         def build(meta: _Meta):
             def fn(inp):
                 avail = dict(inp)
                 layouts = dict(input_layouts)
                 combined = _TracerSummary()
-                res = None
+                hot_sets: dict[int, tuple] = {}
+                res = tracer = None
                 for k, (frag, root) in enumerate(members):
+                    last = k + 1 == len(members)
+                    mskew = skew if last else member_skew.get(frag.id)
+                    if not last and mskew is not None and mskew.get("salt"):
+                        hs = hot_sets.get(mskew["peer"])
+                        mskew = None
+                        if hs is not None:
+                            key = f"__hotset__{frag.id}"
+                            avail[key] = _hotset_batch(hs)
+                            mskew = {"salt": True, "hotset_key": key}
                     tracer = _FragmentTracer(
                         self, avail, layouts, caps, frag.id, root,
-                        params=inp.get("__params__"),
+                        params=inp.get("__params__"), skew=mskew,
                     )
-                    res = tracer._exec(root)
+                    res = tracer.apply_output_exchange(frag, tracer._exec(root))
                     combined.absorb(tracer)
                     combined.overflows.extend(PR.take_deferred_errors())
-                    if k + 1 < len(members):
+                    if tracer.aux_out:
+                        hot_sets[frag.id] = tracer.aux_out
+                    if not last:
                         avail[f"remote{frag.id}"] = res.batch
                         layouts[f"remote{frag.id}"] = res.layout
-                combined.exchange_static = {"dispatchRoundTrips": 1}
+                combined.exchange_static["dispatchRoundTrips"] = 1
+                if tracer.aux_out:
+                    res.aux = tracer.aux_out
                 meta.capture(res, combined)
                 return res, _Meta.words(combined, self.device)
 
@@ -1418,9 +1828,21 @@ class FragmentedExecutor(LocalExecutor):
                         self.pool.touch(self.programs, (pkey, caps.signature()))
                     # the inputs under the names the program was made with
                     named = dict(zip(prog.input_keys, inputs.values()))
-                    res, words = PR.replay(self.pool, prog, named, copied)
+                    # a program whose graph the budget took is captured
+                    # again once its last capture's growth fits; this run
+                    # is the warm-up
+                    recorder = (PR.ConstantRecorder()
+                                if self.pool is not None and self.pool.may_recapture(prog)
+                                else None)
+                    if recorder is not None:
+                        with PR.program_run(), recorder.record():
+                            res, words = prog.fn(named)
+                    else:
+                        res, words = PR.replay(self.pool, prog, named, copied)
                     vals = PR.host_read(words, self.exchange_stats)
                     if self._settle(prog.meta, vals, caps, fresh=()):
+                        if recorder is not None:
+                            PR.capture(self.pool, prog, named, copied, recorder)
                         return res
                     continue
                 meta = _Meta()
@@ -1520,6 +1942,12 @@ class FragmentedExecutor(LocalExecutor):
         for k, v in meta.exchange_static.items():
             self._count(k, v)
         for nm, v in zip(meta.counter_names, counters):
+            if not nm.startswith("op!"):
+                # an exchange's counters (reference _accumulate_exchange)
+                key = {"sent": "shuffle_rows", "salted": "salted_rows",
+                       "hotkeys": "hot_keys"}[nm.split("@", 1)[0]]
+                self._count(key, int(v))
+                continue
             _, kind, io, site = nm.split("!", 3)
             ent = self.operator_stats.setdefault(
                 site, {"kind": kind, "rows_in": 0, "rows_out": 0}
@@ -1560,6 +1988,8 @@ class FragmentedExecutor(LocalExecutor):
 
         if self.stats_collector is not None:
             raise BatchUnsupported("stats collector attached")
+        if self.n_shards > 1:
+            raise BatchUnsupported("a mesh of several shards")
         if not param_lists or not param_lists[0]:
             raise BatchUnsupported("no hoisted parameters")
         sub = self.programs.get("__subplan__")
@@ -1646,7 +2076,8 @@ class FragmentedExecutor(LocalExecutor):
     # --- eager fragments ------------------------------------------------------
 
     def _run_with_retries(self, fid: int, root: P.PlanNode, inputs,
-                          layouts) -> Result:
+                          layouts, frag: Optional[PlanFragment] = None,
+                          skew=None) -> Result:
         """Run a fragment that is not one program (a node the program path
         does not take) eagerly, under the same overflow protocol: its
         flags in one host read a run, each fired site grown."""
@@ -1655,8 +2086,10 @@ class FragmentedExecutor(LocalExecutor):
         caps = self._caps(fid)
         for _ in range(MAX_ATTEMPTS):
             sized_before = set(caps.vals)
-            tracer = _FragmentTracer(self, inputs, layouts, caps, fid, root)
+            tracer = _FragmentTracer(self, inputs, layouts, caps, fid, root, skew=skew)
             res = tracer._exec(root)
+            if frag is not None:
+                res = tracer.apply_output_exchange(frag, res)
             meta = _Meta()
             summary = _TracerSummary()
             summary.absorb(tracer)
@@ -1664,6 +2097,7 @@ class FragmentedExecutor(LocalExecutor):
             words = _Meta.words(summary, self.device)
             vals = host_read(words, self.exchange_stats) if words.numel() else []
             if self._settle(meta, vals, caps, set(caps.vals) - sized_before):
+                res.aux = tracer.aux_out
                 return res
             # the failed attempt's intermediates die before the rerun
             del tracer, res

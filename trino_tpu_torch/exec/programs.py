@@ -25,15 +25,20 @@ Later runs of the same program replay the graph:
   valid for the data versions of the program-cache entry that holds the
   program;
 - **memory**: graphs allocate from private pools (:class:`ProgramPool`),
-  each shared by the programs captured into it one after the other, so
-  cached graphs do not each keep their intermediates. Graphs are
-  replayed one at a time and their outputs cloned at once, so a graph
-  may reuse what another freed. A pool's segments return to the card
-  only once no graph holds them, so pools come in generations: captures
-  go into the newest until it passes half the budget, and a capture
-  that finds all generations past the budget first drops the least
-  recently used programs until an older generation holds none and is
-  released.
+  each shared by the programs captured into it one after the other, on
+  one capture stream, so a capture reuses the scratch that the pool's
+  earlier captures freed and cached graphs do not each keep their
+  intermediates. Graphs are replayed one at a time and their outputs
+  cloned at once, so a graph may reuse what another freed. A pool's
+  segments return to the card only once no graph holds them, so pools
+  come in generations: captures go into the newest until its graphs'
+  live outputs pass half the budget. The budget is a bound: before a
+  capture, and again after it, the graphs of the least recently used
+  programs go while the generations hold more than the budget (a
+  generation left with no graph is released; a generation that alone
+  passes it loses every graph). A program whose graph went stays stored
+  and runs as a function on its later hits, until a hit finds room under
+  the budget for what its capture took: that hit captures it again.
 
 On the CPU there is no graph: the same prepared program runs eagerly on
 each hit and counts traces and hits exactly as on the card. A CPU
@@ -402,6 +407,7 @@ def _static_copy(value):
         value.num_rows,
         None if value.sel is None else value.sel.clone(),
         value.device,
+        value.shards,
     )
 
 
@@ -442,6 +448,10 @@ class Program:
         # inputs, outputs and words, and the recorded constants
         self.held_bytes = 0
         self.generation: Optional[dict] = None  # the pool generation of its graph
+        # what its last capture added to the generations' segments: a
+        # program whose graph went is captured again on a hit that finds
+        # this much room under the budget
+        self.capture_bytes: Optional[int] = None
 
 
 class ProgramPool:
@@ -451,11 +461,17 @@ class ProgramPool:
     the chip checks show.
 
     Graphs share their memory in generations: each generation is one
-    private pool, captured into until its segments pass half the budget,
-    then closed to new captures. A pool's segments return to the card
-    only once no graph holds them, so before each capture, while all the
-    generations together hold more than the budget, the least recently
-    used programs go; a generation left with none is released."""
+    private pool, captured into (on one stream, so that captures reuse
+    each other's scratch) until its graphs' live outputs pass half the
+    budget, then closed to new captures. A pool's segments return to the
+    card only once no graph holds them, so before each capture and after
+    it, while all the generations together hold more than the budget,
+    the graphs of the least recently used programs go (``dropped``); a
+    generation left with none is released. The newest capture's graph
+    goes last, or with its generation's when that alone passes the
+    budget. The programs stay stored and run as functions on later hits
+    (``eager_hits``) until one finds room for their capture
+    (``recaptures``)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -473,11 +489,26 @@ class ProgramPool:
         # CPU rehearsal of each capture under HostReadGuard (tests)
         self.rehearse = False
         self.captures = 0
+        self.recaptures = 0  # captures of programs whose graph had gone
         self.evicted = 0  # programs dropped by evictions
+        self.dropped = 0  # graphs dropped to hold the budget (programs kept)
+        self.eager_hits = 0  # hits of a program with no graph, run as functions
+        # every capture runs on this one stream: the allocator gives a
+        # freed block of a pool only to the stream that allocated it, so
+        # a capture reuses what the generation's earlier captures freed
+        self._stream = None
+        # the allocator's segments, one dict a segment (a CPU test gives
+        # its own)
+        self.snapshot = torch.cuda.memory_snapshot if self.on_card else None
 
     @property
     def on_card(self) -> bool:
         return self.device.type == "cuda"
+
+    def stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
 
     def generation(self) -> dict:
         """The generation a new capture goes into: the newest while it is
@@ -535,34 +566,111 @@ class ProgramPool:
         return dropped
 
     def make_room(self) -> None:
-        """Before a capture: close the newest generation past half the
-        budget, then drop least recently used programs while the
-        generations hold more than the budget and an older one could be
-        released."""
+        """Before a capture: close the newest generation once its graphs'
+        live blocks (their outputs) pass half the budget, then hold the
+        budget (:meth:`_fit_budget`). The rest of a generation's segments
+        is the scratch its captures freed, which the next capture into it
+        reuses: a generation is not closed for that."""
+        segs = self._segments_by_generation()
+        if segs is None:
+            return
+        if self._gens and segs.get(id(self._gens[-1]), (0, 0))[1] > self.budget_bytes // 2:
+            self._gens[-1]["open"] = False
+        self._fit_budget({g: total for g, (total, _) in segs.items()})
+
+    def settle(self, program: Program) -> None:
+        """After ``program``'s capture: when its generation alone holds
+        more than the budget, every graph of the generation goes, its own
+        too, and the generation's bytes become ``program``'s capture size
+        (so it is not captured again until that much fits); then
+        :meth:`_fit_budget`, ``program``'s graph kept."""
         by_gen = self._reserved_by_generation()
         if by_gen is None:
             return
-        if self._gens and by_gen.get(id(self._gens[-1]), 0) > self.budget_bytes // 2:
-            self._gens[-1]["open"] = False
-        while self._lru and sum(by_gen[id(g)] for g in self._gens if id(g) in by_gen) \
-                > self.budget_bytes and len(self._gens) > 1:
-            self._evict_one()
+        gen = program.generation
+        if gen is not None and by_gen.get(id(gen), 0) > self.budget_bytes:
+            program.capture_bytes = max(program.capture_bytes or 0, by_gen[id(gen)])
+            for other in self._holders(lambda p: p.generation is gen and p is not program):
+                self._drop_graph(other)
+            self._drop_graph(program)
+            self._release()
+            by_gen = self._reserved_by_generation()
+        self._fit_budget(by_gen, keep=program)
+        by_gen = self._reserved_by_generation()
+        program.pool_bytes = sum(by_gen.values()) if by_gen else 0
+
+    def _holders(self, want) -> list:
+        """Stored programs holding a graph that ``want`` takes, least
+        recently used first."""
+        out = []
+        for store, key in self._lru.values():
+            prog = store.get(key)
+            if prog is not None and prog.generation is not None and want(prog):
+                out.append(prog)
+        return out
+
+    def _fit_budget(self, by_gen: dict, keep: Optional[Program] = None) -> None:
+        """While the generations hold more than the budget, the graphs of
+        the least recently used programs go (a graph-less program holds
+        no segment and is passed by; ``keep``'s graph stays)."""
+        def total() -> int:
+            return sum(by_gen.get(id(g), 0) for g in self._gens)
+
+        while total() > self.budget_bytes:
+            victims = self._holders(lambda p: p is not keep)
+            if not victims:
+                break
+            self._drop_graph(victims[0])
         self._release()
 
-    def _reserved_by_generation(self) -> Optional[dict]:
-        if not self.on_card:
+    def _drop_graph(self, program: Program) -> None:
+        """Release ``program``'s graph, outputs and buffers; the program
+        stays stored and runs as a function on its later hits until one
+        finds room to capture it again (:meth:`may_recapture`). Its
+        generation, left with no graph, is released."""
+        gen = program.generation
+        program.graph = program.generation = None
+        program.static_inputs, program.constants = {}, []
+        program.static_result = program.static_words = None
+        program.held_bytes = 0
+        if gen is not None:
+            gen["programs"].discard(id(program))
+            if not gen["programs"] and gen in self._gens:
+                self._gens.remove(gen)
+                self._released = True
+        self.dropped += 1
+
+    def _segments_by_generation(self) -> Optional[dict]:
+        """``{id(generation): (segment bytes, live block bytes)}``, or None
+        where the allocator gives no snapshot."""
+        if self.snapshot is None:
             return None
         try:
-            segs = torch.cuda.memory_snapshot()
+            segs = self.snapshot()
         except Exception:  # noqa: BLE001 — allocator without snapshots
             return None
         pools = {tuple(g["handle"]): id(g) for g in self._gens}
-        out = {id(g): 0 for g in self._gens}
+        out = {id(g): (0, 0) for g in self._gens}
         for seg in segs:
             gen = pools.get(tuple(seg.get("segment_pool_id", ())))
             if gen is not None:
-                out[gen] += int(seg.get("total_size", 0))
+                total, active = out[gen]
+                out[gen] = (total + int(seg.get("total_size", 0)),
+                            active + int(seg.get("active_size", 0)))
         return out
+
+    def _reserved_by_generation(self) -> Optional[dict]:
+        segs = self._segments_by_generation()
+        return None if segs is None else {g: total for g, (total, _) in segs.items()}
+
+    def may_recapture(self, program: Program) -> bool:
+        """Is ``program``'s graph gone, and does its last capture's growth
+        fit under the budget beside the generations' segments now?"""
+        if program.graph is not None or program.capture_bytes is None:
+            return False
+        by_gen = self._reserved_by_generation()
+        return by_gen is not None and (
+            sum(by_gen.values()) + program.capture_bytes <= self.budget_bytes)
 
     def reserved_bytes(self) -> Optional[int]:
         """Bytes the generations' segments hold on the card, or None."""
@@ -607,12 +715,14 @@ def capture(pool: ProgramPool, program: Program, inputs: dict, copied: set,
         program.static_inputs = {}
         return
     t0 = time.perf_counter()
+    recapture = program.capture_bytes is not None
     pool.make_room()
     gen = pool.generation()
     dev = pool.device
+    reserved_before = pool.reserved_bytes() or 0
     before = dict(_kernels.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream(dev)
+    side = pool.stream()
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         graph.capture_begin(pool=gen["handle"])
@@ -646,9 +756,14 @@ def capture(pool: ProgramPool, program: Program, inputs: dict, copied: set,
     program.static_result = result
     program.static_words = words
     program.held_bytes = _held_bytes(program, copied)
-    program.capture_ms = (time.perf_counter() - t0) * 1000.0
+    program.capture_bytes = max(0, (pool.reserved_bytes() or 0) - reserved_before)
     pool.captures += 1
-    program.pool_bytes = pool.reserved_bytes()
+    pool.recaptures += recapture
+    # the program holds the graph and its outputs alone: a graph that
+    # settle drops frees its pool's segments at once
+    del graph, result, words
+    pool.settle(program)
+    program.capture_ms = (time.perf_counter() - t0) * 1000.0
 
 
 def replay(pool: ProgramPool, program: Program, inputs: dict, copied: set):
@@ -658,6 +773,8 @@ def replay(pool: ProgramPool, program: Program, inputs: dict, copied: set):
     from trino_tpu_torch import _kernels
 
     if program.graph is None or pool is None:
+        if pool is not None and pool.on_card:
+            pool.eager_hits += 1
         with program_run():
             return program.fn(inputs)
     for k in copied:
@@ -671,9 +788,13 @@ def replay(pool: ProgramPool, program: Program, inputs: dict, copied: set):
         for c in b.columns
     ]
     out = type(res)(
-        Batch(cols, b.num_rows, None if b.sel is None else b.sel.clone(), b.device),
+        Batch(cols, b.num_rows, None if b.sel is None else b.sel.clone(), b.device, b.shards),
         dict(res.layout),
     )
+    # a probe exchange's hot-key set rides its result (exec/fragments.py)
+    aux = getattr(res, "aux", ())
+    if aux:
+        out.aux = tuple(t.clone() for t in aux)
     words = program.static_words.clone()
     _kernels.count_replay(program.launches)
     return out, words

@@ -42,8 +42,12 @@ fixed output capacity (see :class:`StreamingAggregator`).
 A connector that generates its rows (the synthetic connector's
 ``device_generator``) streams chunks made on the device, after the slab
 and before host chunks. Not ported: the reference's compile-failure chunk
-halving (an XLA workaround). On a mesh of one the per-shard partitioning
-and ``pmax`` of the reference are plain calls.
+halving (an XLA workaround). On a mesh of N > 1 shards the stream runs
+over the whole table (the staged slab, else host chunks) and the dense
+path stays off, as the reference gates it to a mesh of one
+(``trino_tpu/exec/streaming.py:311``); the fragment's output exchange
+follows the stream. The reference streams one host chunk a shard there
+(``:209-250``); the rows are the same.
 """
 
 from __future__ import annotations
@@ -380,6 +384,8 @@ class StreamingAggregator:
         agg = self.agg
         if agg.step != "partial" or not self.nkeys:
             return None
+        if getattr(self.executor, "n_shards", 1) > 1:
+            return None  # a mesh of one only (reference streaming.py:311)
         cap = slab.capacity
         if cap < (1 << 15) or cap & (cap - 1):
             return None

@@ -113,6 +113,21 @@ def render_capacity_stats(capacities: dict) -> str:
     return "\n".join(lines)
 
 
+EXCHANGE_FIELDS = ("exchanges", "shuffle_rows", "padded_shuffle_rows", "shuffle_bytes",
+                   "padding_ratio", "hot_keys", "salted_rows", "overflow_retries")
+
+
+def render_exchange_stats(exchange_stats: dict) -> str:
+    """EXPLAIN ANALYZE section for a run on N shards: the query's exchange
+    counters (the reference's stage ``exchange:`` line, ``:210-220``):
+    hash exchanges run, live rows shuffled, the wire slots they padded
+    to, their bytes, the padding ratio, hot keys and salted rows of the
+    skew handling, and overflow reruns. The ``exch@`` sites' rows in and
+    out are in the operator section."""
+    parts = [f"{k}={exchange_stats.get(k, 0)}" for k in EXCHANGE_FIELDS]
+    return "Exchanges (all shards):\n  " + " ".join(parts)
+
+
 def render_plan_with_stats(
     node: P.PlanNode, collector: Optional[StatsCollector], indent: int = 0
 ) -> str:

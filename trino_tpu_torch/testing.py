@@ -1,7 +1,9 @@
-"""Test harness: the LocalQueryRunner analog.
+"""Test harness: the LocalQueryRunner and DistributedQueryRunner analogs.
 
 Reference: ``core/trino-main/src/main/java/io/trino/testing/LocalQueryRunner.java:221,631``
-(single-process full stack). Delegates to :class:`trino_tpu_torch.engine.Engine`.
+(single-process full stack) and ``DistributedQueryRunner.java:72`` (here N
+mesh shards on one device, with the exchanges between them). Both
+delegate to :class:`trino_tpu_torch.engine.Engine`.
 """
 
 from __future__ import annotations
@@ -51,3 +53,19 @@ class LocalQueryRunner:
         got = rows if ordered else sorted(map(tuple, rows))
         want = list(expected) if ordered else sorted(map(tuple, expected))
         assert got == want, f"query mismatch:\n got: {got[:20]}\nwant: {want[:20]}"
+
+
+class DistributedQueryRunner(LocalQueryRunner):
+    """A runner over a mesh of ``n_devices`` shards (one by default) on
+    ``device``: every query runs in ``execution_mode=distributed`` with
+    the exchanges between shards (reference ``testing.py:58-68``; all
+    shards share the one device, ``parallel/mesh.py``)."""
+
+    def __init__(self, session: Optional[Session] = None, n_devices: Optional[int] = None,
+                 device=None, engine: Optional[Engine] = None):
+        super().__init__(session, engine=engine, device=device)
+        from trino_tpu_torch.parallel.mesh import make_mesh
+
+        self.mesh = make_mesh(n_devices, self.engine.device)
+        self.engine.mesh = self.mesh
+        self.session.set("execution_mode", "distributed")
