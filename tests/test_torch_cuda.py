@@ -582,3 +582,42 @@ def test_sharded_scan_is_one_pinned_copy(cuda):
     assert st["h2d_transfers"] == 1 and st["h2d_bytes"] > 0, st
     one = LocalQueryRunner(device=cuda)
     assert sorted(res.rows) == sorted(one.engine.execute_statement(sql, one.session).rows)
+
+
+@pytest.mark.cuda
+def test_group_by_over_http_launches_the_kernel(cuda):
+    """Q-A at 2^22 rows through the port's server and client: K1 launches
+    for the statement sent over HTTP, and the rows equal the same
+    statement run in-process on the same engine."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.client import ClientSession, Connection
+    from trino_tpu_torch.columnar import batch_from_numpy
+    from trino_tpu_torch.config import Session
+    from trino_tpu_torch.connectors.api import ColumnSchema, TableSchema
+    from trino_tpu_torch.engine import Engine
+    from trino_tpu_torch.server.http import TrinoTpuServer
+
+    n = 1 << 22
+    rng = np.random.default_rng(7)
+    k = rng.integers(0, 4096, n)
+    v = rng.integers(0, 1 << 20, n)
+    engine = Engine(device=cuda)
+    mem = engine.catalogs.get("memory")
+    mem.create_table(
+        "default", "qa",
+        TableSchema("qa", (ColumnSchema("k", T.BIGINT), ColumnSchema("v", T.BIGINT))),
+    )
+    mem.insert("default", "qa", batch_from_numpy([T.BIGINT] * 2, [k, v]))
+    props = {"execution_mode": "distributed", "stream_scan_threshold_rows": 1 << 20}
+    sql = "select k, sum(v), count(*) from memory.default.qa group by k"
+    server = TrinoTpuServer(engine=engine).start()
+    try:
+        before = _kernels.LAUNCHES["dense_groupby"]
+        rows, _ = Connection(server.base_uri, ClientSession(properties=dict(props))).execute(sql)
+        assert _kernels.LAUNCHES["dense_groupby"] > before
+    finally:
+        server.stop()
+    local = engine.execute_statement(sql, Session(properties=dict(props)))
+    assert sorted(rows) == sorted(local.rows)
+    counts = np.bincount(k, minlength=4096)
+    assert sorted(rows)[:3] == [(g, int(v[k == g].sum()), int(counts[g])) for g in range(3)]

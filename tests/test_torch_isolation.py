@@ -55,7 +55,10 @@ def test_port_imports_neither_jax_nor_reference():
                    "connectors.diskcache", "planner.serde", "planner.canonicalize",
                    "events", "connectors.system", "exec.batching", "exec.programs",
                    "parallel.mesh", "parallel.exchange", "parallel.distributed",
-                   "ops.skew"):
+                   "ops.skew", "ft.retry", "obs.trace", "obs.metrics",
+                   "server.statemachine", "server.auth", "server.webui",
+                   "server.eventloop", "server.resourcegroups", "server.querymanager",
+                   "server.http", "server.main", "client", "cli", "dbapi"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 
@@ -310,3 +313,106 @@ def test_every_reference_catalog_kind_has_a_counterpart(tmp_path):
                               (CatalogManager(), register_catalog_spec)):
         with pytest.raises(ValueError, match="unknown catalog kind"):
             register(manager, "c=tpcds")
+
+
+# one request a branch of the reference's router (``_route_post``,
+# ``_route_get``, ``_route_delete``, ``_route_put``); ``{qid}`` is a query
+# each server ran
+ROUTE_SAMPLES = {
+    "POST": ["/v1/statement", "/v1/task/t1.0.0", "/v1/write", "/v1/spmd",
+             "/v1/spool/t1.0.0"],
+    "GET": ["/v1/info", "/v1/memory", "/v1/info/state", "/v1/status", "/ui", "/ui/",
+            "/", "/v1/resourceGroup", "/v1/task", "/v1/task/t1.0.0",
+            "/v1/task/t1.0.0/results/0/0", "/v1/spool/t1.0.0/results/0/0", "/v1/spool",
+            "/v1/node", "/v1/metrics", "/v1/metrics?format=json", "/v1/history",
+            "/v1/cache", "/v1/slo", "/v1/query", "/v1/query/{qid}/timeline",
+            "/v1/query/{qid}/flight", "/v1/query/{qid}",
+            "/v1/statement/executing/{qid}/x0/0"],
+    "DELETE": ["/v1/statement/executing/{qid}/x0/0", "/v1/query/no_such_query",
+               "/v1/task/t1.0.0", "/v1/spool/t1.0.0", "/v1/announce/worker-1"],
+    "PUT": ["/v1/discovery", "/v1/announce", "/v1/info/state",
+            "/v1/spool/t1.0.0/complete"],
+}
+ROUTE_BODIES = {"/v1/statement": b"select 1", "/v1/info/state": b'"ACTIVE"'}
+
+
+def _reference_routes():
+    """(method, path literal) and (method, ``/v1/<segment>/`` prefix) of
+    every branch of the reference's router, read from its source."""
+    import inspect
+    import re
+
+    from trino_tpu.server.http import TrinoTpuServer as RefServer
+
+    literals, prefixes = set(), set()
+    for method in ROUTE_SAMPLES:
+        src = inspect.getsource(getattr(RefServer, f"_route_{method.lower()}"))
+        for lit in re.findall(r'path (?:==|in) \(?([^:]*?)\)?:', src):
+            literals |= {(method, p) for p in re.findall(r'"(/[^"]*)"', lit)}
+        prefixes |= {(method, f"/v1/{seg}/")
+                     for seg in re.findall(r'parts\[:2\] == \["v1", "(\w+)"\]', src)}
+    return literals, prefixes
+
+
+def _answer(base_uri, method, path):
+    import json
+    import urllib.error
+    import urllib.request
+
+    from trino_tpu_torch.server import auth
+
+    body = ROUTE_BODIES.get(path.split("?")[0], b"{}") if method in ("POST", "PUT") else None
+    # as a cluster peer sends it: with the internal credential when the
+    # process has a shared secret (both servers check the same one)
+    req = urllib.request.Request(f"{base_uri}{path}", data=body, method=method,
+                                 headers=auth.headers())
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            raw, status = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        raw, status = e.read(), e.code
+    try:
+        doc = json.loads(raw.decode())
+    except ValueError:
+        doc = None
+    return status, doc
+
+
+def test_every_reference_route_has_a_counterpart_or_a_named_501():
+    """Each branch of ``trino_tpu/server/http.py``'s router has a sample
+    here (read from its source), and the port answers every sample as the
+    reference does (the same status), or with 501 naming the ROADMAP item
+    that will serve it; never with the router's unknown-path 404."""
+    from trino_tpu.server.http import TrinoTpuServer as RefServer
+    from trino_tpu_torch.client import Connection
+    from trino_tpu_torch.server.http import TrinoTpuServer
+
+    literals, prefixes = _reference_routes()
+    assert len(literals) >= 20 and len(prefixes) >= 8
+    for method, path in literals:
+        assert path in ROUTE_SAMPLES[method], (method, path)
+    for method, prefix in prefixes:
+        assert any(p.startswith(prefix) for p in ROUTE_SAMPLES[method]), (method, prefix)
+
+    answers = {}
+    for name, server in (("reference", RefServer()), ("port", TrinoTpuServer(device="cpu"))):
+        server.start()
+        try:
+            Connection(server.base_uri).execute("select 1")
+            qid = server.query_manager.queries()[0].query_id
+            answers[name] = {
+                (method, path): _answer(server.base_uri, method, path.format(qid=qid))
+                for method, paths in ROUTE_SAMPLES.items() for path in paths
+            }
+        finally:
+            server.stop()
+    not_ported = []
+    for key, (status, doc) in answers["port"].items():
+        ref_status, _ = answers["reference"][key]
+        if status == 501:
+            assert doc["roadmapItem"] in ("9b", "9c") and "ROADMAP item" in doc["error"], key
+            not_ported.append(key)
+            continue
+        assert status == ref_status, (key, status, ref_status)
+        assert not (status == 404 and "unknown path" in str(doc)), key
+    assert len(not_ported) == 18

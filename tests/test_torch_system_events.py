@@ -111,15 +111,22 @@ def test_runtime_queries_and_nodes():
 
 def test_cluster_tables_have_the_reference_rows():
     """``tasks`` and ``history`` (with the history store off) give the
-    reference's rows on a bare engine: none. ``metrics`` reads the
-    server's metrics registry, which the port does not have yet: no rows
-    (the reference's process-wide registry has some)."""
+    reference's rows on a bare engine: none. ``metrics`` reads each
+    package's process-wide metrics registry, where every statement counts
+    itself: after a query, both list its ``trino_tpu_queries_total``
+    counter, with the same columns."""
     ref, port = _pair()
     for table in ("tasks", "history"):
         sql = f"select * from system.runtime.{table}"
         assert port.execute(sql) == ref.execute(sql)
-    rows, names = port.execute("select * from system.runtime.metrics")
-    assert rows == [] and names == ref.execute("select * from system.runtime.metrics")[1]
+    key = 'trino_tpu_queries_total{state="FINISHED"}'
+    names = []
+    for r in (ref, port):
+        r.execute("select 1")
+        rows, cols = r.execute("select * from system.runtime.metrics")
+        assert any(row[0] == key and row[1] == "counter" and row[2] >= 1 for row in rows)
+        names.append(cols)
+    assert names[1] == names[0]
     for table in ("tasks", "metrics", "history", "programs", "queries", "nodes"):
         sql = f"show columns from system.runtime.{table}"
         assert port.execute(sql) == ref.execute(sql)

@@ -18,7 +18,7 @@ JAX reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -283,17 +283,49 @@ class Batch:
         return Batch(cols, int(idx.shape[0]), None)
 
     def to_pylist(self) -> list[tuple]:
-        """Rows as Python tuples (client output/testing)."""
+        """Rows as Python tuples (client output/testing): each value is
+        its type's ``to_python``, a column at a time where that is a plain
+        conversion (:func:`python_values`)."""
         b = self.compact()
+        n = b.num_rows
         out_cols = []
         for c in b.columns:
             data, valid = c.to_numpy()
-            col = [
-                c.type.to_python(data[i], c.dictionary) if valid[i] else None
-                for i in range(b.num_rows)
-            ]
+            col = python_values(c.type, data[:n], valid[:n])
+            if col is None:
+                col = [
+                    c.type.to_python(data[i], c.dictionary) if valid[i] else None
+                    for i in range(n)
+                ]
             out_cols.append(col)
-        return [tuple(col[i] for col in out_cols) for i in range(b.num_rows)]
+        return list(zip(*out_cols)) if out_cols else [() for _ in range(n)]
+
+
+def python_values(t: T.SqlType, data: np.ndarray, valid: np.ndarray) -> Optional[list]:
+    """The values of a host column as its type's ``to_python`` gives
+    them (None where ``valid`` is false), converted a column at a time for
+    the types where that is a plain conversion: BOOLEAN, the integers,
+    REAL and DOUBLE (``tolist``), a narrow DECIMAL (its unscaled ints
+    divided as ``to_python`` divides them) and DATE (each distinct day
+    converted once); None for the other types."""
+    kind = type(t)
+    if kind in (T.BooleanType, T.IntegerLikeType, T.RealType, T.DoubleType):
+        values = data.tolist()
+    elif kind is T.DecimalType and data.ndim == 1:
+        from decimal import Decimal
+
+        unscale = 10**t.scale
+        values = ([Decimal(v) / unscale for v in data.tolist()] if t.scale
+                  else [Decimal(v) for v in data.tolist()])
+    elif kind is T.DateType:
+        days, inverse = np.unique(np.where(valid, data, 0), return_inverse=True)
+        text = [t.to_python(d) for d in days]
+        values = [text[i] for i in inverse.reshape(-1).tolist()]
+    else:
+        return None
+    if valid.all():
+        return values
+    return [v if ok else None for v, ok in zip(values, valid.tolist())]
 
 
 def host_column(

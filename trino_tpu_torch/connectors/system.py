@@ -6,11 +6,12 @@ Reference: ``core/trino-main/.../connector/system/`` —
 
 A copy of ``trino_tpu/connectors/system.py``: the seven tables with the
 reference's schemas. ``runtime.queries``, ``runtime.nodes`` (one node,
-the engine's device), ``runtime.programs`` (the program cache:
-``exec/programs.py``) and ``metadata.catalogs`` read the engine;
-``runtime.tasks``, ``runtime.metrics`` and ``runtime.history`` read
-state this package does not keep yet (the cluster, the server's metrics
-registry, the history store) and have no rows.
+the engine's device, or the server's node listing), ``runtime.metrics``
+(the metrics registry, ``obs/metrics.py``), ``runtime.programs`` (the
+program cache: ``exec/programs.py``) and ``metadata.catalogs`` read the
+engine; ``runtime.tasks`` and ``runtime.history`` read state this package
+does not keep yet (worker tasks, item 9c; the history store, item 9b) and
+have no rows.
 """
 
 from __future__ import annotations

@@ -22,15 +22,18 @@ shared graph pool (``exec/programs.py``), the batch collector
 memory pool (``memory.py``) that each query's memory context reserves
 from.
 
-Not ported: the result cache and the history store; the cluster
-scheduler, scaled writers and the server's stage and task state
-(ROADMAP item 9).
+Each statement's counters go to the metrics registry (``obs/metrics.py``),
+which ``system.runtime.metrics`` and the server's ``/v1/metrics`` read; a
+server (``server/http.py``) installs its node listing. Not ported: the
+engine's spans, the result cache and the history store (ROADMAP item 9b);
+the cluster scheduler, scaled writers and worker tasks (item 9c).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 import threading
 import time
 from collections import OrderedDict, deque
@@ -66,6 +69,15 @@ class StatementResult:
     set_session: dict[str, Any] = dataclasses.field(default_factory=dict)
     peak_memory_bytes: int = 0
     dynamic_filters: int = 0
+    # prepared-statement session mutations (ride X-Trino-*-Prepare headers)
+    added_prepare: Optional[tuple[str, str]] = None  # (name, sql)
+    deallocated_prepare: Optional[str] = None
+    # transaction mutations (X-Trino-Started-Transaction-Id / Clear-...)
+    started_transaction_id: Optional[str] = None
+    cleared_transaction: bool = False
+    # the cluster tier's retry and attempt counters (ROADMAP item 9c):
+    # empty on one engine, as the reference's are without a cluster
+    cluster_stats: dict[str, Any] = dataclasses.field(default_factory=dict)
     # per-exchange counters of a distributed run; None for local runs
     exchange_stats: Optional[dict[str, Any]] = None
     # the program cache (reference: CacheStatsMBean's counters): the
@@ -86,6 +98,10 @@ class StatementResult:
     # in-program operator row flow: {stable_site: {kind, rows_in,
     # rows_out}}; None when operator_stats is off or nothing ran a program
     operator_stats: Optional[dict[str, Any]] = None
+    # the device profiler's rollup and the result cache's counters
+    # (ROADMAP item 9b): None until those are ported
+    device_stats: Optional[dict[str, Any]] = None
+    result_cache_stats: Optional[dict[str, Any]] = None
 
 
 # the reference's table-cache budget, sized for its 16 GiB pool; kept on
@@ -149,6 +165,11 @@ class Engine:
 
         self.event_listeners = EventListenerManager()
         self._recent_queries: "deque[dict]" = deque(maxlen=200)
+        # a server installs its live node and task listings and names the
+        # engine's node (reference engine.py:120, server/http.py:106)
+        self._runtime_nodes_fn = None
+        self._runtime_tasks_fn = None
+        self.node_id: Optional[str] = None
         from trino_tpu_torch.connectors.system import SystemConnector
 
         self.catalogs.register("system", SystemConnector(self))
@@ -263,17 +284,38 @@ class Engine:
         return out
 
     def runtime_nodes(self) -> list[tuple]:
-        """One node: this engine on its device."""
+        """The server's live node listing where one installed it, else one
+        node: this engine on its device."""
+        if self._runtime_nodes_fn is not None:
+            return self._runtime_nodes_fn()
         return [("local", "local://", "trino-tpu-0.1", True, "ACTIVE")]
 
     def runtime_tasks(self) -> list[dict]:
-        """Worker tasks belong to the cluster (ROADMAP item 9): none."""
+        """The server's task listing where one installed it. Worker tasks
+        belong to the cluster tier (ROADMAP item 9c), so a coordinator of
+        this package lists none either."""
+        if self._runtime_tasks_fn is not None:
+            return self._runtime_tasks_fn()
         return []
 
     def runtime_metrics(self) -> list[tuple]:
-        """The metrics registry belongs to the server (ROADMAP item 9):
-        no rows."""
-        return []
+        """Live metrics-registry snapshot for ``system.runtime.metrics``
+        (reference ``:265``): one row per (name{labels}, kind, value);
+        histograms expose their count/sum/p50/p99 as separate rows."""
+        from trino_tpu_torch.obs.metrics import get_registry
+
+        snap = get_registry().snapshot()
+        rows: list[tuple] = []
+        for key, val in sorted(snap.get("counters", {}).items()):
+            rows.append((key, "counter", float(val)))
+        for key, val in sorted(snap.get("gauges", {}).items()):
+            rows.append((key, "gauge", float(val)))
+        for key, h in sorted(snap.get("histograms", {}).items()):
+            for field in ("count", "sum", "p50", "p99"):
+                v = h.get(field)
+                if v is not None:
+                    rows.append((f"{key}.{field}", "histogram", float(v)))
+        return rows
 
     def runtime_history(self) -> list[dict]:
         """The history store is not ported: no rows, as the reference
@@ -342,7 +384,15 @@ class Engine:
                 except Exception:
                     session.properties.pop("__txn", None)
                     raise
-            res = self._dispatch_parsed(parse_statement(sql), session, qid, sql_text=sql)
+            stmt = parse_statement(sql)
+            if isinstance(stmt, t.Prepare):
+                # keep the statement's SQL text: it must survive the
+                # stateless HTTP protocol via X-Trino-Added-Prepare
+                m = re.match(r"\s*prepare\s+\S+\s+from\s+(.*)$", sql.strip().rstrip(";"),
+                             re.IGNORECASE | re.DOTALL)
+                if m:
+                    stmt = dataclasses.replace(stmt, sql=m.group(1).strip())
+            res = self._dispatch_parsed(stmt, session, qid, sql_text=sql)
             return res
         except Exception as e:  # noqa: BLE001
             error, exc = str(e), e
@@ -357,6 +407,9 @@ class Engine:
             if res is not None:
                 record["peakMemoryBytes"] = res.peak_memory_bytes
                 record["outputRows"] = len(res.rows)
+            from trino_tpu_torch.obs.metrics import get_registry
+
+            self._record_query_metrics(get_registry(), record, res, wall)
             if fire_events:
                 err_code = err_type = None
                 if exc is not None:
@@ -370,6 +423,34 @@ class Engine:
                     error_message=error, wall_seconds=wall,
                     error_code=err_code, error_type=err_type,
                 ))
+
+    @staticmethod
+    def _record_query_metrics(reg, record: dict, res, wall_s: float) -> None:
+        """Fold one statement's counters into the process registry
+        (reference ``:566``, but the device profiler's two, which read
+        ``device_stats``: ROADMAP item 9b)."""
+        reg.counter("trino_tpu_queries_total", state=record["state"]).inc()
+        reg.histogram("trino_tpu_query_elapsed_ms").observe(wall_s * 1000.0)
+        reg.counter("trino_tpu_output_rows_total").inc(record["outputRows"])
+        if res is None:
+            return
+        reg.counter("trino_tpu_compile_ms_total").inc(res.compile_ms)
+        reg.counter("trino_tpu_trace_count_total").inc(res.trace_count)
+        reg.counter("trino_tpu_program_cache_hits_total").inc(res.program_cache_hits)
+        reg.counter("trino_tpu_program_cache_misses_total").inc(res.program_cache_misses)
+        for key, val in (res.exchange_stats or {}).items():
+            # batchedQueries is shared by every member of a batched
+            # dispatch; trino_tpu_batched_dispatches_total{size} counts those
+            if key == "batchedQueries":
+                continue
+            if isinstance(val, (int, float)) and not isinstance(val, bool):
+                reg.counter(f"trino_tpu_exchange_{key}_total").inc(val)
+        for ent in (res.operator_stats or {}).values():
+            if isinstance(ent, dict) and ent.get("kind"):
+                reg.counter("trino_tpu_operator_rows_total",
+                            kind=ent["kind"], io="in").inc(int(ent.get("rows_in", 0) or 0))
+                reg.counter("trino_tpu_operator_rows_total",
+                            kind=ent["kind"], io="out").inc(int(ent.get("rows_out", 0) or 0))
 
     def _dispatch_parsed(self, stmt: t.Node, session: Session,
                          query_id: Optional[str] = None,
@@ -648,7 +729,7 @@ class Engine:
                 session: Session) -> int:
         """Rows into a connector. The reference's scaled writers ship
         pages to worker tasks (``_scaled_insert``), which needs the cluster
-        (ROADMAP item 9)."""
+        (ROADMAP item 9c)."""
         if session.get("scaled_writers"):
             raise SemanticError(
                 "scaled_writers is not yet ported to trino_tpu_torch"
@@ -808,7 +889,8 @@ class Engine:
         txn_id = self.transaction_manager.begin()
         session.properties["__txn"] = txn_id
         return StatementResult(
-            [], ["result"], [T.BOOLEAN], update_type="START TRANSACTION"
+            [], ["result"], [T.BOOLEAN], update_type="START TRANSACTION",
+            started_transaction_id=txn_id,
         )
 
     def _do_commit(self, stmt, session: Session) -> StatementResult:
@@ -817,7 +899,8 @@ class Engine:
             raise SemanticError("no transaction in progress")
         self.transaction_manager.commit(txn)
         session.properties.pop("__txn", None)
-        return StatementResult([], ["result"], [T.BOOLEAN], update_type="COMMIT")
+        return StatementResult([], ["result"], [T.BOOLEAN], update_type="COMMIT",
+                               cleared_transaction=True)
 
     def _do_rollback(self, stmt, session: Session) -> StatementResult:
         txn = session.properties.get("__txn")
@@ -825,25 +908,34 @@ class Engine:
             raise SemanticError("no transaction in progress")
         self.transaction_manager.rollback(txn)
         session.properties.pop("__txn", None)
-        return StatementResult([], ["result"], [T.BOOLEAN], update_type="ROLLBACK")
+        return StatementResult([], ["result"], [T.BOOLEAN], update_type="ROLLBACK",
+                               cleared_transaction=True)
 
     # === prepared statements (reference: Session.preparedStatements) ======
 
     def _do_prepare(self, stmt: t.Prepare, session: Session) -> StatementResult:
-        # the parsed statement: sessions live in one process (the
-        # reference keeps the SQL text for its HTTP protocol)
-        session.prepared[stmt.name.lower()] = stmt.statement
-        return StatementResult([], ["result"], [T.BOOLEAN], update_type="PREPARE")
+        # the SQL text where the statement came as text (it travels in the
+        # protocol's headers); the parsed statement otherwise
+        session.prepared[stmt.name.lower()] = stmt.sql or stmt.statement
+        return StatementResult(
+            [], ["result"], [T.BOOLEAN], update_type="PREPARE",
+            added_prepare=(stmt.name.lower(), stmt.sql or ""),
+        )
 
     def _do_execute(self, stmt: t.Execute, session: Session) -> StatementResult:
         inner = session.prepared.get(stmt.name.lower())
         if inner is None:
             raise SemanticError(f"prepared statement not found: {stmt.name}")
+        if isinstance(inner, str):
+            inner = parse_statement(inner)
         return self._dispatch_parsed(_bind_parameters(inner, stmt.parameters), session)
 
     def _do_deallocate(self, stmt: t.Deallocate, session: Session) -> StatementResult:
         session.prepared.pop(stmt.name.lower(), None)
-        return StatementResult([], ["result"], [T.BOOLEAN], update_type="DEALLOCATE")
+        return StatementResult(
+            [], ["result"], [T.BOOLEAN], update_type="DEALLOCATE",
+            deallocated_prepare=stmt.name.lower(),
+        )
 
     def _qualify(self, name_parts, session: Session) -> tuple[str, str, str]:
         parts = list(name_parts)

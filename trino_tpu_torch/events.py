@@ -7,7 +7,7 @@ pluggable ``EventListener``s (``spi/eventlistener/``,
 
 A copy of ``trino_tpu/events.py``. The engine fires the query events;
 the stage and task events are the cluster scheduler's, which this
-package does not have yet (ROADMAP item 9), so nothing fires them here.
+package does not have yet (ROADMAP item 9c), so nothing fires them here.
 """
 
 from __future__ import annotations

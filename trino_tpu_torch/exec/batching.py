@@ -25,9 +25,10 @@ sequential per-member execution; a member that fails there fails alone
 without poisoning its batchmates.
 
 A copy of ``trino_tpu/exec/batching.py``. The resource-group admission
-in front of it belongs to the server (ROADMAP item 9); the dispatch
-counts by batch size are kept on the collector (``dispatches``) until
-that server's metrics registry is ported.
+in front of it is the server's (``server/querymanager.py``); the dispatch
+counts by batch size go to the metrics registry
+(``trino_tpu_batched_dispatches_total{size}``) and are kept on the
+collector too (``dispatches``). The batch's span is ROADMAP item 9b.
 """
 
 from __future__ import annotations
@@ -246,3 +247,6 @@ class BatchCollector:
         # dispatches in its denominator
         with self._lock:
             self.dispatches[k] = self.dispatches.get(k, 0) + 1
+        from trino_tpu_torch.obs.metrics import get_registry
+
+        get_registry().counter("trino_tpu_batched_dispatches_total", size=str(k)).inc()
