@@ -103,6 +103,22 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    rows and the extraction's checksum the HTTP steps must equal) and a
    graceful drain with 4 clients in flight, none dropped.
 
+7a2. obs: observability and the repeat tiers over the same engine (kernel
+   counts 0 at its start): the result cache on Q-A (a cold run with K1, a
+   pure hit with no K1 launch, an INSERT of one more part maintained from
+   that part alone, a DELETE that invalidates and runs K1 again, each
+   against its oracle); the history store (TPC-H Q3, Q5, Q7 at SF1 cold
+   on a fresh engine A with ``history_dir``, then on a fresh engine B
+   seeded from it: rows against the committed answers, ``history_seeds``
+   at least 1, no retry, no halving, every K2 build that is no replay
+   equal to plain, both engines' cold ms and host reads side by side);
+   the profiler (each captured program's ``temp_bytes`` its pool growth,
+   its peak at least its arguments and outputs, the rollup's peak the
+   largest, ``system.runtime.programs`` agreeing, EXPLAIN ANALYZE's device
+   section); over HTTP with ``flight_dir``, Q-A's timeline one connected
+   tree, the tier's counters on ``/v1/metrics``, the flight journal from
+   created to completed, ``/v1/history``, ``/v1/cache``, ``/v1/slo``.
+
 7b. surface: the statement surface over the same staged ``tpch.sf1``
    tables, one engine: SHOW CATALOGS/SCHEMAS/TABLES/COLUMNS against the
    expected lists; CREATE TABLE AS of 11 lineitem columns into
@@ -243,6 +259,21 @@ L2_BYTES = 50e6          # H100 L2 cache
 
 
 T_START = time.perf_counter()
+
+
+def reset_peak() -> None:
+    """Start a span of work whose allocator peak :func:`read_peak` gives
+    (``obs/profiler.py``: a profiling window's reset inside the span does
+    not lower it)."""
+    from trino_tpu_torch.obs.profiler import reset_allocator_peak
+
+    reset_allocator_peak()
+
+
+def read_peak() -> int:
+    from trino_tpu_torch.obs.profiler import allocator_peak
+
+    return allocator_peak()
 
 
 def log(phase: str, **kv) -> None:
@@ -599,11 +630,11 @@ def phase_k2(tables, dev="cuda"):
         # the worklists of one build, and the device memory it takes
         window = min(DJ.PROBE_WINDOW, cap)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         held = torch.cuda.memory_allocated()
         lens = DJ.build_table_cuda(base, use, cap, window)[2].tolist()
         torch.cuda.synchronize()
-        build_peak = torch.cuda.max_memory_allocated() - held
+        build_peak = read_peak() - held
         # launches: the compaction, the scan, the scatters (two above 64
         # buckets, that is 2^20 slots), round 0 and one cooperative launch
         # for the later rounds, which stops at the first empty worklist
@@ -815,7 +846,7 @@ def phase_join(tables, oracle):
     last_run = {}
     for name, sql in JOIN_QUERIES.items():
         times, per_run = [], []
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for _ in range(1 + WARM):
             before = _kernels.LAUNCHES["dense_join_build"]
             torch.cuda.synchronize()
@@ -838,7 +869,7 @@ def phase_join(tables, oracle):
             k2_launches_per_run=per_run,
             joinStrategy=stats.get("joinStrategy"),
             overflow_retries=stats.get("overflow_retries"),
-            peak_device_bytes=torch.cuda.max_memory_allocated(),
+            peak_device_bytes=read_peak(),
             matches_oracle=True,
             **stream_fields(res),
         )
@@ -902,7 +933,7 @@ def phase_spill(runner, oracle, smi: str) -> dict:
             for label in ("cold",):
                 before = _kernels.LAUNCHES["dense_join_build"]
                 torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
+                reset_peak()
                 t0 = time.perf_counter()
                 res = runner.engine.execute_statement(sql, session)
                 torch.cuda.synchronize()
@@ -916,7 +947,7 @@ def phase_spill(runner, oracle, smi: str) -> dict:
                     "spilled_operators": sp.get("operators", {}),
                     "partitions": sp.get("partitions", 0),
                     "host_partition_s": sp.get("host_partition_s", 0.0),
-                    "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                    "peak_device_bytes": read_peak(),
                     # the interpreter's held batches, node by node: no
                     # operator temporaries, no allocator cache (see
                     # stream_fields)
@@ -1209,7 +1240,7 @@ def phase_tpch(smi: str) -> int:
     try:
         for name, (sql, scanned) in runs.items():
             times, per_run = [], []
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             for _ in range(1 + WARM):
                 before = _kernels.LAUNCHES["dense_groupby"]
                 torch.cuda.synchronize()
@@ -1237,7 +1268,7 @@ def phase_tpch(smi: str) -> int:
                 rows_per_s=scanned / (warm / 1e3), k1_launches_per_run=per_run,
                 fragment_modes=modes,
                 overflow_retries=stats.get("overflow_retries"),
-                peak_device_bytes=torch.cuda.max_memory_allocated(),
+                peak_device_bytes=read_peak(),
                 matches_oracle=True,
             )
     finally:
@@ -1310,10 +1341,10 @@ def peak_attribution(runner, sql: str, top: int = 8, with_joins: bool = False) -
 
     def run(self, frag, results, names_holder):
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         out = real(self, frag, results, names_holder)
         torch.cuda.synchronize()
-        frag_peaks[frag.id] = torch.cuda.max_memory_allocated()
+        frag_peaks[frag.id] = read_peak()
         return out
 
     def join(self, node):
@@ -1578,7 +1609,7 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
     for q in range(1, 23):
         want = answers["queries"][str(q)]
         times, k1, k2, traces = [], [], [], []
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for run in range(1 + TPCH22_WARM):
             before = dict(_kernels.LAUNCHES)
             torch.cuda.synchronize()
@@ -1600,7 +1631,7 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
                 break
         warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
         cold_launches[f"Q{q}"] = k2[0]
-        peaks[q] = torch.cuda.max_memory_allocated()
+        peaks[q] = read_peak()
         stats = res.exchange_stats or {}
         log(
             "tpch22", card=smi, query=f"Q{q}", rows=len(res.rows),
@@ -1609,7 +1640,7 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
             k1_launches_per_run=k1, k2_launches_per_run=k2, trace_count_per_run=traces,
             joinStrategy=stats.get("joinStrategy"),
             overflow_retries=stats.get("overflow_retries"),
-            peak_device_bytes=torch.cuda.max_memory_allocated(),
+            peak_device_bytes=read_peak(),
             **stream_fields(res),
         )
         if q in TPCH22_STREAMED and not stats.get("join_streams"):
@@ -2209,6 +2240,338 @@ def phase_server(smi: str, runner) -> tuple[dict, int, int]:
     return launches, k1_err, k2_err
 
 
+OBS_HISTORY_QUERIES = (3, 5, 7)  # TPC-H SF1 queries with K2 sites and cheap cold runs
+OBS_DELTA_ROWS = 4096            # rows of the part phase obs appends to bench_groupby
+OBS_SPAN_KINDS = ("fragment_execute", "fused_execute")
+OBS_COUNTERS = ("trino_tpu_program_compile_ms", "trino_tpu_device_pull_ms",
+                "trino_tpu_history_seeds_total", "trino_tpu_program_peak_hbm_bytes",
+                "trino_tpu_ingest_decode_ms", "trino_tpu_table_cache_hits_total",
+                "trino_tpu_table_cache_misses_total", "trino_tpu_result_cache_hits",
+                "trino_tpu_result_cache_maintained", "trino_tpu_fused_programs_total")
+# counted only when what they count happens (a halving, a disk-cache read)
+OBS_RARE_COUNTERS = ("trino_tpu_compile_halvings_total",
+                     "trino_tpu_ingest_disk_cache_hits_total",
+                     "trino_tpu_ingest_disk_cache_misses_total")
+
+
+def check_device_stats(what: str, ds, programs: dict, failures: list) -> int:
+    """The profiler's ``deviceStats`` of one query against the captured
+    programs they describe (``{label: Program}``): each program's
+    ``temp_bytes`` is its pool growth (``capture_bytes``), its peak at
+    least its arguments and outputs, and the rollup's peak the largest
+    program's. Returns how many programs carried allocator stats."""
+    progs = (ds or {}).get("programs") or {}
+    seen = 0
+    for label, st in progs.items():
+        if "temp_bytes" not in st:
+            continue
+        seen += 1
+        prog = programs.get(label)
+        if prog is None or st["temp_bytes"] != prog.capture_bytes:
+            failures.append(f"{what} {label}: temp_bytes {st['temp_bytes']} is not the "
+                            f"capture's {getattr(prog, 'capture_bytes', None)}")
+        if st["peak_hbm_bytes"] < st["argument_bytes"] + st["output_bytes"]:
+            failures.append(f"{what} {label}: peak {st['peak_hbm_bytes']} below its "
+                            f"arguments and outputs")
+    peaks = [st["peak_hbm_bytes"] for st in progs.values() if "peak_hbm_bytes" in st]
+    if peaks and ds.get("peak_hbm_bytes") != max(peaks):
+        failures.append(f"{what}: rollup peak {ds.get('peak_hbm_bytes')} is not the "
+                        f"largest program's {max(peaks)}")
+    return seen
+
+
+def entry_programs(engine, fingerprint: str) -> dict:
+    """The stored programs, by label, of ``fingerprint``'s program-cache
+    entry at the catalogs' current data versions (the key
+    ``Engine._query_cache_entry`` uses)."""
+    from trino_tpu_torch.exec.programs import Program
+
+    versions = tuple((name, getattr(engine.catalogs.get(name), "_version", 0))
+                     for name in sorted(engine.catalogs.names()))
+    with engine._query_cache_lock:
+        entry = engine._query_cache.get(
+            (fingerprint, versions, engine.access_control.generation))
+    programs = list((entry or {}).get("programs", {}).values())
+    return {p.label: p for p in programs if isinstance(p, Program)}
+
+
+def phase_obs(smi: str, runner) -> tuple[dict, int, int]:
+    """Phase ``obs``: observability and the repeat tiers over ``runner``'s
+    engine (phase tpch22's staged ``tpch.sf1`` tables). Kernel counts start
+    at 0 here and are read at its end; every K1 launch is held against
+    plain on the same tensors, every K2 build that is no replay too.
+
+    a. the result cache (``result_cache=true``) on Q-A over the 2^25-row
+       ``memory.default.bench_groupby``: a cold run (K1), a pure hit (no
+       K1 launch, host rows), an INSERT of one more part of
+       ``OBS_DELTA_ROWS`` rows and Q-A maintained from that part alone,
+       equal to the grown table's oracle and to a ``result_cache=false``
+       run, then a DELETE of that part and Q-A invalidated: K1 again, the
+       first oracle;
+    b. history: engine A, fresh on the same catalogs (the staged slabs
+       shared), with ``history_dir`` in a temp dir, runs
+       ``OBS_HISTORY_QUERIES`` cold; engine B, fresh again, repeats them:
+       rows equal the committed answers, ``history_seeds`` >= 1, no
+       overflow retry and no halving; both engines' cold ms and host reads
+       on one line a query;
+    c. the profiler: Q-A's and engine B's first query's ``deviceStats``
+       against their captured programs (:func:`check_device_stats`),
+       ``system.runtime.programs`` against the rollup, EXPLAIN ANALYZE's
+       device section;
+    d. over HTTP, on a server with ``flight_dir``: Q-A's timeline one
+       connected tree under one ``query`` root with the engine's and the
+       fragments' spans, ``/v1/metrics`` with the tier's counters, the
+       flight journal replaying created → completed, and ``/v1/history``,
+       ``/v1/cache``, ``/v1/slo`` answering 200.
+    Returns the launches and the largest K1 and K2 differences."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.client import ClientSession, Connection
+    from trino_tpu_torch.columnar import batch_from_numpy
+    from trino_tpu_torch.config import Session
+    from trino_tpu_torch.connectors.api import CatalogManager, ColumnSchema, TableSchema
+    from trino_tpu_torch.engine import Engine
+    from trino_tpu_torch.ops import dense_groupby as DG
+    from trino_tpu_torch.server.http import TrinoTpuServer
+
+    t_phase = time.perf_counter()
+    eng = runner.engine
+    failures: list = []
+    sql_a, want_a = bench_groupby(eng.catalogs)["Q-A"]
+    props = {**runner.session.properties, "stream_scan_threshold_rows": 1 << 20}
+    k1_errs, builds = [], []
+    real_dense = DG.dense_groupby_device
+
+    def checked_dense(plan, bins, vals):
+        lt = real_dense(plan, bins, vals)
+        k1_errs.append(int((lt - DG.dense_groupby_plain(plan, bins, vals)).abs().max()))
+        return lt
+
+    def run(engine, sql, **extra):
+        sess = Session(catalog="memory", schema="default",
+                       properties={**props, **extra})
+        before = _kernels.LAUNCHES["dense_groupby"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.execute_statement(sql, sess)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, _kernels.LAUNCHES["dense_groupby"] - before
+
+    root = tempfile.mkdtemp(prefix="tt_obs_")
+    DG.dense_groupby_device = checked_dense
+    try:
+        _kernels.reset_counts()
+        # a. the result cache
+        hits0 = eng.result_cache.snapshot()["hits"]
+        cold, cold_ms, cold_k1 = run(eng, sql_a, result_cache=True)
+        # (c. the profiler, on the programs this cold run captured)
+        fp_a, _ = eng.fingerprint(sql_a, Session(catalog="memory", schema="default",
+                                                 properties=dict(props)))
+        qa_progs = check_device_stats("Q-A", cold.device_stats, entry_programs(eng, fp_a),
+                                      failures)
+        hit, hit_ms, hit_k1 = run(eng, sql_a, result_cache=True)
+        rc = hit.result_cache_stats or {}
+        ok = (cold_k1 >= 1 and hit_k1 == 0 and rc.get("resultCacheHit") == 1
+              and eng.result_cache.snapshot()["hits"] - hits0 == 1
+              and sorted(cold.rows) == want_a == sorted(hit.rows))
+        log("obs", card=smi, step="result_cache_hit", cold_ms=cold_ms, hit_ms=hit_ms,
+            cold_k1=cold_k1, hit_k1=hit_k1, result_cache_stats=rc,
+            hit_device_stats=hit.device_stats, all_ok=ok)
+        if not ok:
+            failures.append(f"result cache hit: K1 {cold_k1}/{hit_k1}, stats {rc}")
+        # one more part: v >= 2^20 marks its rows, which the DELETE removes
+        rng = np.random.default_rng(13)
+        dk = rng.integers(0, KEYS, OBS_DELTA_ROWS)
+        dv = (1 << VBITS) + rng.integers(0, 1 << VBITS, OBS_DELTA_ROWS)
+        dw = rng.integers(-(1 << 40), 1 << 40, OBS_DELTA_ROWS)
+        mem = eng.catalogs.get("memory")
+        mem.create_table("default", "obs_delta", TableSchema("obs_delta", tuple(
+            ColumnSchema(c, T.BIGINT) for c in ("k", "v", "w"))))
+        mem.insert("default", "obs_delta", batch_from_numpy([T.BIGINT] * 3, [dk, dv, dw]))
+        ins, ins_ms, _ = run(eng, "insert into memory.default.bench_groupby "
+                                  "select k, v, w from memory.default.obs_delta")
+        grown = {k: [s, c] for k, s, c in want_a}
+        for k, v in zip(dk.tolist(), dv.tolist()):
+            ent = grown.setdefault(k, [0, 0])
+            ent[0] += v
+            ent[1] += 1
+        want_grown = sorted((k, s, c) for k, (s, c) in grown.items())
+        maint, maint_ms, maint_k1 = run(eng, sql_a, result_cache=True)
+        plain, plain_ms, _ = run(eng, sql_a, result_cache=False)
+        rc = maint.result_cache_stats or {}
+        ok = (rc.get("incrementalMaintenance") == 1 and ins.update_count == OBS_DELTA_ROWS
+              and sorted(maint.rows) == want_grown == sorted(plain.rows))
+        log("obs", card=smi, step="maintenance", insert_ms=ins_ms, maintained_ms=maint_ms,
+            maintained_k1=maint_k1, uncached_ms=plain_ms, result_cache_stats=rc,
+            maintained_ingest=maint.ingest_stats, all_ok=ok)
+        if not ok:
+            failures.append(f"maintenance: stats {rc}, rows equal "
+                            f"{sorted(maint.rows) == want_grown}/{sorted(plain.rows) == want_grown}")
+        dele, del_ms, _ = run(eng, "delete from memory.default.bench_groupby "
+                                   f"where v >= {1 << VBITS}")
+        inval, inval_ms, inval_k1 = run(eng, sql_a, result_cache=True)
+        ok = (dele.update_count == OBS_DELTA_ROWS and inval.result_cache_stats is None
+              and inval_k1 >= 1 and sorted(inval.rows) == want_a)
+        log("obs", card=smi, step="invalidation", delete_ms=del_ms, ms=inval_ms,
+            k1=inval_k1, cache=eng.result_cache.snapshot()["invalidations"], all_ok=ok)
+        if not ok:
+            failures.append(f"invalidation: K1 {inval_k1}, stats {inval.result_cache_stats}")
+
+        # b. history on two fresh engines over the same catalogs
+        texts = B.queries(f"tpch.{TPCH22_SCHEMA}")
+        answers = B.load_answers()
+        hist_props = {**runner.session.properties, "history_dir": os.path.join(root, "history")}
+        per_engine, k2_stats = {}, {}
+        for label in ("A", "B"):
+            catalogs = CatalogManager()
+            for name in eng.catalogs.names():
+                if name != "system":
+                    catalogs.register(name, eng.catalogs.get(name))
+            fresh = Engine(catalogs=catalogs, device="cuda")
+            for q in OBS_HISTORY_QUERIES:
+                sess = Session(catalog="tpch", schema=TPCH22_SCHEMA, properties=dict(hist_props))
+                k2_before = _kernels.LAUNCHES["dense_join_build"]
+                with k2_checked(builds, [f"{label}:Q{q}"]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = fresh.execute_statement(texts[q], sess)
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                want = answers["queries"][str(q)]
+                bad = B.first_mismatch(B.canonical_rows(res.rows), want["rows"], want["order_by"])
+                ex = res.exchange_stats or {}
+                per_engine[(label, q)] = {
+                    "cold_ms": ms, "host_reads": ex.get("host_reads", 0),
+                    "history_seeds": ex.get("history_seeds", 0),
+                    "history_hits": ex.get("history_hits", 0),
+                    "overflow_retries": ex.get("overflow_retries", 0),
+                    "compile_halvings": ex.get("compile_halvings", 0),
+                    "k2": _kernels.LAUNCHES["dense_join_build"] - k2_before,
+                    "joinStrategy": ex.get("joinStrategy"), "matches_answers": bad is None,
+                }
+                if bad is not None:
+                    failures.append(f"history engine {label} Q{q}: {bad}")
+                if label == "B" and q == OBS_HISTORY_QUERIES[0]:
+                    fp, _ = fresh.fingerprint(texts[q], sess)
+                    k2_stats = {"ds": res.device_stats, "programs": entry_programs(fresh, fp),
+                                "rows": [r for r in fresh.runtime_programs()
+                                         if r["fingerprint"] == fp]}
+            del fresh, catalogs
+            gc.collect()
+            torch.cuda.empty_cache()
+        for q in OBS_HISTORY_QUERIES:
+            a, b = per_engine[("A", q)], per_engine[("B", q)]
+            log("obs", card=smi, step="history", query=f"Q{q}", engine_a=a, engine_b=b)
+            if (b["history_seeds"] < 1 or b["overflow_retries"] or b["compile_halvings"]
+                    or b["history_hits"] != 1 or not b["k2"]):
+                failures.append(f"history Q{q}: engine B {b}")
+        k2_err = max((max(r["max_abs_err"], r["unplaced_err"]) for r in builds), default=0)
+        if builds and k2_err:
+            failures.append(f"history: K2 builds differ from plain ({k2_err})")
+
+        # c. the profiler
+        k2_progs = check_device_stats(f"Q{OBS_HISTORY_QUERIES[0]}", k2_stats.get("ds"),
+                                      k2_stats.get("programs", {}), failures)
+        if not k2_progs:
+            failures.append("profiler: the K2 query's programs carry no allocator stats")
+        sys_peaks = {r["program"]: r["peak_hbm_bytes"] for r in k2_stats.get("rows", [])}
+        ds_peaks = {label: st.get("peak_hbm_bytes") for label, st in
+                    ((k2_stats.get("ds") or {}).get("programs") or {}).items()
+                    if "temp_bytes" in st}
+        if any(sys_peaks.get(label) != peak for label, peak in ds_peaks.items()):
+            failures.append(f"system.runtime.programs {sys_peaks} against the rollup {ds_peaks}")
+        explain = eng.execute_statement("explain analyze " + sql_a, Session(
+            catalog="memory", schema="default", properties=dict(props)))
+        text = "\n".join(r[0] for r in explain.rows)
+        if "Device programs (CUDA caching allocator)" not in text:
+            failures.append("EXPLAIN ANALYZE has no device section")
+        log("obs", card=smi, step="profiler", qa_device_stats=cold.device_stats,
+            qa_programs_with_stats=qa_progs, k2_device_stats=k2_stats.get("ds"),
+            k2_programs_with_stats=k2_progs, system_programs_peaks=sys_peaks)
+
+        # d. over HTTP
+        server = TrinoTpuServer(engine=eng).start()
+        base = server.base_uri
+        try:
+            flight_dir = os.path.join(root, "flight")
+            conn = Connection(base, ClientSession(catalog="memory", schema="default",
+                                                  properties={**props, "flight_dir": flight_dir}))
+            rows, _ = conn.execute(sql_a)
+            if sorted(rows) != want_a:
+                failures.append("Q-A over HTTP: rows differ from the oracle")
+            qid = next(q.query_id for q in server.query_manager.queries() if q.sql == sql_a)
+            spans = http_json(f"{base}/v1/query/{qid}/timeline")["spans"]
+            by_id = {s["spanId"]: s for s in spans}
+            roots = [s for s in spans if s["parentId"] is None]
+
+            def reaches_root(s):
+                seen = set()
+                while s["parentId"] is not None and s["spanId"] not in seen:
+                    seen.add(s["spanId"])
+                    s = by_id.get(s["parentId"], {"parentId": None, "spanId": None, "name": ""})
+                return s.get("name") == "query"
+
+            names = sorted({s["name"] for s in spans})
+            connected = (len(roots) == 1 and roots[0]["name"] == "query"
+                         and all(reaches_root(s) for s in spans)
+                         and "execute" in names and any(k in names for k in OBS_SPAN_KINDS))
+            metrics = http_json(f"{base}/v1/metrics?format=json")
+            flat = set(metrics.get("counters", {})) | set(metrics.get("histograms", {})) \
+                | set(metrics.get("gauges", {}))
+            present = {c: any(k.split("{")[0] == c for k in flat) for c in OBS_COUNTERS}
+            rare = {c: any(k.split("{")[0] == c for k in flat) for c in OBS_RARE_COUNTERS}
+            deadline = time.monotonic() + 10
+            events = []
+            while time.monotonic() < deadline:
+                events = [e["event"] for e in
+                          http_json(f"{base}/v1/query/{qid}/flight")["events"]]
+                if "completed" in events:
+                    break
+                time.sleep(0.05)
+            statuses = {}
+            for path in ("/v1/history", "/v1/cache", "/v1/slo"):
+                try:
+                    http_json(f"{base}{path}")
+                    statuses[path] = 200
+                except Exception as e:  # noqa: BLE001 — reported below
+                    statuses[path] = getattr(e, "code", repr(e))
+            log("obs", card=smi, step="http", spans=len(spans), span_names=names,
+                connected=connected, counters=present, rare_counters=rare, flight=events,
+                routes=statuses)
+            if not connected:
+                failures.append(f"timeline of Q-A not one connected tree: {names}")
+            if not all(present.values()):
+                failures.append(f"/v1/metrics lacks {[c for c, p in present.items() if not p]}")
+            if not events or events[0] != "created" or events[-1] != "completed":
+                failures.append(f"flight journal of Q-A: {events}")
+            if any(v != 200 for v in statuses.values()):
+                failures.append(f"routes: {statuses}")
+        finally:
+            server.stop()
+        launches = dict(_kernels.LAUNCHES)
+    finally:
+        DG.dense_groupby_device = real_dense
+        eng.catalogs.get("memory").drop_table("default", "bench_groupby")
+        eng.catalogs.get("memory").drop_table("default", "obs_delta")
+        shutil.rmtree(root, ignore_errors=True)
+    k1_err = max(k1_errs, default=0)
+    if k1_err or not k1_errs:
+        failures.append(f"K1 against plain: {k1_errs}")
+    log("obs", card=smi, launches=launches, k1_checked=len(k1_errs), k1_max_abs_err=k1_err,
+        k2_checked=len(builds), k2_max_abs_err=k2_err,
+        phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("phase obs: " + "; ".join(failures))
+    return launches, k1_err, k2_err
+
+
 SURFACE_LI1_COLUMNS = ("l_orderkey, l_partkey, l_suppkey, l_linenumber, l_quantity,"
                        " l_extendedprice, l_discount, l_tax, l_returnflag,"
                        " l_linestatus, l_shipdate")
@@ -2263,12 +2626,12 @@ def surface_step(runner, step: str, sql: str, smi: str, warm: int = 1,
     for _ in range(1 + warm):
         before = dict(_kernels.LAUNCHES)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         t0 = time.perf_counter()
         res = runner.engine.execute_statement(sql, runner.session)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        peaks.append(torch.cuda.max_memory_allocated())
+        peaks.append(read_peak())
         k1.append(_kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"])
         k2.append(_kernels.LAUNCHES["dense_join_build"] - before["dense_join_build"])
         rows.append(res.rows)
@@ -2696,7 +3059,10 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
             for table in tables:
                 want = engine.execute_statement(
                     f"select count(*) from tpch.{sch}.{table}", src).rows[0][0]
-                torch.cuda.reset_peak_memory_stats()
+                tpch = engine.catalogs.get("tpch")
+                staged_before = tpch.staged_splits
+                disk_before = tpch.disk_cache_stats()
+                reset_peak()
                 # where a write's time goes: the tpch connector's split
                 # reads (generation, or its host cache) and the target
                 # connector's insert (encode and write the file)
@@ -2711,7 +3077,9 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
                     bytes_on_disk=disk_bytes(catalog, sch, table),
                     rows_per_s=want / (ms / 1e3), tpch_read_split_ms=sum(gen_ms),
                     insert_ms=sum(put_ms),
-                    peak_device_bytes=torch.cuda.max_memory_allocated())
+                    splits_from_staged_columns=tpch.staged_splits - staged_before,
+                    disk_cache_before=disk_before, disk_cache=tpch.disk_cache_stats(),
+                    peak_device_bytes=read_peak())
 
         # 2. the 22 queries over Parquet, 3. Q1/Q3/Q6 over ORC and pages
         # files: the main path's run, every count 0 here and read after
@@ -2728,13 +3096,13 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
             times, k2, ingest, peaks = [], [], [], []
             for run in range(1 + FILES_WARM):
                 before = _kernels.LAUNCHES["dense_join_build"]
-                torch.cuda.reset_peak_memory_stats()
+                reset_peak()
                 # a cold run's K2 builds are held against plain as they run
                 with (k2_checked(builds, [f"{catalog}:Q{q}"]) if run == 0
                       else contextlib.nullcontext()):
                     res, ms = timed(texts[q], sessions[catalog])
                 times.append(ms)
-                peaks.append(torch.cuda.max_memory_allocated())
+                peaks.append(read_peak())
                 k2.append(_kernels.LAUNCHES["dense_join_build"] - before)
                 ingest.append(ingest_fields(res))
                 bad = against(q, res, catalog)
@@ -2788,7 +3156,7 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
                         for i in range(KEYS) if counts[i])
         qe = session("pq", "default", stream_scan_threshold_rows=FILES_STREAM_THRESHOLD)
         times, ingest = [], []
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for _ in range(1 + WARM):
             res, ms = timed(QE_SQL, qe)
             times.append(ms)
@@ -2803,20 +3171,20 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
             cold_ms=times[0], warm_ms=times[1:], warm_median_ms=warm,
             cold_rows_per_s=qe_rows / (times[0] / 1e3), warm_rows_per_s=qe_rows / (warm / 1e3),
             ratio_to_qa_warm=None if qa is None else (qe_rows / (warm / 1e3)) / qa,
-            ingest_per_run=ingest, peak_device_bytes=torch.cuda.max_memory_allocated())
+            ingest_per_run=ingest, peak_device_bytes=read_peak())
         settings = {}
         for prefetch in (True, False):
             for coalesced in (True, False):
                 s = session("pq", "default", stream_scan_threshold_rows=FILES_STREAM_THRESHOLD,
                             table_cache=False, ingest_prefetch=prefetch,
                             coalesced_h2d=coalesced)
-                torch.cuda.reset_peak_memory_stats()
+                reset_peak()
                 res, ms = timed(QE_SQL, s)
                 check(sorted(res.rows) == want_e,
                       f"Q-E rows differ (prefetch={prefetch}, coalesced={coalesced})")
                 settings[f"prefetch={prefetch},coalesced={coalesced}"] = {
                     "cold_ms": ms, **ingest_fields(res),
-                    "peak_device_bytes": torch.cuda.max_memory_allocated()}
+                    "peak_device_bytes": read_peak()}
         log("files", card=smi, step="Q-E_settings", settings=settings)
         on_card = engine.device.type == "cuda"  # a CPU rehearsal copies nothing
         check(all(v["h2d_transfers"] == on_card for n, v in settings.items()
@@ -2833,7 +3201,7 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
         oracle_s = time.perf_counter() - t0
         ss = session("synthetic", "default")
         times, ingest = [], []
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for _ in range(2):
             res, ms = timed(SYNTH_SQL, ss)
             times.append(ms)
@@ -2846,7 +3214,7 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
             warm_rows_per_s=synth_rows / (times[1] / 1e3),
             chunks=ingest[-1]["device_chunks"], h2d_bytes=ingest[-1]["h2d_bytes"],
             fragment_modes={str(f): m for f, m in (res.fragment_modes or {}).items()},
-            peak_device_bytes=torch.cuda.max_memory_allocated())
+            peak_device_bytes=read_peak())
 
         # 6. DELETE on a durable table swaps its data through replace_data
         ttp = engine.catalogs.get("ttp")
@@ -2860,7 +3228,7 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
             f"select count(*) from tpch.{side_schema}.orders where not ({cut})", src).rows[0][0]
         before = engine.execute_statement(
             f"select count(*) from ttp.{side_schema}.orders", src).rows[0][0]
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         res, ms = timed(f"delete from ttp.{side_schema}.orders where {cut}", src)
         after, ms_count = timed(f"select count(*) from ttp.{side_schema}.orders", src)
         for name in ("replace_data", "truncate", "insert"):
@@ -2870,7 +3238,7 @@ def phase_files(smi: str, runner, schema: str = FILES_SCHEMA, answers=None,
               f"DELETE kept {after.rows[0][0]} rows, not {kept}")
         log("files", card=smi, step="delete", table=f"ttp.{side_schema}.orders",
             deleted=res.update_count, kept=kept, ms=ms, count_ms=ms_count,
-            connector_calls=calls, peak_device_bytes=torch.cuda.max_memory_allocated())
+            connector_calls=calls, peak_device_bytes=read_peak())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log("files", card=smi, phase_s=time.perf_counter() - t_phase)
@@ -2909,14 +3277,14 @@ def run_against_answers(runner, texts: dict, answers: dict, warm: int,
             before = dict(_kernels.LAUNCHES)
             counts = (pool.captures, pool.eager_hits, pool.recaptures, pool.dropped)
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             t0 = time.perf_counter()
             with (k2_checked(builds, [f"Q{q}{tag}"]) if builds is not None and run == 0
                   else contextlib.nullcontext()):
                 res = runner.engine.execute_statement(sql, runner.session)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            run_peaks.append(torch.cuda.max_memory_allocated())
+            run_peaks.append(read_peak())
             k1.append(_kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"])
             k2.append(_kernels.LAUNCHES["dense_join_build"] - before["dense_join_build"])
             ing = res.ingest_stats or {}
@@ -3171,7 +3539,7 @@ def phase_mesh_join(runner, oracle, smi: str) -> tuple[dict, int]:
             for label in ("cold", "warm"):
                 before = _kernels.LAUNCHES["dense_join_build"]
                 torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
+                reset_peak()
                 t0 = time.perf_counter()
                 with (k2_checked(builds, [name]) if label == "cold"
                       else contextlib.nullcontext()):
@@ -3183,7 +3551,7 @@ def phase_mesh_join(runner, oracle, smi: str) -> tuple[dict, int]:
                     raise AssertionError(f"mesh: {name} ({label}) rows differ from the oracle")
                 runs.append({"run": label, "ms": ms,
                              "k2_launches": _kernels.LAUNCHES["dense_join_build"] - before,
-                             "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                             "peak_device_bytes": read_peak(),
                              **mesh_fields(res)})
             if not res.exchange_stats.get("exchanges"):
                 raise AssertionError(f"mesh: {name} ran no exchange")
@@ -3265,7 +3633,7 @@ def phase_mesh(smi: str, runner) -> tuple[dict, int]:
         for q in range(1, 23):
             want = answers["queries"][str(q)]
             times, k2 = [], []
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             for run in range(1 + MESH_WARM):
                 before = _kernels.LAUNCHES["dense_join_build"]
                 torch.cuda.synchronize()
@@ -3286,7 +3654,7 @@ def phase_mesh(smi: str, runner) -> tuple[dict, int]:
                     break
             warm_ms[q] = statistics.median(times[1:]) if len(times) > 1 else times[0]
             cold_launches[f"Q{q}"] = k2[0]
-            peaks[q] = torch.cuda.max_memory_allocated()
+            peaks[q] = read_peak()
             st = res.exchange_stats or {}
             log("mesh", card=smi, shards=MESH_SHARDS, query=f"Q{q}", rows=len(res.rows),
                 trace_count=res.trace_count, captures=pool.captures,
@@ -3394,6 +3762,7 @@ def main() -> int:
              "surface": lambda smi: phase_surface(smi, tpch_sf1_runner(smi)),
              "files": lambda smi: phase_files(smi, tpch_sf1_runner(smi)),
              "server": lambda smi: phase_server(smi, tpch_sf1_runner(smi)),
+             "obs": lambda smi: phase_obs(smi, tpch_sf1_runner(smi)),
              "tpcds": phase_tpcds, "spill": phase_spill_alone,
              "mesh": phase_mesh_alone}[name](smi)
             gc.collect()
@@ -3434,6 +3803,8 @@ def main() -> int:
         raise AssertionError("the programs launched no join-build kernel")
     served, served_k1_err, served_k2_err = phase_server(smi, sf1_runner)
     check_pool(sf1_runner.engine, "server")
+    observed, obs_k1_err, obs_k2_err = phase_obs(smi, sf1_runner)
+    check_pool(sf1_runner.engine, "obs")
     surface, surface_k1_err, surface_k2_err = phase_surface(smi, sf1_runner)
     check_pool(sf1_runner.engine, "surface")
     gc.collect()
@@ -3458,10 +3829,11 @@ def main() -> int:
                      + spill_launches["dense_groupby"] + tpch_launches
                      + t22["dense_groupby"] + progs["dense_groupby"]
                      + surface["dense_groupby"] + served["dense_groupby"]
+                     + observed["dense_groupby"]
                      + files["dense_groupby"] + ds["dense_groupby"]
                      + mesh_join_launches["dense_groupby"] + mesh["dense_groupby"]),
         "matches_plain": True,
-        "max_abs_err": max(kern["max_abs_err"], surface_k1_err, served_k1_err),
+        "max_abs_err": max(kern["max_abs_err"], surface_k1_err, served_k1_err, obs_k1_err),
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"],
@@ -3475,12 +3847,13 @@ def main() -> int:
         "launches": (join_launches["dense_join_build"] + spill_launches["dense_join_build"]
                      + t22["dense_join_build"] + progs["dense_join_build"]
                      + surface["dense_join_build"] + served["dense_join_build"]
+                     + observed["dense_join_build"]
                      + files["dense_join_build"] + ds["dense_join_build"]
                      + mesh_join_launches["dense_join_build"] + mesh["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
                            + [join_k2_err, t22_k2_err, progs_k2_err, surface_k2_err,
-                              served_k2_err, files_k2_err,
+                              served_k2_err, obs_k2_err, files_k2_err,
                               ds_k2_err, mesh_join_k2_err, mesh_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],

@@ -621,3 +621,89 @@ def test_group_by_over_http_launches_the_kernel(cuda):
     assert sorted(rows) == sorted(local.rows)
     counts = np.bincount(k, minlength=4096)
     assert sorted(rows)[:3] == [(g, int(v[k == g].sum()), int(counts[g])) for g in range(3)]
+
+
+def _qa_engine(cuda, n=1 << 22):
+    """An engine on the card with ``memory.default.qa`` (``n`` rows of k in
+    [0, 4096) and v), and Q-A's SQL and session properties."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.columnar import batch_from_numpy
+    from trino_tpu_torch.connectors.api import ColumnSchema, TableSchema
+    from trino_tpu_torch.engine import Engine
+
+    rng = np.random.default_rng(7)
+    k = rng.integers(0, 4096, n)
+    v = rng.integers(0, 1 << 20, n)
+    engine = Engine(device=cuda)
+    mem = engine.catalogs.get("memory")
+    mem.create_table("default", "qa", TableSchema(
+        "qa", (ColumnSchema("k", T.BIGINT), ColumnSchema("v", T.BIGINT))))
+    mem.insert("default", "qa", batch_from_numpy([T.BIGINT] * 2, [k, v]))
+    props = {"execution_mode": "distributed", "stream_scan_threshold_rows": 1 << 20}
+    return engine, "select k, sum(v), count(*) from memory.default.qa group by k", props
+
+
+@pytest.mark.cuda
+def test_result_cache_hit_launches_no_kernel(cuda):
+    """Q-A with ``result_cache`` on: the miss launches K1, the hit leaves
+    K1's launch counter where it was and returns the same rows."""
+    from trino_tpu_torch.config import Session
+
+    engine, sql, props = _qa_engine(cuda)
+    session = Session(properties={**props, "result_cache": True})
+    before = _kernels.LAUNCHES["dense_groupby"]
+    miss = engine.execute_statement(sql, session)
+    after_miss = _kernels.LAUNCHES["dense_groupby"]
+    assert after_miss > before and miss.result_cache_stats is None
+    hit = engine.execute_statement(sql, session)
+    assert _kernels.LAUNCHES["dense_groupby"] == after_miss
+    assert hit.result_cache_stats["resultCacheHit"] == 1
+    assert sorted(hit.rows) == sorted(miss.rows)
+
+
+@pytest.mark.cuda
+def test_profiled_program_reports_its_pool_bytes(cuda):
+    """A captured Q-A's programs: ``temp_bytes`` is each program's
+    ``capture_bytes`` (its pool growth), its peak at least its arguments
+    and outputs, and the rollup's peak the largest program's."""
+    from trino_tpu_torch.config import Session
+    from trino_tpu_torch.exec.programs import Program
+
+    engine, sql, props = _qa_engine(cuda)
+    res = engine.execute_statement(sql, Session(properties=dict(props)))
+    fp, _ = engine.fingerprint(sql, Session(properties=dict(props)))
+    programs = {p.label: p for key, e in engine._query_cache.items() if key[0] == fp
+                for p in e["programs"].values() if isinstance(p, Program)}
+    stats = {k: v for k, v in res.device_stats["programs"].items() if "temp_bytes" in v}
+    assert stats
+    for label, st in stats.items():
+        assert st["temp_bytes"] == programs[label].capture_bytes
+        assert st["peak_hbm_bytes"] >= st["argument_bytes"] + st["output_bytes"]
+    assert res.device_stats["peak_hbm_bytes"] == max(s["peak_hbm_bytes"] for s in stats.values())
+
+
+@pytest.mark.cuda
+def test_fresh_engine_seeds_k2_from_history(cuda, tmp_path):
+    """TPC-H Q3 at tiny on a fresh engine whose ``history_dir`` holds an
+    earlier engine's run: its sites start at the history's capacities
+    (``history_seeds``), with no retry, K2 launching with every build
+    equal to plain, and the earlier run's rows."""
+    from chip_smoke import k2_checked
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.config import Session
+    from trino_tpu_torch.engine import Engine
+
+    sql = B.queries("tpch.tiny")[3]
+    props = {"execution_mode": "distributed", "history_dir": str(tmp_path)}
+    cold = Engine(device=cuda).execute_statement(sql, Session(properties=dict(props)))
+    assert cold.exchange_stats["history_hits"] == 0
+    builds = []
+    before = _kernels.LAUNCHES["dense_join_build"]
+    with k2_checked(builds, ["Q3"]):
+        seeded = Engine(device=cuda).execute_statement(sql, Session(properties=dict(props)))
+    ex = seeded.exchange_stats
+    assert seeded.rows == cold.rows
+    assert ex["history_hits"] == 1 and ex["history_seeds"] >= 1
+    assert ex["overflow_retries"] == 0 and ex.get("compile_halvings", 0) == 0
+    assert _kernels.LAUNCHES["dense_join_build"] > before
+    assert builds and all(b["max_abs_err"] == 0 and b["unplaced_err"] == 0 for b in builds)

@@ -58,7 +58,9 @@ def test_port_imports_neither_jax_nor_reference():
                    "ops.skew", "ft.retry", "obs.trace", "obs.metrics",
                    "server.statemachine", "server.auth", "server.webui",
                    "server.eventloop", "server.resourcegroups", "server.querymanager",
-                   "server.http", "server.main", "client", "cli", "dbapi"):
+                   "server.http", "server.main", "client", "cli", "dbapi",
+                   "obs.history", "obs.slo", "obs.flight", "obs.profiler",
+                   "cache", "cache.result_cache"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 
@@ -382,7 +384,8 @@ def test_every_reference_route_has_a_counterpart_or_a_named_501():
     """Each branch of ``trino_tpu/server/http.py``'s router has a sample
     here (read from its source), and the port answers every sample as the
     reference does (the same status), or with 501 naming the ROADMAP item
-    that will serve it; never with the router's unknown-path 404."""
+    that will serve it (the cluster tier, 9c); never with the router's
+    unknown-path 404."""
     from trino_tpu.server.http import TrinoTpuServer as RefServer
     from trino_tpu_torch.client import Connection
     from trino_tpu_torch.server.http import TrinoTpuServer
@@ -410,9 +413,11 @@ def test_every_reference_route_has_a_counterpart_or_a_named_501():
     for key, (status, doc) in answers["port"].items():
         ref_status, _ = answers["reference"][key]
         if status == 501:
-            assert doc["roadmapItem"] in ("9b", "9c") and "ROADMAP item" in doc["error"], key
+            assert doc["roadmapItem"] == "9c" and "ROADMAP item" in doc["error"], key
             not_ported.append(key)
             continue
         assert status == ref_status, (key, status, ref_status)
         assert not (status == 404 and "unknown path" in str(doc)), key
-    assert len(not_ported) == 18
+    # the cluster tier's 14; the repeat tiers' routes (history, cache,
+    # slo, flight) answer as the reference's
+    assert len(not_ported) == 14

@@ -3,7 +3,10 @@
 The same sequence of calls through ``trino_tpu/obs`` and
 ``trino_tpu_torch/obs`` gives the same spans (ids renumbered, wall times
 dropped: they are the process's and the clock's), the same trace headers,
-and the same registry snapshot and Prometheus text, byte for byte.
+and the same registry snapshot and Prometheus text, byte for byte. The
+engine's and executors' spans of one query (``TestTracingIsInert``, the
+reference's ``tests/test_observability.py`` case) have the reference's
+names and parentage in both execution modes, cold and warm.
 """
 
 import pytest
@@ -172,3 +175,66 @@ def test_engine_runtime_metrics_read_the_registry():
     assert rows['trino_tpu_queries_total{state="FINISHED"}'][0] == "counter"
     assert rows['trino_tpu_queries_total{state="FINISHED"}'][1] >= 1
     assert engine.runtime_metrics() and all(len(r) == 3 for r in engine.runtime_metrics())
+
+
+_INERT_SQL = (
+    "select l_returnflag, sum(l_extendedprice * (1 - l_discount)) "
+    "from tpch.tiny.lineitem group by l_returnflag order by l_returnflag"
+)
+_INERT_JOIN = (
+    "select n_name, count(*) from tpch.tiny.nation join tpch.tiny.region "
+    "on n_regionkey = r_regionkey where r_name <> 'ASIA' group by n_name "
+    "order by n_name"
+)
+
+
+def _span_tree(trace, runner, sql, mode):
+    """Each run's spans as (name, parent's name) in emission order, a
+    cold run then a warm one; times and ids dropped."""
+    runner.session.set("execution_mode", mode)
+    runs = []
+    for _ in range(2):
+        sink = trace.InMemorySpanSink()
+        trace.get_tracer().add_sink(sink)
+        try:
+            rows = runner.execute(sql)[0]
+        finally:
+            trace.get_tracer().remove_sink(sink)
+        (tid,) = sink.trace_ids()
+        spans = sink.spans_for(tid)
+        names = {s["spanId"]: s["name"] for s in spans}
+        runs.append([(s["name"], names.get(s["parentId"])) for s in spans])
+    return runs, rows
+
+
+class TestTracingIsInert:
+    """``tests/test_observability.py::TestTracingIsInert`` on the port: the
+    engine's and executors' spans of the same query (cold, then warm)
+    have the reference's names and parentage, and rows are identical with
+    the tracer on and off."""
+
+    @pytest.mark.parametrize("sql", [_INERT_SQL, _INERT_JOIN], ids=["groupby", "join"])
+    @pytest.mark.parametrize("mode", ["local", "distributed"])
+    def test_span_trees_equal_the_reference(self, mode, sql):
+        from trino_tpu.testing import LocalQueryRunner as RefRunner
+        from trino_tpu_torch.testing import LocalQueryRunner
+
+        want, ref_rows = _span_tree(ref_trace, RefRunner(), sql, mode)
+        got, rows = _span_tree(port_trace, LocalQueryRunner(device="cpu"), sql, mode)
+        assert got == want
+        assert rows == ref_rows
+        assert ("query", None) in got[0] and ("plan", "query") in got[0]
+
+    def test_rows_identical_with_tracer_on(self):
+        from trino_tpu_torch.testing import LocalQueryRunner
+
+        runner = LocalQueryRunner(device="cpu")
+        dark, _ = runner.execute(_INERT_SQL)
+        sink = port_trace.InMemorySpanSink()
+        port_trace.get_tracer().add_sink(sink)
+        try:
+            lit, _ = runner.execute(_INERT_SQL)
+        finally:
+            port_trace.get_tracer().remove_sink(sink)
+        assert lit == dark
+        assert sink.trace_ids()

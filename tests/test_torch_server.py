@@ -10,8 +10,10 @@
   headers;
 - ``tests/test_skew.py::TestCountersOverHttp`` on the port's 8-shard mesh;
 - ``TrinoTpuServer()`` raises without a GPU, and every route of the
-  cluster tier (item 9c) or the repeat tier (item 9b) answers 501 naming
-  its item.
+  cluster tier (item 9c) answers 501 naming its item; the routes of the
+  repeat tiers (history, result cache, SLO sentinel, flight journal)
+  answer as the reference server's; the routes of the repeat tiers (history, result cache, SLO
+  sentinel, flight journal) answer as the reference server's.
 
 The port's event-loop thread is registered with the repository's lockdep
 (``tests/conftest.py`` checks it as it checks the reference's loop).
@@ -509,7 +511,7 @@ def test_main_refuses_cluster_options():
 
 
 # (method, path, ROADMAP item) of every route of the reference's cluster
-# and repeat tiers
+# tier
 NOT_PORTED_ROUTES = [
     ("POST", "/v1/task/t1.0.0", "9c"),
     ("GET", "/v1/task/t1.0.0", "9c"),
@@ -525,10 +527,6 @@ NOT_PORTED_ROUTES = [
     ("PUT", "/v1/announce", "9c"),
     ("DELETE", "/v1/announce/worker-1", "9c"),
     ("PUT", "/v1/discovery", "9c"),
-    ("GET", "/v1/history", "9b"),
-    ("GET", "/v1/cache", "9b"),
-    ("GET", "/v1/slo", "9b"),
-    ("GET", "/v1/query/q1/flight", "9b"),
 ]
 
 
@@ -611,3 +609,99 @@ def test_rows_convert_a_column_at_a_time():
     assert got == want
     assert [[type(v) for v in row] for row in got] == [[type(v) for v in row] for row in want]
     assert any(row[10] is None for row in got) and any(row[7] is None for row in got)
+
+
+# --- the repeat tiers' routes against a reference server -------------------
+
+REPEAT_SQL = "select n_regionkey, count(*) from tpch.tiny.nation group by n_regionkey"
+
+
+@pytest.fixture(scope="module")
+def repeat_servers(tmp_path_factory):
+    """A reference and a port server, each having run ``REPEAT_SQL`` twice
+    with the result cache, history in a directory of its own and a flight
+    journal: {name: (base_uri, query ids, flight dir)}."""
+    from trino_tpu.server.http import TrinoTpuServer as RefServer
+    from trino_tpu_torch.server.http import TrinoTpuServer
+
+    out, servers = {}, []
+    try:
+        for name, make in (("reference", RefServer), ("port", lambda: TrinoTpuServer(device="cpu"))):
+            s = make().start()
+            servers.append(s)
+            root = tmp_path_factory.mktemp(name)
+            props = (f"result_cache=true,execution_mode=distributed,"
+                     f"history_dir={root / 'history'},flight_dir={root / 'flight'}")
+            qids = []
+            for _ in range(2):
+                client = StatementClient(s.base_uri, REPEAT_SQL, ClientSession(
+                    user="u", properties=dict(p.split("=", 1) for p in props.split(","))))
+                while client.advance():
+                    pass
+                qids.append(client.query_id)
+            out[name] = (s.base_uri, qids, str(root / "flight"))
+        yield out
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def _get(base, path):
+    status, body = _status(base, "GET", path)
+    return status, json.loads(body.decode())
+
+
+def _shape(doc):
+    """A document's structure: keys of every dict, lengths of lists."""
+    if isinstance(doc, dict):
+        return {k: _shape(v) for k, v in doc.items()}
+    if isinstance(doc, list):
+        return [_shape(v) for v in doc[:1]] + [len(doc)]
+    return type(doc).__name__
+
+
+def _route_answer(route, base, qids, flight_dir):
+    if route == "history":
+        # the reference's CPU backend reports XLA flops and peaks, and its
+        # tests run on 8 devices (exchange sites); this package's CPU runs
+        # capture nothing on a mesh of one: those fields aside
+        status, doc = _get(base, "/v1/history")
+        stores = [st for st in doc["stores"] if st["path"]]
+        out = []
+        for st in stores:
+            ent = st["fingerprints"][0]
+            out.append((st["entries"], st["records"], ent["count"],
+                        sorted(set(ent) - {"flops", "peak_hbm_bytes"}),
+                        sorted(k for k in ent["capacities"] if not k.startswith(
+                            ("exch@", "spill@")))))
+        return status, out
+    if route == "cache":
+        status, doc = _get(base, "/v1/cache")
+        return status, ({k: doc[k] for k in ("hits", "misses", "evictions", "maintained",
+                                             "invalidations", "memoSize")},
+                        [(e["rows"], e["hits"], e["maintainable"]) for e in doc["entries"]],
+                        sorted(doc))
+    if route == "slo":
+        status, doc = _get(base, "/v1/slo")
+        return status, sorted(doc)
+    if route == "flight":
+        status, doc = _get(base, f"/v1/query/{qids[0]}/flight")
+        return status, [(e["event"], sorted(e)) for e in doc["events"]]
+    if route == "flight_by_dir":
+        q = urllib.parse.urlencode({"dir": flight_dir})
+        status, doc = _get(base, f"/v1/query/{qids[1]}/flight?{q}")
+        return status, [e["event"] for e in doc["events"]]
+    status, doc = _get(base, "/v1/query/no_such_query/flight")
+    return status, sorted(doc)
+
+
+@pytest.mark.parametrize("route", ["history", "cache", "slo", "flight", "flight_by_dir",
+                                   "flight_unknown"])
+def test_repeat_tier_routes_answer_as_the_reference(repeat_servers, route):
+    """``/v1/history``, ``/v1/cache``, ``/v1/slo`` and
+    ``/v1/query/{id}/flight`` after the same two statements: the same
+    status, structure and counters as the reference server's."""
+    answers = {name: _route_answer(route, *repeat_servers[name]) for name in repeat_servers}
+    assert answers["port"] == answers["reference"]
+    status, _ = answers["port"]
+    assert status == (404 if route == "flight_unknown" else 200)

@@ -21,6 +21,9 @@ reference, on the CPU.
   rows computed anew (marked ``slow``: about 15 minutes).
 - A narrow-DECIMAL GROUP BY over ``tpch.tiny`` (a slab of exactly 2^22
   rows) takes the dense path once with exact 128-bit (``pair128``) sums.
+- A split of columns ``device_slab`` staged already is served from them
+  (one device-to-host copy), with the generated split's rows, under any
+  split count; neither cache counts it.
 """
 
 import importlib.util
@@ -286,3 +289,29 @@ def test_narrow_decimal_group_by_takes_the_dense_path(runners, monkeypatch):
         for (f, s), (a, b, c) in oracle.items()
     )
     assert sorted(res.rows) == expect
+
+
+@pytest.mark.parametrize("table", ["lineitem", "orders", "partsupp", "nation", "customer"])
+def test_staged_columns_serve_read_split(table, monkeypatch):
+    """``read_split`` of columns that ``device_slab`` staged serves the
+    split's rows from them instead of generating it again: the rows equal
+    the generated split's and the reference connector's, for split counts
+    that differ from the staging's, and the host split cache and the disk
+    cache count nothing for it."""
+    from trino_tpu_torch.connectors.tpch import _SCHEMAS, TpchConnector
+
+    monkeypatch.setenv("TRINO_TPU_DBGEN_CACHE", "off")
+    cols = [c for c, _ in _SCHEMAS[table]]
+    generated, staged = TpchConnector(split_rows=4096), TpchConnector(split_rows=4096)
+    staged.device_slab("tiny", table, cols, 1 << 12, 1 << 40, device="cpu")
+    ref = RefTpch()
+    for target in (1, 3):
+        for split in generated.get_splits("tiny", table, target):
+            want = generated.read_split("tiny", table, cols, split).to_pylist()
+            got = staged.read_split("tiny", table, cols, split).to_pylist()
+            assert got == want
+            assert want == ref.read_split("tiny", table, cols, split).to_pylist()
+            part = staged.read_split("tiny", table, cols[::-1][:3], split).to_pylist()
+            assert part == [tuple(r[cols.index(c)] for c in cols[::-1][:3]) for r in want]
+    assert staged.staged_splits >= 3 and staged._batch_cache_bytes == 0
+    assert staged.disk_cache_stats()["hits"] == staged.disk_cache_stats()["misses"] == 0

@@ -69,6 +69,10 @@ class Split:
 
 class Connector:
     name: str = "connector"
+    # False for connectors whose reads reflect live process state rather
+    # than versioned table data (system tables): the result cache
+    # (trino_tpu_torch/cache) refuses queries touching them
+    supports_result_caching: bool = True
 
     # --- metadata --------------------------------------------------------
     def get_table(self, schema: str, table: str) -> Optional[TableSchema]:
@@ -164,6 +168,25 @@ class Connector:
         device columns unreachable. Mutable connectors bump
         ``_version``."""
         return getattr(self, "_version", 0)
+
+    def data_versions(self, schema: str, table: str) -> Optional[list]:
+        """Part-level version enumeration: ordered ``(part_id, token)``
+        pairs, one per immutable storage part, or None when the connector
+        cannot enumerate parts (the result cache then falls back to the
+        coarse :meth:`data_version` token, where any change invalidates).
+
+        Contract: a part's token never changes while its id is live; an
+        APPEND adds new ids and leaves every old pair intact; any other
+        mutation (rewrite, delete, truncate) removes or changes at least
+        one old pair. This is what lets the result cache tell "maintain
+        incrementally over the new parts" from "invalidate"."""
+        return None
+
+    def splits_for_parts(self, schema: str, table, part_ids) -> list["Split"]:
+        """Splits covering exactly the parts named by ``part_ids`` (ids
+        from :meth:`data_versions`): the delta scan of incremental
+        aggregate maintenance. Required when data_versions is implemented."""
+        raise NotImplementedError(f"{self.name}: part-level splits not supported")
 
     # --- optional stats (drives join distribution / sizing) -------------
     def estimate_rows(self, schema: str, table: str) -> Optional[int]:
@@ -292,6 +315,17 @@ class DeviceColumnStore:
         staged = [self._cols[key(c)] for c in columns]
         cols = [col for col, _ in staged]
         return Batch(cols, cols[0].capacity, placement=device), staged[0][1]
+
+    def staged(self, schema, table, columns: Sequence[str]):
+        """``(columns, num_rows)`` of ``columns`` where one device holds
+        them all already, else None: what an earlier ``slab`` staged."""
+        devices = {k[3] for k in self._cols if k[:2] == (schema, table)}
+        for dev in sorted(devices):
+            hits = [self._cols.get((schema, table, c, dev)) for c in columns]
+            if columns and all(h is not None for h in hits) \
+                    and len({n for _, n in hits}) == 1:
+                return [col for col, _ in hits], hits[0][1]
+        return None
 
 
 def batch_column_stats(columns, batch) -> dict:

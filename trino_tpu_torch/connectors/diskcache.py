@@ -44,6 +44,17 @@ _FORMAT_VERSION = 1
 _DEFAULT_LIMIT = 1 << 30
 
 
+def _count(name: str) -> None:
+    """An ingest-tier counter, best-effort (the cache works while a test
+    resets the metrics registry)."""
+    try:
+        from trino_tpu_torch.obs.metrics import get_registry
+
+        get_registry().counter(name).inc()
+    except Exception:  # noqa: BLE001
+        pass
+
+
 def _cache_dir() -> Optional[str]:
     env = os.environ.get("TRINO_TPU_DBGEN_CACHE")
     if env is not None and env.strip().lower() in ("", "0", "off", "false", "none"):
@@ -116,8 +127,10 @@ class DbgenDiskCache:
             os.utime(path)  # LRU-ish: refresh mtime so eviction spares it
         except (OSError, KeyError, ValueError, json.JSONDecodeError):
             self.misses += 1
+            _count("trino_tpu_ingest_disk_cache_misses_total")
             return None
         self.hits += 1
+        _count("trino_tpu_ingest_disk_cache_hits_total")
         return Batch(cols, hdr["num_rows"])
 
     # --- write ------------------------------------------------------------

@@ -300,6 +300,13 @@ class FileConnector(Connector):
                 out.append((p, None))
         return out
 
+    def splits_for_parts(self, schema, table, part_ids):
+        want = set(part_ids)
+        chosen = [p for p in self._parts(schema, table) if p in want]
+        return [
+            Split(table, i, max(len(chosen), 1), info=p)
+            for i, p in enumerate(chosen)
+        ]
 
     def split_stats(self, schema, table, split):
         entry = self._file_stats(schema, table).get(split.info)

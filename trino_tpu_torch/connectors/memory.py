@@ -40,6 +40,12 @@ class MemoryConnector(Connector):
         self._stats: dict[tuple[str, str], dict[int, dict]] = {}
         self._version = 0  # bumped on any mutation; keys the device cache
         self._device: dict[tuple, tuple] = {}
+        # stable ids a stored part for data_versions(): an INSERT appends
+        # a fresh id, every other mutation re-ids (``_version`` is
+        # connector-wide, so it alone cannot tell an append to this table
+        # from a write to a sibling; the id list can)
+        self._part_seq = 0
+        self._part_ids: dict[tuple[str, str], list[int]] = {}
 
     def list_schemas(self):
         return sorted({s for s, _ in self._tables} | {"default"})
@@ -55,15 +61,21 @@ class MemoryConnector(Connector):
             raise ValueError(f"table already exists: {schema}.{table}")
         self._tables[(schema, table)] = schema_def
         self._data[(schema, table)] = []
+        self._part_ids[(schema, table)] = []
 
     def insert(self, schema, table, batch):
         if (schema, table) not in self._tables:
             raise KeyError(f"table not found: {schema}.{table}")
         compacted = batch.compact()
         self._data[(schema, table)].append(compacted)
+        self._part_ids.setdefault((schema, table), []).append(self._next_part_id())
         self._stats.pop((schema, table), None)
         self._invalidate()
         return compacted.num_rows
+
+    def _next_part_id(self) -> int:
+        self._part_seq += 1
+        return self._part_seq
 
     def _invalidate(self):
         """Every mutation: a new data version (the device table cache's
@@ -83,6 +95,11 @@ class MemoryConnector(Connector):
         tables, data = snap
         self._tables = dict(tables)
         self._data = {k: list(v) for k, v in data.items()}
+        # fresh ids for every part: a rollback is a rewrite as far as
+        # cached results are concerned
+        self._part_ids = {
+            k: [self._next_part_id() for _ in v] for k, v in self._data.items()
+        }
         self._stats.clear()
         self._invalidate()
 
@@ -90,12 +107,14 @@ class MemoryConnector(Connector):
         if (schema, table) not in self._tables:
             raise KeyError(f"table not found: {schema}.{table}")
         self._data[(schema, table)] = []
+        self._part_ids[(schema, table)] = []
         self._stats.pop((schema, table), None)
         self._invalidate()
 
     def drop_table(self, schema, table):
         self._tables.pop((schema, table), None)
         self._data.pop((schema, table), None)
+        self._part_ids.pop((schema, table), None)
         self._stats.pop((schema, table), None)
         self._invalidate()
 
@@ -186,6 +205,29 @@ class MemoryConnector(Connector):
             for j, r in enumerate(ranges)
         ]
         return self.prune_splits(schema, table, splits, constraint)
+
+    def data_versions(self, schema, table):
+        parts = self._data.get((schema, table))
+        if parts is None:
+            return None
+        ids = self._part_ids.get((schema, table))
+        if ids is None or len(ids) != len(parts):
+            # parts changed outside insert/truncate: re-id every part so
+            # cached results read as fully stale
+            ids = [self._next_part_id() for _ in parts]
+            self._part_ids[(schema, table)] = ids
+        return [(pid, b.num_rows) for pid, b in zip(ids, parts)]
+
+    def splits_for_parts(self, schema, table, part_ids):
+        parts = self._data.get((schema, table), [])
+        ids = self._part_ids.get((schema, table), [])
+        want = set(part_ids)
+        ranges = [
+            (i, 0, parts[i].num_rows)
+            for i, pid in enumerate(ids)
+            if pid in want and i < len(parts)
+        ]
+        return [Split(table, j, len(ranges), info=r) for j, r in enumerate(ranges)]
 
     @staticmethod
     def _split_range(split, parts):

@@ -164,6 +164,20 @@ class OrcConnector(Connector):
                 out.append((os.path.basename(p), None))
         return out
 
+    def splits_for_parts(self, schema, table, part_ids):
+        want = set(part_ids)
+        pairs = []
+        for path in self._files(schema, table):
+            if os.path.basename(path) not in want:
+                continue
+            f = self._file(path)
+            for si in range(len(f.stripes)):
+                pairs.append((path, si))
+        return [
+            Split(table, i, max(len(pairs), 1), info=pair)
+            for i, pair in enumerate(pairs)
+        ]
+
 
     # --- writes: one ORC file per insert ----------------------------------
 

@@ -150,6 +150,20 @@ class ParquetConnector(Connector):
                 out.append((os.path.basename(p), None))
         return out
 
+    def splits_for_parts(self, schema, table, part_ids):
+        want = set(part_ids)
+        pairs = []
+        for path in self._files(schema, table):
+            if os.path.basename(path) not in want:
+                continue
+            meta = self._meta(path)
+            for rg in range(len(meta.row_groups)):
+                pairs.append((path, rg))
+        return [
+            Split(table, i, max(len(pairs), 1), info=pair)
+            for i, pair in enumerate(pairs)
+        ]
+
 
     # --- writes -----------------------------------------------------------
 

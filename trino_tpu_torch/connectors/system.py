@@ -8,10 +8,11 @@ A copy of ``trino_tpu/connectors/system.py``: the seven tables with the
 reference's schemas. ``runtime.queries``, ``runtime.nodes`` (one node,
 the engine's device, or the server's node listing), ``runtime.metrics``
 (the metrics registry, ``obs/metrics.py``), ``runtime.programs`` (the
-program cache: ``exec/programs.py``) and ``metadata.catalogs`` read the
-engine; ``runtime.tasks`` and ``runtime.history`` read state this package
-does not keep yet (worker tasks, item 9c; the history store, item 9b) and
-have no rows.
+program cache, ``exec/programs.py``, with the profiler's allocator
+stats), ``runtime.history`` (the engine's history stores,
+``obs/history.py``) and ``metadata.catalogs`` read the engine;
+``runtime.tasks`` reads worker tasks, which this package does not keep
+yet (ROADMAP item 9c), and has no rows.
 """
 
 from __future__ import annotations

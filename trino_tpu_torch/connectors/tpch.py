@@ -17,6 +17,7 @@ Schemas: tiny (SF 0.01), sf1, sf10, sf100 (and sf<k> parsed generically).
 from __future__ import annotations
 
 from collections import OrderedDict
+from typing import Optional
 
 import numpy as np
 
@@ -162,8 +163,10 @@ class TpchConnector(Connector):
         # ...and the same batches on disk, shared across processes
         # (connectors/diskcache.py)
         self._disk_cache = DbgenDiskCache()
-        # staged device columns (see device_slab)
+        # staged device columns (see device_slab); read_split serves a
+        # split of columns staged already from them (staged_splits counts)
         self._device_cols = DeviceColumnStore()
+        self.staged_splits = 0
 
     def disk_cache_stats(self) -> dict:
         """Hits and misses of the disk cache of generated splits."""
@@ -351,6 +354,9 @@ class TpchConnector(Connector):
         if hit is not None:
             self._batch_cache.move_to_end(key)
             return hit
+        staged = self._staged_split(schema, table, columns, split)
+        if staged is not None:
+            return staged
         disk_key = ("tpch",) + key
         batch = self._disk_cache.get(disk_key)
         if batch is not None:
@@ -370,6 +376,70 @@ class TpchConnector(Connector):
             self._batch_cache[key] = batch
             self._batch_cache_bytes += nbytes
         return batch
+
+    def _staged_split(self, schema, table, columns, split) -> Optional[Batch]:
+        """The split's rows of columns a ``device_slab`` staged already,
+        in one device-to-host copy (``ingest.buffers_to_host``), with the
+        staged dictionaries; None when the device holds not all of them.
+        Generating them again costs seconds a split (TPC-H SF1 lineitem:
+        tens of seconds). A lineitem split's rows are found by its order
+        keys in the staged ``l_orderkey`` (ascending, as generated), the
+        other tables' by their row ranges. Neither cache is involved: the
+        host split cache and the disk cache count what they serve."""
+        if not columns:
+            return None
+        want = list(columns) + (["l_orderkey"] if table == "lineitem" else [])
+        found = self._device_cols.staged(schema, table, want)
+        if found is None:
+            return None
+        import torch
+
+        from trino_tpu_torch.ingest import buffers_to_host
+
+        cols, num_rows = found
+        sf = scale_factor(schema)
+        counts = _counts(sf)
+        if table == "lineitem":
+            from trino_tpu_torch.connectors.dbgen import make_order_key
+
+            lo, hi = self._range(counts["orders"], split.index, split.total)
+            if hi <= lo:
+                return None
+            keys = cols[-1].data[:num_rows]
+            bounds = torch.as_tensor(
+                make_order_key(np.asarray([lo + 1, hi])).astype(np.int64) + [0, 1],
+                device=keys.device,
+            )
+            from trino_tpu_torch.exec.programs import allow_sync
+
+            with allow_sync(keys.device):  # the split's two row bounds
+                rlo, rhi = torch.searchsorted(keys, bounds.to(keys.dtype)).tolist()
+            cols = cols[: len(columns)]
+        else:
+            if table == "partsupp":
+                lo, hi = self._range(counts["part"], split.index, split.total)
+                lo, hi = 4 * lo, 4 * hi
+            else:
+                lo, hi = self._range(counts.get(table, num_rows), split.index, split.total)
+            rlo, rhi = lo, min(hi, num_rows)
+        if rhi <= rlo:
+            return None
+        parts = []
+        for c in cols:
+            parts.append(c.data[rlo:rhi])
+            if c.valid is not None:
+                parts.append(c.valid[rlo:rhi])
+        from trino_tpu_torch.exec.programs import allow_sync
+
+        with allow_sync(parts[0].device):
+            host = iter(buffers_to_host(parts))
+        self.staged_splits += 1
+        out = []
+        for c in cols:
+            data = next(host)
+            out.append(Column(c.type, data, None if c.valid is None else next(host),
+                              c.dictionary))
+        return Batch(out, rhi - rlo)
 
     def _reintern(self, columns, batch: Batch) -> Batch:
         """Swap disk-loaded dictionaries for the connector's shared

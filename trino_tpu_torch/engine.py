@@ -24,9 +24,16 @@ from.
 
 Each statement's counters go to the metrics registry (``obs/metrics.py``),
 which ``system.runtime.metrics`` and the server's ``/v1/metrics`` read; a
-server (``server/http.py``) installs its node listing. Not ported: the
-engine's spans, the result cache and the history store (ROADMAP item 9b);
-the cluster scheduler, scaled writers and worker tasks (item 9c).
+server (``server/http.py``) installs its node listing. A statement opens
+the ``query`` span (``execute`` under a server's query root) with
+``plan`` and ``optimize`` under it (``obs/trace.py``). The repeat tiers
+(reference ``:325-470``, ``:612-885``): the query-history stores by
+``history_dir`` (``obs/history.py``; a SELECT's fingerprint reads its
+entry before the run, to seed capacities, and records what the run
+observed after it), the SLO sentinel (``obs/slo.py``) judging each run
+against that entry, and the semantic result cache (``cache/``), probed
+before the statement is parsed and stored after a SELECT. Not ported:
+the cluster scheduler, scaled writers and worker tasks (ROADMAP item 9c).
 """
 
 from __future__ import annotations
@@ -98,10 +105,16 @@ class StatementResult:
     # in-program operator row flow: {stable_site: {kind, rows_in,
     # rows_out}}; None when operator_stats is off or nothing ran a program
     operator_stats: Optional[dict[str, Any]] = None
-    # the device profiler's rollup and the result cache's counters
-    # (ROADMAP item 9b): None until those are ported
+    # the device profiler's rollup (obs/profiler.py): per-program CUDA
+    # allocator stats and the query totals (``deviceStats``); None when
+    # device_profiling is off or no program ran
     device_stats: Optional[dict[str, Any]] = None
+    # the result cache (cache/): resultCacheHit, and incrementalMaintenance
+    # with deltaSplits when an entry was maintained; None on real runs
     result_cache_stats: Optional[dict[str, Any]] = None
+    # the SLO sentinel's verdict against the fingerprint's history
+    # baseline (``queryStats.regression``); None when within it or cold
+    regression: Optional[dict[str, Any]] = None
 
 
 # the reference's table-cache budget, sized for its 16 GiB pool; kept on
@@ -186,6 +199,16 @@ class Engine:
         from trino_tpu_torch.exec.batching import BatchCollector
 
         self.batch_collector = BatchCollector(self)
+        # query-history stores (obs/history.py) by the session's
+        # history_dir ("" = this process's in-memory store), so every
+        # query of a dir shares one store and its lock
+        self._history_stores: dict[str, Any] = {}
+        self._history_lock = threading.Lock()
+        # final result sets by (fingerprint, hoisted parameters), checked
+        # against data versions and the access-control generation
+        from trino_tpu_torch.cache.result_cache import ResultCache
+
+        self.result_cache = ResultCache()
 
     _QUERY_CACHE_MAX = 64
     # statements whose results depend on evaluation time or randomness
@@ -317,16 +340,130 @@ class Engine:
                     rows.append((f"{key}.{field}", "histogram", float(v)))
         return rows
 
+    # --- query history (obs/history.py; reference :325-470) ---------------
+
+    def history_store(self, session: Session):
+        """The :class:`QueryHistoryStore` this session resolves to, or
+        None when ``query_history`` is off. One store a ``history_dir``
+        ("" keeps it in memory, the default)."""
+        try:
+            if not bool(session.get("query_history")):
+                return None
+            hdir = str(session.get("history_dir") or "")
+            max_entries = int(session.get("history_max_entries"))
+            max_bytes = int(session.get("history_max_bytes"))
+        except KeyError:
+            return None
+        import os
+
+        from trino_tpu_torch.obs.history import QueryHistoryStore
+
+        path = os.path.join(hdir, "query_history.json") if hdir else ""
+        with self._history_lock:
+            store = self._history_stores.get(hdir)
+            if store is None:
+                store = QueryHistoryStore(
+                    path=path, max_entries=max_entries, max_bytes=max_bytes
+                )
+                self._history_stores[hdir] = store
+            return store
+
+    def history_snapshot(self) -> dict:
+        """Every history store this engine has resolved: the
+        ``GET /v1/history`` body."""
+        with self._history_lock:
+            stores = sorted(self._history_stores.items())
+        return {"stores": [s.snapshot() for _, s in stores]}
+
     def runtime_history(self) -> list[dict]:
-        """The history store is not ported: no rows, as the reference
-        gives with ``query_history`` off."""
-        return []
+        """Flat per-fingerprint rows for ``system.runtime.history``."""
+        with self._history_lock:
+            stores = [s for _, s in sorted(self._history_stores.items())]
+        rows: list[dict] = []
+        for store in stores:
+            for fp, ent in store.entries():
+                rec = dict(ent)
+                rec["fingerprint"] = fp
+                rec["path"] = store.path
+                rows.append(rec)
+        return rows
+
+    @staticmethod
+    def _history_record(hist, fp, res, elapsed_ms: float) -> None:
+        """Fold one finished query's observed stats into the history
+        store. Best-effort: history never fails the query that feeds it."""
+        if hist is None or fp is None or res is None:
+            return
+        try:
+            ex = res.exchange_stats if isinstance(res.exchange_stats, dict) else {}
+            ds = res.device_stats if isinstance(res.device_stats, dict) else {}
+            bs = res.batch_stats if isinstance(res.batch_stats, dict) else {}
+            caps: dict[str, dict] = {}
+            for val in (ex.get("capacities") or {}).values():
+                if not isinstance(val, dict):
+                    continue
+                site = val.get("site")
+                # only restart-stable names persist
+                if not isinstance(site, str) or "@" not in site:
+                    continue
+                caps[site] = {
+                    "value": val.get("value"),
+                    "provenance": val.get("provenance", ""),
+                }
+            observed: dict[str, Any] = {
+                "elapsed_ms": round(float(elapsed_ms), 3),
+                "rows": len(res.rows),
+                "overflow_retries": int(ex.get("overflow_retries", 0) or 0),
+                "compile_halvings": int(ex.get("compile_halvings", 0) or 0),
+                "padding_ratio": float(ex.get("padding_ratio", 0.0) or 0.0),
+                "shuffle_rows": int(ex.get("shuffle_rows", 0) or 0),
+                "capacities": caps,
+            }
+            ops: dict[str, dict] = {}
+            for site, ent in (ex.get("operators") or {}).items():
+                if not isinstance(ent, dict) or "@" not in str(site):
+                    continue
+                ops[str(site)] = {
+                    "kind": str(ent.get("kind", "")),
+                    "rows_in": int(ent.get("rows_in", 0) or 0),
+                    "rows_out": int(ent.get("rows_out", 0) or 0),
+                }
+            if ops:
+                observed["operators"] = ops
+            flops = ds.get("total_flops")
+            if isinstance(flops, (int, float)):
+                observed["flops"] = float(flops)
+            peak = ds.get("peak_hbm_bytes")
+            if isinstance(peak, (int, float)) and peak > 0:
+                observed["peak_hbm_bytes"] = int(peak)
+            if bs.get("batchSize"):
+                observed["batch_size"] = int(bs["batchSize"])
+            hist.record(fp, observed)
+        except Exception:  # noqa: BLE001
+            pass
+
+    @staticmethod
+    def _sentinel_check(session, fp, res, elapsed_ms: float, hist_entry,
+                        query_id=None) -> None:
+        """Judge this completion against the fingerprint's pre-run
+        history baseline and the session's SLOs (obs/slo.py); the verdict
+        rides the result as ``regression``. Best-effort like history."""
+        try:
+            from trino_tpu_torch.obs.slo import get_sentinel
+
+            verdict = get_sentinel().evaluate(
+                session, fp, elapsed_ms, hist_entry, query_id=query_id
+            )
+            if res is not None and verdict is not None:
+                res.regression = verdict
+        except Exception:  # noqa: BLE001
+            pass
 
     def runtime_programs(self) -> list[dict]:
         """One row a stored program (reference ``:284``): its entry's
-        fingerprint and store counters, and on a card the graph pool's
-        reserved bytes after its capture (``peak_hbm_bytes``). The XLA
-        cost columns (flops, bytes accessed) have no counterpart: None."""
+        fingerprint and store counters, and the allocator stats of its
+        capture where the profiler took them (``peak_hbm_bytes``; the
+        XLA cost columns, flops and bytes accessed, stay None)."""
         from trino_tpu_torch.exec.programs import Program
 
         with self._query_cache_lock:
@@ -337,15 +474,16 @@ class Engine:
             for val in list(programs.values()):
                 if not isinstance(val, Program):
                     continue
+                ds = val.device_stats or {}
                 rows.append({
                     "fingerprint": fingerprint,
                     "program": val.label,
                     "hits": int(stats.get("hits", 0)),
                     "misses": int(stats.get("misses", 0)),
                     "compile_ms": float(stats.get("compile_ms", 0.0)),
-                    "flops": None,
-                    "peak_hbm_bytes": val.pool_bytes,
-                    "bytes_accessed": None,
+                    "flops": ds.get("flops"),
+                    "peak_hbm_bytes": ds.get("peak_hbm_bytes"),
+                    "bytes_accessed": ds.get("bytes_accessed"),
                 })
         return rows
 
@@ -359,12 +497,21 @@ class Engine:
         fails (and is cleared from the session), and a live one is not
         idle-expired mid-statement."""
         from trino_tpu_torch.events import QueryCompletedEvent, QueryCreatedEvent
+        from trino_tpu_torch.obs.trace import get_tracer
 
         qid = query_id or self._next_query_id()
         t0 = time.time()
         t0m = time.monotonic()
         if fire_events:
             self.event_listeners.fire_created(QueryCreatedEvent(qid, sql, session.user, t0))
+        tracer = get_tracer()
+        # the root span when standalone; an "execute" child when a
+        # server's ManagedQuery opened the query root on this thread
+        span = tracer.start_span(
+            "query" if tracer.current() is None else "execute",
+            trace_id=qid if tracer.current() is None else None,
+            attrs={"queryId": qid, "user": session.user},
+        )
         record = {
             "queryId": qid, "state": "RUNNING", "user": session.user,
             "source": session.source, "query": sql, "elapsedTimeMillis": 0,
@@ -384,15 +531,8 @@ class Engine:
                 except Exception:
                     session.properties.pop("__txn", None)
                     raise
-            stmt = parse_statement(sql)
-            if isinstance(stmt, t.Prepare):
-                # keep the statement's SQL text: it must survive the
-                # stateless HTTP protocol via X-Trino-Added-Prepare
-                m = re.match(r"\s*prepare\s+\S+\s+from\s+(.*)$", sql.strip().rstrip(";"),
-                             re.IGNORECASE | re.DOTALL)
-                if m:
-                    stmt = dataclasses.replace(stmt, sql=m.group(1).strip())
-            res = self._dispatch_parsed(stmt, session, qid, sql_text=sql)
+            with tracer.activate(span):
+                res = self._execute_statement_inner(sql, session, qid)
             return res
         except Exception as e:  # noqa: BLE001
             error, exc = str(e), e
@@ -407,6 +547,10 @@ class Engine:
             if res is not None:
                 record["peakMemoryBytes"] = res.peak_memory_bytes
                 record["outputRows"] = len(res.rows)
+            span.finish(
+                status="OK" if error is None else "ERROR",
+                state=record["state"], rows=record["outputRows"],
+            )
             from trino_tpu_torch.obs.metrics import get_registry
 
             self._record_query_metrics(get_registry(), record, res, wall)
@@ -424,11 +568,113 @@ class Engine:
                     error_code=err_code, error_type=err_type,
                 ))
 
+    def _execute_statement_inner(self, sql: str, session: Session,
+                                 query_id: Optional[str] = None) -> StatementResult:
+        # the result cache's probe before parsing: its SQL-text memo
+        # (filled on store, checked against data versions and the
+        # access-control generation) serves a repeat text as host rows
+        cached = self.try_cached_result(sql, session)
+        if cached is not None:
+            return cached
+        stmt = parse_statement(sql)
+        if isinstance(stmt, t.Prepare):
+            # keep the statement's SQL text: it must survive the
+            # stateless HTTP protocol via X-Trino-Added-Prepare
+            m = re.match(r"\s*prepare\s+\S+\s+from\s+(.*)$", sql.strip().rstrip(";"),
+                         re.IGNORECASE | re.DOTALL)
+            if m:
+                stmt = dataclasses.replace(stmt, sql=m.group(1).strip())
+        return self._dispatch_parsed(stmt, session, query_id, sql_text=sql)
+
+    # --- the semantic result cache (cache/; reference :612-720) ------------
+
+    def _result_cache_on(self, session: Session) -> bool:
+        try:
+            if not bool(session.get("result_cache")):
+                return False
+        except KeyError:
+            return False
+        # snapshot semantics inside explicit transactions are per-txn
+        return "__txn" not in session.properties
+
+    def try_cached_result(self, sql: str, session: Session,
+                          allow_maintenance: bool = True) -> Optional[StatementResult]:
+        """This statement from the result cache, or None. A pure hit is
+        host work only; ``allow_maintenance`` also lets an appended
+        entry be merged, which scans the delta on the device and so
+        belongs on a dispatch thread (the query manager's admission fast
+        path passes False)."""
+        if not self._result_cache_on(session):
+            return None
+        try:
+            return self.result_cache.lookup(
+                self, sql, session, allow_maintenance=allow_maintenance
+            )
+        except Exception:  # noqa: BLE001 — the cache never fails a query
+            return None
+
+    def _result_cache_begin(self, sql_text: Optional[str], session: Session,
+                            plan: P.PlanNode) -> Optional[dict]:
+        """The store's pre-execution snapshot: the referenced tables and
+        their data versions, taken before the run so that a write landing
+        during it leaves the entry stale, never wrong."""
+        if sql_text is None or not self._result_cache_on(session):
+            return None
+        if not self._sql_cacheable(sql_text):
+            return None
+        try:
+            from trino_tpu_torch.cache.result_cache import referenced_tables, versions_snapshot
+
+            tables = referenced_tables(plan)
+            if not tables:
+                return None  # literal-only results are not worth an entry
+            for cat in dict.fromkeys(c for c, _, _ in tables):
+                conn = self.catalogs.get(cat)
+                if not getattr(conn, "supports_result_caching", True):
+                    return None  # live state (system tables): never cached
+            versions = versions_snapshot(self.catalogs, tables)
+        except Exception:  # noqa: BLE001
+            return None
+        return {"tables": tables, "versions": versions}
+
+    def _result_cache_store(self, ctx: Optional[dict], sql_text: str, session: Session,
+                            plan: P.PlanNode, res: Optional[StatementResult]) -> None:
+        if ctx is None or res is None or res.update_type is not None:
+            return
+        try:
+            from trino_tpu_torch.planner.canonicalize import (
+                canonicalize_plan,
+                classify_maintainability,
+            )
+
+            # the (fingerprint, params) pair of the baked plan: two
+            # literal variants must never share an entry
+            _, params, fp = canonicalize_plan(plan, session, self.mesh_n)
+            if fp is None:
+                return
+            maintain = None
+            try:
+                if bool(session.get("incremental_maintenance")):
+                    maintain = classify_maintainability(plan)
+            except KeyError:
+                maintain = None
+            try:
+                max_bytes = int(session.get("result_cache_max_bytes"))
+            except KeyError:
+                max_bytes = None
+            self.result_cache.store(
+                sql=sql_text, session=session, fingerprint=fp, params=params,
+                tables=ctx["tables"], versions=ctx["versions"],
+                acl_generation=self.access_control.generation, res=res,
+                maintain=maintain, plan=plan, max_bytes=max_bytes,
+            )
+        except Exception:  # noqa: BLE001 — the cache never fails a query
+            pass
+
     @staticmethod
     def _record_query_metrics(reg, record: dict, res, wall_s: float) -> None:
         """Fold one statement's counters into the process registry
-        (reference ``:566``, but the device profiler's two, which read
-        ``device_stats``: ROADMAP item 9b)."""
+        (reference ``:566``)."""
         reg.counter("trino_tpu_queries_total", state=record["state"]).inc()
         reg.histogram("trino_tpu_query_elapsed_ms").observe(wall_s * 1000.0)
         reg.counter("trino_tpu_output_rows_total").inc(record["outputRows"])
@@ -451,6 +697,11 @@ class Engine:
                             kind=ent["kind"], io="in").inc(int(ent.get("rows_in", 0) or 0))
                 reg.counter("trino_tpu_operator_rows_total",
                             kind=ent["kind"], io="out").inc(int(ent.get("rows_out", 0) or 0))
+        ds = res.device_stats or {}
+        if isinstance(ds.get("total_flops"), (int, float)):
+            reg.counter("trino_tpu_query_flops_total").inc(ds["total_flops"])
+        if isinstance(ds.get("peak_hbm_bytes"), (int, float)):
+            reg.gauge("trino_tpu_query_peak_hbm_bytes").set(ds["peak_hbm_bytes"])
 
     def _dispatch_parsed(self, stmt: t.Node, session: Session,
                          query_id: Optional[str] = None,
@@ -468,9 +719,15 @@ class Engine:
         distributed mode with the program cache on, canonicalized, so the
         canonical fingerprint (not the text) picks the entry whose
         programs it runs, its hoisted literals riding the parameter
-        tensor. A second concurrent run of one entry runs uncached."""
+        tensor. A second concurrent run of one entry runs uncached. The
+        fingerprint's history entry, read before the run, seeds its
+        capacities; the run's observations and the sentinel's verdict
+        follow it, and the result cache stores its rows."""
         plan = self.plan(stmt, session)
-        exec_plan, params, entry = plan, [], None
+        # the result cache's store context (tables and their pre-run
+        # versions); None when the cache is off or the shape refuses
+        rc_ctx = self._result_cache_begin(sql_text, session, plan)
+        exec_plan, params, entry, fp = plan, [], None, None
         if (
             sql_text is not None
             and session.get("execution_mode") == "distributed"
@@ -486,14 +743,29 @@ class Engine:
                 entry = self._query_cache_entry(fp)
             else:
                 params = []  # unserializable shape: run baked, uncached
+        hist = self.history_store(session) if fp is not None else None
+        hist_entry = hist.get(fp) if hist is not None else None
+
+        def finish(res: StatementResult, t0: float) -> StatementResult:
+            elapsed_ms = (time.monotonic() - t0) * 1000.0
+            self._sentinel_check(session, fp, res, elapsed_ms, hist_entry, query_id=query_id)
+            self._history_record(hist, fp, res, elapsed_ms)
+            if isinstance(res.exchange_stats, dict):
+                # did an earlier run of this fingerprint inform this one?
+                # (queryStats.historyHits)
+                res.exchange_stats["history_hits"] = 1 if hist_entry is not None else 0
+            self._result_cache_store(rc_ctx, sql_text, session, plan, res)
+            return res
+
         if (
             entry is not None
             and int(session.get("batch_window_ms")) > 0
             and "__txn" not in session.properties
         ):
-            return self.batch_collector.submit(
+            t0 = time.monotonic()
+            return finish(self.batch_collector.submit(
                 entry, exec_plan, session, params, query_id or self._next_query_id()
-            )
+            ), t0)
         # a store and its capacities serve one executor at a time
         if entry is not None and not entry["lock"].acquire(blocking=False):
             entry = None
@@ -507,18 +779,25 @@ class Engine:
                 # identities name the programs and capacity sites
                 exec_plan = entry["plan"]
                 programs = entry["programs"]
-            return self._execute_query_plan(
+            t0 = time.monotonic()
+            return finish(self._execute_query_plan(
                 exec_plan, session, query_id=query_id, programs=programs, params=params,
-            )
+                history=hist_entry,
+            ), t0)
         finally:
             if entry is not None:
                 entry["lock"].release()
 
     def plan(self, stmt: t.Node, session: Session) -> P.PlanNode:
+        from trino_tpu_torch.obs.trace import get_tracer
         from trino_tpu_torch.planner.optimizer import optimize
 
+        tracer = get_tracer()
         analyzer = Analyzer(self.catalogs, session, self.access_control)
-        return optimize(analyzer.plan_statement(stmt), session, self.catalogs)
+        with tracer.span("plan"):
+            plan = analyzer.plan_statement(stmt)
+        with tracer.span("optimize"):
+            return optimize(plan, session, self.catalogs)
 
     # === DQL ==============================================================
 
@@ -531,6 +810,7 @@ class Engine:
     def _result(self, executor, batch: Batch, names, ctx, **extra) -> StatementResult:
         snap = getattr(executor, "exchange_stats_snapshot", None)
         exchange_stats = snap() if callable(snap) else None
+        dsnap = getattr(executor, "device_stats_snapshot", None)
         cs = getattr(executor, "compile_stats", None) or {}
         from trino_tpu_torch.exec.programs import allow_sync
 
@@ -551,17 +831,19 @@ class Engine:
             ingest_stats=dict(executor.ingest_stats) or None,
             spill_stats=dict(executor.spill_stats) or None,
             operator_stats=(exchange_stats or {}).get("operators"),
+            device_stats=dsnap() if callable(dsnap) else None,
             **extra,
         )
 
     def _execute_query_plan(
         self, plan: P.PlanNode, session: Session, collector=None,
         query_id: Optional[str] = None, programs: Optional[dict] = None,
-        params: Optional[list] = None,
+        params: Optional[list] = None, history: Optional[dict] = None,
     ) -> StatementResult:
         ctx = self._memory_ctx(session, query_id)
         try:
-            executor = self._executor(session, ctx, programs=programs, params=params)
+            executor = self._executor(session, ctx, programs=programs, params=params,
+                                      history=history)
             executor.stats_collector = collector
             batch, names = executor.execute(plan)
         finally:
@@ -591,7 +873,8 @@ class Engine:
 
     def _executor(self, session: Session, ctx: Optional[QueryMemoryContext] = None,
                   programs: Optional[dict] = None,
-                  params: Optional[list] = None) -> LocalExecutor:
+                  params: Optional[list] = None,
+                  history: Optional[dict] = None) -> LocalExecutor:
         mode = session.get("execution_mode")
         if mode == "distributed" and session.get("fragment_execution"):
             from trino_tpu_torch.exec.fragments import FragmentedExecutor
@@ -605,7 +888,7 @@ class Engine:
                 table_cache_bytes=table_cache_budget(
                     session, self.memory_pool, self.device
                 ),
-                memory_ctx=ctx,
+                memory_ctx=ctx, history=history,
             )
         if mode not in ("local", "distributed"):
             raise SemanticError(
@@ -686,7 +969,8 @@ class Engine:
         Distributed runs add the operator section: each site's rows in and
         out, read with the programs' flags (``exch@`` sites on N shards,
         with the exchange section). The reference's device-program
-        section (XLA cost analysis) has no counterpart."""
+        section renders the profiler's allocator stats
+        (``render_device_stats``)."""
         from trino_tpu_torch import stats as S
 
         if getattr(stmt, "analyze", False):
@@ -699,6 +983,8 @@ class Engine:
             text = S.render_plan_with_stats(plan, collector)
             if collector.fragments:
                 text += "\n\n" + S.render_fragment_stats(collector.fragments)
+            if res.device_stats:
+                text += "\n\n" + S.render_device_stats(res.device_stats)
             caps = (res.exchange_stats or {}).get("capacities")
             if isinstance(caps, dict) and caps:
                 text += "\n\n" + S.render_capacity_stats(caps)

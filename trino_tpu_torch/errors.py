@@ -24,9 +24,14 @@ def classify_error(e: BaseException) -> Tuple[int, str, str]:
     """
     from trino_tpu_torch.analyzer import SemanticError
     from trino_tpu_torch.memory import ExceededMemoryLimitError
+    from trino_tpu_torch.obs.history import HistoryHbmRejected
     from trino_tpu_torch.planner.sanity import PlanValidationError
     from trino_tpu_torch.sql.lexer import SqlSyntaxError
 
+    if isinstance(e, HistoryHbmRejected):
+        # the admission gate rejected the query: its fingerprint's
+        # observed peak device bytes cannot fit the card
+        return (131075, "EXCEEDED_MEMORY_LIMIT", "INSUFFICIENT_RESOURCES")
     if isinstance(e, SqlSyntaxError):
         return (1, "SYNTAX_ERROR", "USER_ERROR")
     if isinstance(e, SemanticError):

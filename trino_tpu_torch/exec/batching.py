@@ -28,7 +28,8 @@ A copy of ``trino_tpu/exec/batching.py``. The resource-group admission
 in front of it is the server's (``server/querymanager.py``); the dispatch
 counts by batch size go to the metrics registry
 (``trino_tpu_batched_dispatches_total{size}``) and are kept on the
-collector too (``dispatches``). The batch's span is ROADMAP item 9b.
+collector too (``dispatches``); each member of a batch of two or more
+gets a ``batched_dispatch`` span on its own trace.
 """
 
 from __future__ import annotations
@@ -248,5 +249,18 @@ class BatchCollector:
         with self._lock:
             self.dispatches[k] = self.dispatches.get(k, 0) + 1
         from trino_tpu_torch.obs.metrics import get_registry
+        from trino_tpu_torch.obs.trace import get_tracer
 
         get_registry().counter("trino_tpu_batched_dispatches_total", size=str(k)).inc()
+        if k < 2:
+            return
+        tracer = get_tracer()
+        leader_qid = members[0].query_id
+        for m in members:
+            # one span a member on its own trace: the waterfall shows
+            # which queries shared the dispatch
+            tracer.record(
+                "batched_dispatch", dur_ms,
+                attrs={"batchSize": k, "batchLeader": leader_qid},
+                trace_id=m.query_id,
+            )

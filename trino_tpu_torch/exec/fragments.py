@@ -46,10 +46,20 @@ and the build rows no probe row matched are appended after it.
 A join site sizes its output to its matches on its first run (one host
 read) and keeps that capacity; an aggregate site first holds its input's
 rows, then the groups it counted. Capacities, programs and the device
-table cache outlive the query (see :class:`FragmentedExecutor`).
+table cache outlive the query (see :class:`FragmentedExecutor`). With a
+query-history entry (``obs/history.py``) a site no run of this entry has
+sized starts at the capacity an earlier run of the fingerprint settled
+at (provenance ``history``), so a fresh engine skips the first run's
+sizing reads and retries. The reference's stats seeding (``_seed_caps``,
+planner estimates as floors) is not carried over: first capacities here
+come from the data.
 
-Not ported yet: the history store and the stats seeding of capacities
-(ROADMAP item 9b).
+Spans (``obs/trace.py``): ``fragment`` (the fragmentation of a new
+entry), ``fragment_execute`` and ``fused_execute`` a unit,
+``program_compile`` a capture, ``compile_halving`` a halving and
+``device_pull`` the result's read. With ``device_profiling`` on, each
+captured program's allocator stats (``obs/profiler.py``) are taken once
+at its capture and counted on every run (``device_stats_snapshot``).
 """
 
 from __future__ import annotations
@@ -78,6 +88,8 @@ from trino_tpu_torch.exec.local import (
     rank_codes,
     with_mark,
 )
+from trino_tpu_torch.obs.metrics import get_registry
+from trino_tpu_torch.obs.trace import get_tracer
 from trino_tpu_torch.ops.aggregation import AggSpec, group_aggregate
 from trino_tpu_torch.ops import join as J
 from trino_tpu_torch.parallel.distributed import DistributedExecutor
@@ -592,8 +604,9 @@ class _FragmentTracer(LocalExecutor):
         ``dense`` (the open-addressing table) or ``matmul`` (the same table
         addressed by identity binning of a single integer key). ``auto``
         promotes to matmul only off a history-seeded ``densejoin`` site
-        within the domain bound; with no history store ported, ``auto`` is
-        ``dense``. Demoted sites are pinned to sort."""
+        within the domain bound (reference ``:3151-3167``), so a cold run,
+        or one with ``query_history`` off, is ``dense``. Demoted sites are
+        pinned to sort."""
         if not bool(self.session.get("dense_join")):
             return "sort"
         site = self._site("densejoin", node)
@@ -1254,8 +1267,11 @@ class FragmentedExecutor(DistributedExecutor):
     def __init__(self, catalogs, session, device, mesh=None,
                  programs: Optional[dict] = None, params=None, pool=None,
                  table_cache=None, table_cache_bytes: int = 1 << 30,
-                 memory_ctx=None):
+                 memory_ctx=None, history: Optional[dict] = None):
         super().__init__(catalogs, session, device, mesh, memory_ctx=memory_ctx)
+        # the fingerprint's query-history entry (obs/history.py) read
+        # before this run, or None: it seeds the capacities of new sites
+        self.history = history
         if self.n_shards == 1:
             self.exchange_stats = {"overflow_retries": 0}
         self.exchange_stats["joinStrategy"] = {}
@@ -1278,7 +1294,51 @@ class FragmentedExecutor(DistributedExecutor):
         self.table_cache_bytes = table_cache_bytes
 
     def _caps(self, *scope) -> _Caps:
-        return self.programs.setdefault(("caps",) + scope, _Caps())
+        caps = self.programs.setdefault(("caps",) + scope, _Caps())
+        if self.history:
+            self._seed_history(scope, caps)
+        return caps
+
+    # --- query history (reference :677-752) ---------------------------------
+
+    @staticmethod
+    def _history_sites(fids, hcaps: dict) -> list[str]:
+        """The sites of ``hcaps`` (a history entry's capacities) that
+        belong to the fragments ``fids``. The reference maps its runtime
+        site names (``agg{id(node)}``) onto restart-stable ones
+        (``agg@3#0``); here the tracer names its sites the stable way
+        already (``kind@fragment#ordinal``, a stream's ``agg@fragment``),
+        so a site belongs to the fragment its name carries."""
+        want = {str(f) for f in fids}
+        return [site for site in hcaps
+                if site.partition("@")[2].partition("#")[0] in want]
+
+    def _seed_history(self, scope: tuple, caps: _Caps) -> None:
+        """History-seeded capacities: a site of this scope's fragments
+        that no run of the entry has sized yet starts at the capacity an
+        earlier run of the fingerprint settled at (provenance
+        ``history``). Exact, not a floor as in the reference: this
+        package's first capacities are sized from the data (one host read
+        a site), and the observed final capacity is what that sizing and
+        its retries reach. Best-effort: seeding never fails a query."""
+        try:
+            hcaps = (self.history or {}).get("capacities") or {}
+            if not hcaps:
+                return
+            fids = scope[1] if scope and scope[0] == "fused" else scope[-1:]
+            seeded = 0
+            for site in self._history_sites(fids, hcaps):
+                ent = hcaps[site]
+                if not isinstance(ent, dict) or caps.seeded(site) is not None:
+                    continue
+                val = bucket_capacity(int(ent.get("value", 0)), minimum=1)
+                if val > 0:
+                    caps.seed(site, val, provenance="history")
+                    seeded += 1
+            if seeded:
+                get_registry().counter("trino_tpu_history_seeds_total").inc(seeded)
+        except Exception:  # noqa: BLE001 — seeding is best-effort
+            pass
 
     # --- scans ------------------------------------------------------------
 
@@ -1330,7 +1390,8 @@ class FragmentedExecutor(DistributedExecutor):
         # capacity sites name its nodes
         sub = self.programs.get("__subplan__")
         if sub is None:
-            sub = fragment_plan(node, self.session)
+            with get_tracer().span("fragment"):
+                sub = fragment_plan(node, self.session)
             self.programs["__subplan__"] = sub
         self.params = param_tensor(self._param_list, self.device)
         return self._execute_fragments(sub)
@@ -1343,15 +1404,14 @@ class FragmentedExecutor(DistributedExecutor):
                 results[unit.id] = self._run_fused_unit(unit, results, names_holder)
             else:
                 results[unit.id] = self._run_fragment(unit, results, names_holder)
-        if self.stats_collector is not None:
-            # EXPLAIN ANALYZE's capacity section; no other reader
-            self.exchange_stats["capacities"] = self._capacity_report()
         from trino_tpu_torch.exec.programs import allow_sync
 
         # the result's read: its selected rows gathered to the host
         self._count("result_reads")
+        t_pull = time.perf_counter()
         with allow_sync(self.device):
             out = results[sub.fragment.id].batch.compact()
+        self._pulled(t_pull, extras=len(out.columns))
         names = names_holder.get(sub.fragment.id) or [
             s.name for s in sub.fragment.root.output_symbols
         ]
@@ -1366,8 +1426,15 @@ class FragmentedExecutor(DistributedExecutor):
             if isinstance(key, tuple) and key and key[0] == "caps" and isinstance(val, _Caps):
                 strategies.update(val.join_strategies)
         st["joinStrategy"] = strategies
+        # every site's value, provenance and restart-stable name: what the
+        # history store keeps; history_seeds counts the sites whose value
+        # came from it (queryStats.historySeeds)
+        st["capacities"] = self._capacity_report()
+        st["history_seeds"] = sum(
+            1 for ent in st["capacities"].values()
+            if str(ent["provenance"]).startswith("history")
+        )
         if self.n_shards > 1:
-            st["capacities"] = self._capacity_report()
             st["padding_ratio"] = round(
                 st.get("padded_shuffle_rows", 0) / max(1, st.get("shuffle_rows", 0)), 4)
         if self.operator_stats:
@@ -1395,6 +1462,14 @@ class FragmentedExecutor(DistributedExecutor):
 
     def _count(self, key: str, n: int = 1) -> None:
         self.exchange_stats[key] = self.exchange_stats.get(key, 0) + n
+
+    @staticmethod
+    def _pulled(t0: float, **attrs) -> None:
+        """The result's read from the device (reference ``:991-999``): its
+        span and ``trino_tpu_device_pull_ms``."""
+        ms = (time.perf_counter() - t0) * 1000.0
+        get_tracer().record("device_pull", ms, attrs=attrs)
+        get_registry().histogram("trino_tpu_device_pull_ms").observe(ms)
 
     def _df_build_lookup(self, results: dict[int, Result]):
         """Dynamic-filter domain accessor over completed fragment results:
@@ -1532,10 +1607,16 @@ class FragmentedExecutor(DistributedExecutor):
         (reference ``:1150-1175``), counted in ``fused_fallbacks``."""
         from trino_tpu_torch.exec.programs import NotCapturable
 
+        span = get_tracer().start_span(
+            "fused_execute", attrs={"stage": unit.id, "fragments": len(unit.fragments)})
         try:
-            if ("eager", unit.fragment_ids) in self.programs:
-                raise FusedUnsupported("an earlier run fell back")
-            return self._run_fused_spanned(unit, results, names_holder)
+            with span:
+                if ("eager", unit.fragment_ids) in self.programs:
+                    raise FusedUnsupported("an earlier run fell back")
+                out = self._run_fused_spanned(unit, results, names_holder)
+                span.set("mode", "fused-pipeline")
+            get_registry().counter("trino_tpu_fused_programs_total").inc()
+            return out
         except (FusedUnsupported, CapacityRetryExceeded, NotCapturable) as e:
             if isinstance(e, NotCapturable):
                 # remembered with the entry: later runs skip the attempt
@@ -1563,7 +1644,12 @@ class FragmentedExecutor(DistributedExecutor):
     def _run_fragment(self, frag: PlanFragment, results, names_holder) -> Result:
         """One fragment: the streaming chunk loop when it qualifies, else
         one program when it is fusable (``run_fragment_program``), else
-        the eager retry loop over its nodes (``_run_with_retries``)."""
+        the eager retry loop over its nodes (``_run_with_retries``); under
+        its ``fragment_execute`` span."""
+        with get_tracer().span("fragment_execute", attrs={"stage": frag.id}):
+            return self._run_fragment_spanned(frag, results, names_holder)
+
+    def _run_fragment_spanned(self, frag: PlanFragment, results, names_holder) -> Result:
         from trino_tpu_torch.exec.programs import NotCapturable, allow_sync
 
         t0 = time.perf_counter()
@@ -1808,8 +1894,11 @@ class FragmentedExecutor(DistributedExecutor):
         its site, and the next attempt captures again. An out-of-memory
         evicts the pool's least recently used programs (half their bytes,
         then all), then halves every capacity (``_Caps.shrink_all``)
-        until the program fits."""
+        until the program fits. With ``device_profiling`` on, a new
+        program's allocator stats are taken over its warm-up and capture,
+        and every run counts an execution of its label."""
         from trino_tpu_torch.exec import programs as PR
+        from trino_tpu_torch.obs.profiler import PeakWindow, capture_device_stats
 
         inputs = self._program_inputs(inputs)
         copied = set(copied) | ({"__params__"} if "__params__" in inputs else set())
@@ -1843,6 +1932,8 @@ class FragmentedExecutor(DistributedExecutor):
                     if self._settle(prog.meta, vals, caps, fresh=()):
                         if recorder is not None:
                             PR.capture(self.pool, prog, named, copied, recorder)
+                        if self._device_profiling:
+                            self._record_device_stats(prog.label, prog.device_stats)
                         return res
                     continue
                 meta = _Meta()
@@ -1850,25 +1941,29 @@ class FragmentedExecutor(DistributedExecutor):
                 sized_before = set(caps.vals)
                 recorder = PR.ConstantRecorder()
                 t0 = time.perf_counter()
-                with PR.program_run():
-                    if self.pool is not None and self.pool.on_card:
-                        with recorder.record():
+                # the allocator's peak over the warm-up and the capture
+                with PeakWindow(self.pool, self._device_profiling) as window:
+                    with PR.program_run():
+                        if self.pool is not None and self.pool.on_card:
+                            with recorder.record():
+                                res, words = fn(inputs)
+                        else:
                             res, words = fn(inputs)
-                    else:
-                        res, words = fn(inputs)
-                vals = PR.host_read(words, self.exchange_stats)
-                fresh = set(caps.vals) - sized_before
-                if not self._settle(meta, vals, caps, fresh):
-                    del res, words
-                    continue
-                fitted = self._fit_fresh(meta, vals, caps, fresh)
-                self.compile_stats["program_cache_misses"] += 1
-                store_stats["misses"] += 1
-                prog = PR.Program(pkey, program_label(key), fn, meta)
-                prog.input_keys = list(inputs)
-                if self.pool is not None:
-                    PR.capture(self.pool, prog, inputs, copied, recorder)
-                    self._store_program(pkey, caps.signature(), prog)
+                    vals = PR.host_read(words, self.exchange_stats)
+                    fresh = set(caps.vals) - sized_before
+                    if not self._settle(meta, vals, caps, fresh):
+                        del res, words
+                        continue
+                    fitted = self._fit_fresh(meta, vals, caps, fresh)
+                    self.compile_stats["program_cache_misses"] += 1
+                    store_stats["misses"] += 1
+                    prog = PR.Program(pkey, program_label(key), fn, meta)
+                    prog.input_keys = list(inputs)
+                    if self.pool is not None:
+                        PR.capture(self.pool, prog, inputs, copied, recorder)
+                        self._store_program(pkey, caps.signature(), prog)
+                if self._device_profiling:
+                    prog.device_stats = capture_device_stats(prog, window.peak)
                 if fitted and self.pool is not None:
                     # the result at the fitted capacities, shaped as every
                     # later run's: its consumers' programs then hold
@@ -1881,6 +1976,10 @@ class FragmentedExecutor(DistributedExecutor):
                 self.compile_stats["compile_ms"] += ms
                 store_stats["trace_count"] += 1
                 store_stats["compile_ms"] = round(store_stats["compile_ms"] + ms, 3)
+                get_tracer().record("program_compile", ms, attrs={"key": prog.label})
+                get_registry().histogram("trino_tpu_program_compile_ms").observe(ms)
+                if self._device_profiling:
+                    self._record_device_stats(prog.label, prog.device_stats, ms)
                 return res
             except (FusedUnsupported, CapacityRetryExceeded, PR.CaptureError):
                 raise  # NotCapturable too: the caller runs the fragment eagerly
@@ -1897,6 +1996,9 @@ class FragmentedExecutor(DistributedExecutor):
                     self._count("program_evictions")
                 elif caps.shrink_all():
                     self._count("compile_halvings")
+                    get_registry().counter("trino_tpu_compile_halvings_total").inc()
+                    get_tracer().record("compile_halving", 0.0,
+                                        attrs={"key": program_label(key)})
                 else:
                     raise
         raise CapacityRetryExceeded(
@@ -2061,6 +2163,9 @@ class FragmentedExecutor(DistributedExecutor):
             outs.append(res)
             words.append(w)
         n = len(words)
+        if self._device_profiling:
+            for _ in range(n):
+                self._record_device_stats(prog.label, prog.device_stats)
         self.compile_stats["program_cache_hits"] += n
         self.programs.setdefault("__stats__", {"hits": 0, "misses": 0, "trace_count": 0,
                                                "compile_ms": 0.0})["hits"] += n

@@ -421,15 +421,18 @@ class LocalExecutor:
 
     # === entry ==========================================================
     def execute(self, node: P.PlanNode) -> tuple[Batch, list[str]]:
-        if isinstance(node, P.Output):
-            res = self._exec(node.source)
-            cols = [res.column(s) for s in node.symbols]
-            out = Batch(
-                cols, res.batch.num_rows, res.batch.sel, res.batch.device
-            ).compact()
-            return out, node.column_names
-        res = self._exec(node)
-        return res.batch.compact(), [s.name for s in node.output_symbols]
+        from trino_tpu_torch.obs.trace import get_tracer
+
+        with get_tracer().span("execute_plan", attrs={"executor": type(self).__name__}):
+            if isinstance(node, P.Output):
+                res = self._exec(node.source)
+                cols = [res.column(s) for s in node.symbols]
+                out = Batch(
+                    cols, res.batch.num_rows, res.batch.sel, res.batch.device
+                ).compact()
+                return out, node.column_names
+            res = self._exec(node)
+            return res.batch.compact(), [s.name for s in node.output_symbols]
 
     # === dispatch =======================================================
     def _exec(self, node: P.PlanNode) -> Result:
@@ -494,6 +497,9 @@ class LocalExecutor:
         if splits is None:
             splits = self._scan_splits(node)
         layout = {s.name: i for i, s in enumerate(node.symbols)}
+        from trino_tpu_torch.obs.trace import get_tracer
+
+        t0 = time.perf_counter()
         batches = []
         rows_read = 0
         reader = self._read_splits(
@@ -507,6 +513,10 @@ class LocalExecutor:
             if node.limit is not None and rows_read >= node.limit:
                 break
         reader.close()  # stops the decode thread after a limit
+        get_tracer().record(
+            "ingest.decode", (time.perf_counter() - t0) * 1000.0,
+            attrs={"table": node.table, "splits": len(batches)},
+        )
         if not batches:
             batches = [
                 connector.read_split(

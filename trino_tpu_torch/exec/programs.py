@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -452,6 +453,9 @@ class Program:
         # program whose graph went is captured again on a hit that finds
         # this much room under the budget
         self.capture_bytes: Optional[int] = None
+        # the allocator's stats of its capture (obs/profiler.py), None
+        # unless device_profiling was on when it was captured
+        self.device_stats: Optional[dict] = None
 
 
 class ProgramPool:
@@ -500,6 +504,10 @@ class ProgramPool:
         # the allocator's segments, one dict a segment (a CPU test gives
         # its own)
         self.snapshot = torch.cuda.memory_snapshot if self.on_card else None
+        # held by the profiler's peak window (obs/profiler.py) over one
+        # program's warm-up and capture: the allocator's peak is
+        # process-wide, so one window at a time resets it
+        self.profile_lock = threading.Lock()
 
     @property
     def on_card(self) -> bool:

@@ -65,6 +65,19 @@ def device_headroom_ok(nbytes: int, device, fraction: float = 0.9) -> bool:
     return (total - free) + nbytes <= fraction * total
 
 
+def device_hbm_limit(device=None) -> int:
+    """The device's memory in bytes (``total_memory`` of a CUDA device),
+    or 0 for a device without memory accounting (the CPU): the history
+    admission gate treats 0 as "inert" (reference: ``device_hbm_limit``,
+    the backend's ``bytes_limit``)."""
+    try:
+        if device is None or torch.device(device).type != "cuda":
+            return 0
+        return int(torch.cuda.get_device_properties(torch.device(device)).total_memory)
+    except Exception:  # noqa: BLE001
+        return 0
+
+
 def _add(stats: Optional[dict], key: str, value) -> None:
     if stats is not None:
         stats[key] = stats.get(key, 0) + value
@@ -113,6 +126,9 @@ class SplitPrefetcher:
             _add(self._stats, "splits_decoded", 1)
             if not self._native:
                 _add(self._stats, "splits_decoded_numpy", 1)
+        from trino_tpu_torch.obs.metrics import get_registry
+
+        get_registry().histogram("trino_tpu_ingest_decode_ms").observe(ms)
         return out
 
     def __iter__(self):
@@ -214,6 +230,21 @@ def _unpack(arena: torch.Tensor, like: Sequence[torch.Tensor], offsets) -> list[
     return out
 
 
+def buffers_to_host(buffers: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Device tensors to host tensors in ONE device-to-host copy: each is
+    copied into its aligned segment of one device buffer
+    (:func:`segment_layout`), the buffer crosses once, and the host
+    tensors are typed views of it."""
+    if not buffers:
+        return []
+    offsets, nbytes = segment_layout(buffers)
+    arena = torch.empty(nbytes, dtype=torch.uint8, device=buffers[0].device)
+    for b, off in zip(buffers, offsets):
+        flat = b.contiguous().reshape(-1).view(torch.uint8)
+        arena[off : off + flat.numel()].copy_(flat)
+    return _unpack(arena.cpu(), buffers, offsets)
+
+
 def to_device(
     batch: Batch,
     device,
@@ -282,14 +313,18 @@ class DeviceTableCache:
         self.rejections = 0
 
     def lookup(self, key: tuple) -> Optional[Batch]:
+        from trino_tpu_torch.obs.metrics import get_registry
+
         with self._lock:
             ent = self._entries.get(key)
             if ent is None:
                 self.misses += 1
+                get_registry().counter("trino_tpu_table_cache_misses_total").inc()
                 return None
             self._entries.move_to_end(key)
             self.hits += 1
-            return ent[0]
+        get_registry().counter("trino_tpu_table_cache_hits_total").inc()
+        return ent[0]
 
     def admit(self, key: tuple, batch: Batch, nbytes: int, max_bytes: int) -> bool:
         if nbytes > max_bytes or not device_headroom_ok(nbytes, batch.device):
@@ -324,6 +359,29 @@ def splits_fingerprint(splits: Sequence) -> str:
     """Stable identity of a split list."""
     blob = repr([(s.index, s.total, s.info) for s in splits])
     return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+
+def parts_delta(old_parts, new_parts):
+    """Classify a part-version transition (pairs from a connector's
+    ``data_versions()``; reference ``trino_tpu/ingest.py:428``):
+    ``("same", [])`` when identical, ``("append", new_ids)`` when every
+    old ``(id, token)`` pair survives untouched and only new ids were
+    added, else ``("changed", [])``. The result cache's maintain-or-
+    invalidate decision; anything ambiguous (duplicate ids, removed or
+    re-tokened parts) is "changed"."""
+    old = dict(old_parts)
+    new = dict(new_parts)
+    if len(old) != len(old_parts) or len(new) != len(new_parts):
+        return "changed", []
+    if old == new:
+        return "same", []
+    appended = [pid for pid, _ in new_parts if pid not in old]
+    if not appended or len(new) != len(old) + len(appended):
+        return "changed", []
+    for pid, tok in old_parts:
+        if new.get(pid) != tok:
+            return "changed", []
+    return "append", appended
 
 
 def table_cache_key(

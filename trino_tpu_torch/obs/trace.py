@@ -22,10 +22,13 @@ Design constraints (tracing must cost the hot path nothing when off):
   see :func:`format_trace_header` / :func:`parse_trace_header` for the
   ``X-Trino-Trace`` wire form.
 
-A copy of ``trino_tpu/obs/trace.py``. In this package the server's query
-root spans are the spans emitted (they serve ``/v1/query/{id}/timeline``);
-the engine's and the executors' spans (planning, fragments, programs,
-exchanges) are ROADMAP item 9b.
+A copy of ``trino_tpu/obs/trace.py``. The server's query root spans, the
+engine's (``query``/``execute``, ``plan``, ``optimize``) and the
+executors' (``execute_plan``, ``ingest.decode``, ``fragment``,
+``fragment_execute``, ``fused_execute``, ``program_compile``,
+``device_pull``, ``batched_dispatch``) serve
+``/v1/query/{id}/timeline``; the cluster's task spans are ROADMAP item
+9c.
 """
 
 from __future__ import annotations

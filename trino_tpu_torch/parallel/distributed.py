@@ -27,6 +27,7 @@ materialized join calls one after the other, once a shard.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
@@ -250,10 +251,47 @@ class DistributedExecutor(LocalExecutor):
         }
         self.table_cache = None
         self._shards: dict[int, int] = {}
+        # device profiling (obs/profiler.py): per-program allocator stats
+        # by a stable program label; the fragment executor records its
+        # captured programs, this interpreter its eager partial
+        # aggregates (executions only: nothing is compiled)
+        self.device_stats: dict[str, dict] = {}
+        self._device_profiling = bool(session.get("device_profiling"))
 
     @property
     def n_shards(self) -> int:
         return self.mesh.size
+
+    # === device profiling (reference :88-124) ============================
+
+    def _record_device_stats(self, label: str, ds: Optional[dict] = None,
+                             compile_ms: float = 0.0) -> None:
+        """Fold one program execution into the per-query map and set the
+        per-program gauge. ``ds`` is the program's captured stats, None
+        where nothing was captured."""
+        ent = self.device_stats.setdefault(label, {"executions": 0, "compile_ms": 0.0})
+        ent["executions"] += 1
+        if compile_ms:
+            ent["compile_ms"] = round(ent["compile_ms"] + compile_ms, 3)
+        for k, v in (ds or {}).items():
+            ent[k] = v
+        if ds and "peak_hbm_bytes" in ds:
+            from trino_tpu_torch.obs.metrics import get_registry
+
+            get_registry().gauge(
+                "trino_tpu_program_peak_hbm_bytes", fragment=label
+            ).set(ds["peak_hbm_bytes"])
+
+    def device_stats_snapshot(self) -> Optional[dict]:
+        """The query's device-profiling rollup (``deviceStats``), None
+        when no program was recorded."""
+        if not self.device_stats:
+            return None
+        from trino_tpu_torch.obs.profiler import rollup_device_stats
+
+        snap = rollup_device_stats(self.device_stats)
+        snap["programs"] = {k: dict(v) for k, v in self.device_stats.items()}
+        return snap
 
     def _exec(self, node: P.PlanNode) -> Result:
         res = super()._exec(node)
@@ -303,11 +341,18 @@ class DistributedExecutor(LocalExecutor):
                                    Dictionary([]) if T.is_string(s.type) else None))
             sel = torch.zeros(n, dtype=torch.bool, device=self.device)
             return Result(Batch(cols, n, sel, self.device, shards=n), layout)
+        from trino_tpu_torch.obs.trace import get_tracer
+
+        t0 = time.perf_counter()
         per_shard: list[list[Batch]] = [[] for _ in range(n)]
         reader = self._read_splits(connector, node.schema, node.table, node.column_names, splits)
         for i, b in enumerate(reader):
             per_shard[i % n].append(b)
         reader.close()
+        get_tracer().record(
+            "ingest.decode", (time.perf_counter() - t0) * 1000.0,
+            attrs={"table": node.table, "splits": len(splits)},
+        )
         proto = next(b for bs in per_shard for b in bs)
         parts = []
         for bs in per_shard:
@@ -361,6 +406,8 @@ class DistributedExecutor(LocalExecutor):
         :meth:`_final_combine` of the ``n * G`` partial rows."""
         n = self.n_shards
         while True:
+            if self._device_profiling:
+                self._record_device_stats("partial_agg")
             (kd, kv), raw, ng, ovf = M.smap(
                 lambda k, s, i: group_aggregate(k, s, i, specs, G),
                 self.mesh, [keys, sel, agg_inputs],

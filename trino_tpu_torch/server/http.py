@@ -24,10 +24,12 @@ result pages with producer backpressure.
 A copy of ``trino_tpu/server/http.py`` for the coordinator role on one
 engine. The statement protocol, the node, query, resource-group and
 metrics endpoints, shedding, draining and the web UI are served as the
-reference serves them. What belongs to the cluster tier (worker tasks,
-discovery and announcements, SPMD, spooling, scaled writes; ROADMAP item
-9c) or to the repeat and post-mortem tiers (history, result cache, SLO
-sentinel, flight journal; item 9b) answers **501** with a body naming its
+reference serves them, and so are the repeat and post-mortem tiers:
+``/v1/history`` (the engine's history stores), ``/v1/cache`` (the result
+cache), ``/v1/slo`` (the SLO sentinel) and ``/v1/query/{id}/flight`` (the
+flight journal's replay, read off the loop thread). What belongs to the
+cluster tier (worker tasks, discovery and announcements, SPMD, spooling,
+scaled writes; ROADMAP item 9c) answers **501** with a body naming its
 item, and a server asked for a worker role, SPMD or a discovery URI
 refuses at construction. Where a reference coordinator with no workers
 answers with an empty listing (``GET /v1/task``, ``/v1/node``) or with its
@@ -83,9 +85,8 @@ def _json_rows(rows, decimal_columns: list[int]) -> list[list]:
     return out
 
 
-# where a route that is not ported yet belongs (ROADMAP items)
+# where a route that is not ported yet belongs (ROADMAP item)
 CLUSTER_ITEM = "9c"
-REPEAT_ITEM = "9b"
 
 
 class NotPortedError(RuntimeError):
@@ -370,14 +371,16 @@ class TrinoTpuServer:
             json_response({"error": message}, 503, headers=headers)
         )
 
-    def _offload(self, responder: Responder, work: Callable[[], Response]) -> None:
-        """Run ``work`` on the blocking pool, responding with its result,
-        under the global in-flight ceiling (the excess is shed). The
-        reference lets its internal cluster traffic bypass the ceiling;
-        that traffic is ROADMAP item 9c."""
+    def _offload(self, responder: Responder, work: Callable[[], Response],
+                 ceiling: bool = True) -> None:
+        """Run ``work`` on the blocking pool, responding with its result.
+        ``ceiling=True`` (client-facing requests) enforces the global
+        in-flight ceiling and sheds the excess; the flight journal's
+        replay (and, in the reference, internal cluster traffic) bypasses
+        it."""
         cfg = self.server_config
         with self._inflight_lock:
-            shed = self._inflight >= cfg.max_inflight_requests
+            shed = ceiling and self._inflight >= cfg.max_inflight_requests
             if not shed:
                 self._inflight += 1
         if shed:
@@ -577,9 +580,26 @@ class TrinoTpuServer:
                 get_registry().render_prometheus().encode(),
                 "text/plain; version=0.0.4; charset=utf-8",
             ))
-        if path in ("/v1/history", "/v1/cache", "/v1/slo"):
-            # the history store, the result cache and the SLO sentinel
-            return self._not_ported(responder, path, REPEAT_ITEM)
+        if path == "/v1/history":
+            # per-fingerprint observed execution truth (obs/history.py):
+            # one entry a store the engine resolved, most recently used
+            # fingerprints first
+            snap_fn = getattr(self.engine, "history_snapshot", None)
+            return responder.respond(json_response(
+                snap_fn() if callable(snap_fn) else {"stores": []}
+            ))
+        if path == "/v1/cache":
+            # the result cache's entries, byte budget and counters; a
+            # brief lock only, as /v1/metrics
+            rc = getattr(self.engine, "result_cache", None)
+            return responder.respond(json_response(
+                rc.snapshot() if rc is not None else {"entries": []}
+            ))
+        if path == "/v1/slo":
+            # the SLO sentinel's regressed fingerprints and counters
+            from trino_tpu_torch.obs.slo import get_sentinel
+
+            return responder.respond(json_response(get_sentinel().snapshot()))
         if path == "/v1/query":
             return responder.respond(json_response(
                 [q.info() for q in self.query_manager.queries()]
@@ -601,8 +621,25 @@ class TrinoTpuServer:
                 json_response({"queryId": parts[2], "spans": spans})
             )
         if len(parts) == 4 and parts[:2] == ["v1", "query"] and parts[3] == "flight":
-            # the flight journal's replay
-            return self._not_ported(responder, path, REPEAT_ITEM)
+            # the flight journal's replay of one query (obs/flight.py). A
+            # restarted coordinator serves the pre-crash journal through
+            # ?dir= (its query registry is gone, so no 404 gating on the
+            # query manager). The replay flushes and reads files: off the
+            # loop thread
+            qid = parts[2]
+            directory = qs.get("dir", [""])[0]
+
+            def read_flight() -> Response:
+                from trino_tpu_torch.obs import flight as flight_mod
+
+                events = flight_mod.replay_known(qid, directory or None)
+                if not events and self.query_manager.get(qid) is None:
+                    return json_response(
+                        {"error": "no flight records for query"}, 404
+                    )
+                return json_response({"queryId": qid, "events": events})
+
+            return self._offload(responder, read_flight, ceiling=False)
         if len(parts) == 3 and parts[:2] == ["v1", "query"]:
             q = self.query_manager.get(parts[2])
             if q is None:

@@ -12,11 +12,11 @@ client cancel, coordinator kill (CLUSTER_OUT_OF_MEMORY), and
 resource-group rejection. Interval math uses ``time.monotonic()``;
 epoch timestamps survive only in display fields (createTime/endTime).
 
-A copy of ``trino_tpu/server/querymanager.py`` without the three hooks of
-ROADMAP item 9b, each marked where it stood: the flight journal, the
-result cache's fast path and the history store's admission gate. On an
-engine without a history store or a result cache they do nothing in the
-reference either.
+A copy of ``trino_tpu/server/querymanager.py``: with the flight journal
+(``obs/flight.py``) of each query's lifecycle, the result cache's fast
+path ahead of admission, and the history store's admission gate, which
+hands a fingerprint's observed peak device bytes to the resource groups'
+memory gate (``server/resourcegroups.py``, ``torch.cuda.mem_get_info``).
 """
 
 from __future__ import annotations
@@ -111,9 +111,21 @@ class ManagedQuery:
             trace_id=self.query_id,
             attrs={"queryId": self.query_id, "user": session.user},
         )
-        # the flight journal of the query's lifecycle (the reference's
-        # obs/flight.py, its created/running/retry/admitted/queued/
-        # rejected/canceled/killed/completed records) is ROADMAP item 9b
+        # flight recorder (obs/flight.py): crash-safe lifecycle journal.
+        # None when flight_dir is unset; every _flight_event() call is
+        # non-blocking (a queue put), so cancel() and admission callbacks
+        # may journal from loop threads
+        from trino_tpu_torch.obs import flight as _flight_mod
+
+        self._flight = _flight_mod.for_session(session)
+        self._flight_event(
+            "created", query=sql, user=session.user,
+            source=getattr(session, "source", None),
+        )
+
+    def _flight_event(self, event: str, **payload: Any) -> None:
+        if self._flight is not None:
+            self._flight.record(self.query_id, event, payload)
 
     def touch(self) -> None:
         self.last_access = time.monotonic()
@@ -151,6 +163,11 @@ class ManagedQuery:
             if self._cancelled.is_set():
                 return
             self.state.set(QueryState.RUNNING)
+            self._flight_event(
+                "running",
+                queuedMs=int((self._start_mono_ts - self._create_mono) * 1000),
+                maxAttempts=max_attempts,
+            )
             attempt = 1
             with tracer.activate(self.span):
                 while True:
@@ -166,6 +183,10 @@ class ManagedQuery:
                             or not is_retryable(e)
                         ):
                             raise
+                        self._flight_event(
+                            "retry", attempt=attempt + 1,
+                            error=str(e), errorClass=type(e).__name__,
+                        )
                         time.sleep(backoff.delay(attempt))
                         attempt += 1
                         self.query_attempts = attempt
@@ -219,6 +240,7 @@ class ManagedQuery:
             status="OK" if st == QueryState.FINISHED else "ERROR",
             state=st.value,
         )
+        self._flight_completed(st, wall)
         eng = engine or self._engine
         listeners = getattr(eng, "event_listeners", None)
         if listeners is None:
@@ -240,6 +262,47 @@ class ManagedQuery:
             )
         )
 
+    def _flight_completed(self, st: "QueryState", wall_s: float) -> None:
+        """Journal the terminal post-mortem record: enough that the flight
+        journal alone explains how the query ended — state, error
+        classification, retry accounting, queryStats, operatorStats, and
+        the span tree (when a sink retained it)."""
+        if self._flight is None:
+            return
+        cluster_stats = self.result.cluster_stats if self.result else {}
+        elapsed = (self._end_mono or time.monotonic()) - self._create_mono
+        err = self.error.to_json() if self.error else None
+        if err is not None:
+            # classification only: the full stack would bloat the bounded
+            # journal without aiding post-mortem triage
+            err.pop("failureInfo", None)
+        spans = None
+        try:
+            for sink in getattr(get_tracer(), "_sinks", []):
+                spans_for = getattr(sink, "spans_for", None)
+                if spans_for is not None:
+                    spans = spans_for(self.query_id)
+                    break
+        except Exception:  # noqa: BLE001
+            spans = None
+        self._flight_event(
+            "completed",
+            state=st.value,
+            wallMs=int(wall_s * 1000),
+            queryAttempts=self.query_attempts,
+            taskRetries=cluster_stats.get("task_retries", 0),
+            recoveredTasks=cluster_stats.get("recovered_tasks", 0),
+            recoveredTaskLevels=cluster_stats.get("recovered_levels", {}),
+            spooledBytes=cluster_stats.get("spooled_bytes", 0),
+            queryStats=self._query_stats(elapsed, cluster_stats),
+            operatorStats=(
+                getattr(self.result, "operator_stats", None)
+                if self.result else None
+            ),
+            error=err,
+            spans=spans,
+        )
+
     def cancel(self, message: str = "Query was canceled") -> None:
         self._cancelled.set()
         abandon = self._admission_abandon
@@ -250,6 +313,7 @@ class ManagedQuery:
             except Exception:  # noqa: BLE001
                 pass
         if self.state.set(QueryState.CANCELED):
+            self._flight_event("canceled", message=message)
             self.error = ErrorInfo(message, 1, "USER_CANCELED", "USER_ERROR")
             self.end_time = time.time()
             self._end_mono = time.monotonic()
@@ -275,6 +339,7 @@ class ManagedQuery:
         ``ClusterMemoryManager.java:104`` killQuery)."""
         self._cancelled.set()
         if self.state.set(QueryState.FAILED):
+            self._flight_event("killed", message=message)
             self.error = ErrorInfo(
                 message, 131081, "CLUSTER_OUT_OF_MEMORY",
                 "INSUFFICIENT_RESOURCES",
@@ -650,8 +715,14 @@ class QueryManager:
                     q.query_id, sql, session.user, q.create_time
                 )
             )
-        # the result cache's fast path ahead of admission (the
-        # reference's _try_result_cache) is ROADMAP item 9b
+        # the result cache's fast path: a pure hit takes no execution
+        # slot, so it bypasses admission (the ACL generation and the
+        # user's checks still run inside the probe). Maintenance is not
+        # allowed here: a delta merge scans the device and belongs on the
+        # dispatch pool through the admitted path, which then refreshes
+        # or overwrites the entry
+        if self._try_result_cache(q):
+            return q
         if self.resource_groups is not None and self._admit is None:
             self._submit_admission(q)
         else:
@@ -659,6 +730,29 @@ class QueryManager:
                 target=self._dispatch, args=(q,), daemon=True
             ).start()
         return q
+
+    def _try_result_cache(self, q: ManagedQuery) -> bool:
+        """Complete ``q`` from the result cache; False: normal dispatch."""
+        probe = getattr(self.engine, "try_cached_result", None)
+        if probe is None:
+            return False
+        try:
+            res = probe(q.sql, q.session, allow_maintenance=False)
+        except Exception:  # noqa: BLE001 — the probe never fails a query
+            return False
+        if res is None:
+            return False
+        q.start_time = time.time()
+        q._start_mono_ts = time.monotonic()
+        q.state.set(QueryState.PLANNING)
+        q.state.set(QueryState.RUNNING)
+        q.result = res
+        q.state.set(QueryState.FINISHING)
+        q.state.set(QueryState.FINISHED)
+        q.end_time = time.time()
+        q._end_mono = time.monotonic()
+        q._fire_completed(self.engine)
+        return True
 
     # --- event-driven admission (resource_groups path) --------------------
 
@@ -670,17 +764,24 @@ class QueryManager:
             if err is not None:
                 self._reject(q, err)
                 return
+            q._flight_event(
+                "admitted", group=getattr(group, "name", None), queued=True
+            )
             try:
                 self._pool.submit(self._run_admitted, q, group)
             except RuntimeError:  # pool shut down: give the slot back
                 self.resource_groups.finish(group)
 
         try:
-            # the history store's peak-memory gate (the reference's
-            # _history_hbm_gate) is ROADMAP item 9b: the hint stays 0
+            # the history gate: a fingerprint whose observed peak device
+            # bytes cannot fit the card at all is rejected here (classified
+            # EXCEEDED_MEMORY_LIMIT) instead of failing in the run; one
+            # that fits the card but not its current headroom rides the
+            # hint into the waiter queue and waits for memory to free
+            peak = self._history_hbm_gate(q)
             group, admitted = self.resource_groups.submit(
                 q.session.user, q.session.source, ready,
-                peak_hbm_hint=0,
+                peak_hbm_hint=peak,
             )
         except TypeError:
             # resource-group doubles without the hint kwarg
@@ -691,18 +792,55 @@ class QueryManager:
             except Exception as e:  # noqa: BLE001
                 self._reject(q, e)
                 return
-        except Exception as e:  # noqa: BLE001 — queue full / no selector
+        except Exception as e:  # noqa: BLE001 — queue full / no selector /
+            # an over-memory fingerprint
             self._reject(q, e)
             return
         if admitted:
+            q._flight_event(
+                "admitted", group=getattr(group, "name", None), queued=False
+            )
             self._pool.submit(self._run_admitted, q, group)
         else:
+            q._flight_event("queued", group=getattr(group, "name", None))
             # let cancel() free the queue slot if the client abandons the
             # query before a slot opens (resource-group doubles may lack
             # abandon(); getattr keeps them working)
             abandon_fn = getattr(self.resource_groups, "abandon", None)
             if abandon_fn is not None:
                 q._admission_abandon = lambda: abandon_fn(group, ready)
+
+    def _history_hbm_gate(self, q: ManagedQuery) -> int:
+        """The observed peak device bytes of this query's fingerprint, as
+        an admission hint (0 = unknown). Raises HistoryHbmRejected when
+        the observed footprint exceeds the card outright: waiting cannot
+        help a query that never fits. Best-effort: any other failure of
+        the gate admits (history never wedges admission)."""
+        from trino_tpu_torch.obs.history import HistoryHbmRejected
+
+        try:
+            hist = self.engine.history_store(q.session)
+            if hist is None:
+                return 0
+            fp, _ = self.engine.fingerprint(q.sql, q.session)
+            if fp is None:
+                return 0
+            ent = hist.get(fp, touch=False)
+            if ent is None:
+                return 0
+            peak = int(ent.get("peak_hbm_bytes", 0) or 0)
+            if peak <= 0:
+                return 0
+            from trino_tpu_torch import ingest
+
+            limit = ingest.device_hbm_limit(getattr(self.engine, "device", None))
+            if limit and peak > 0.9 * limit:
+                raise HistoryHbmRejected(fp, peak, limit)
+            return peak
+        except HistoryHbmRejected:
+            raise
+        except Exception:  # noqa: BLE001
+            return 0
 
     def _run_admitted(self, q: ManagedQuery, group) -> None:
         released = threading.Event()
@@ -724,8 +862,12 @@ class QueryManager:
         code, name, typ = classify_error(e)
         if name == "GENERIC_INTERNAL_ERROR":
             # legacy admission failures (queue full, no selector) keep
-            # their QUERY_REJECTED surface; classified errors pass through
+            # their QUERY_REJECTED surface; classified errors (the
+            # history gate's EXCEEDED_MEMORY_LIMIT) pass through
             code, name, typ = 3, "QUERY_REJECTED", "USER_ERROR"
+        q._flight_event(
+            "rejected", error=str(e), errorName=name, errorType=typ
+        )
         q.error = ErrorInfo(str(e), code, name, typ)
         q.state.set(QueryState.FAILED)
         q.end_time = time.time()

@@ -561,9 +561,10 @@ class ResourceGroupManager:
     def _hbm_fits(self, peak_hbm_hint: int) -> bool:
         """Does a query with this observed peak footprint fit the device's
         CURRENT free memory (within 90% of the card, as the reference's
-        ``hbm_headroom_ok``)? Hint 0 (no history: the history store is
-        ROADMAP item 9b, so every hint is 0 for now), no device, and a
-        device without memory accounting (the CPU) always admit."""
+        ``hbm_headroom_ok``)? The hint is the fingerprint's observed peak
+        from the history store (``querymanager._history_hbm_gate``). Hint
+        0 (no history), no device, and a device without memory
+        accounting (the CPU) always admit."""
         if not peak_hbm_hint or self.device is None:
             return True
         try:

@@ -8,11 +8,10 @@ via ``sql/planner/planprinter/PlanPrinter.java:148``.
 Our executor materializes one plan node at a time, so stats attach per
 plan node (the reference's per-operator granularity at our altitude); the
 fragmented executor reports one record per fragment. The port's copy of
-``trino_tpu/stats.py``: the per-node collector, the plan, fragment and
-capacity sections. The device-program, operator-counter and cluster
-sections (``render_device_stats``, ``render_operator_stats``,
-``render_distributed_plan``) read the profiler, the fused path's operator
-counters and the cluster, which the port does not have yet.
+``trino_tpu/stats.py``: the per-node collector, the plan, fragment,
+device-program, capacity, exchange and operator sections. The cluster's
+section (``render_distributed_plan``, which renders the stages of a
+cluster run) waits for the cluster tier (ROADMAP item 9c).
 """
 
 from __future__ import annotations
@@ -83,6 +82,34 @@ def render_fragment_stats(fragments: list[dict]) -> str:
             parts.append(f"input_rows={f['input_rows']:,}")
         parts.append(f"output_rows={f.get('output_rows', 0):,}")
         lines.append(" ".join(parts))
+    return "\n".join(lines)
+
+
+def render_device_stats(device_stats: dict) -> str:
+    """EXPLAIN ANALYZE section for the device profiler: each captured
+    program's CUDA caching-allocator numbers (``obs/profiler.py``) and the
+    query rollup. Every field is optional and rendered only when
+    captured (on the CPU a program has executions and compile ms only)."""
+    lines = ["Device programs (CUDA caching allocator):"]
+    for label, st in sorted((device_stats.get("programs") or {}).items()):
+        parts = [f"  {label}:"]
+        if "flops" in st:
+            parts.append(f"flops={st['flops']:.4g}")
+        if "bytes_accessed" in st:
+            parts.append(f"bytes_accessed={int(st['bytes_accessed']):,}")
+        if "peak_hbm_bytes" in st:
+            parts.append(f"peak_hbm={int(st['peak_hbm_bytes']):,}B")
+        if st.get("compile_ms"):
+            parts.append(f"compile={st['compile_ms']:.1f}ms")
+        parts.append(f"executions={st.get('executions', 0)}")
+        lines.append(" ".join(parts))
+    totals = []
+    if device_stats.get("total_flops") is not None:
+        totals.append(f"total_flops={device_stats['total_flops']:.4g}")
+    if device_stats.get("peak_hbm_bytes") is not None:
+        totals.append(f"peak_hbm={int(device_stats['peak_hbm_bytes']):,}B")
+    if totals:
+        lines.append("  query: " + " ".join(totals))
     return "\n".join(lines)
 
 
