@@ -94,7 +94,7 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    held against plain) and once warm, decoded rows and column types
    against the committed answers; 8 clients at once, a
    Q6 literal variant each (batched; ``batchStats`` from
-   ``/v1/query/{id}``); the 1,500,000 orders rows paged under the 1 MiB
+   ``/v1/query/{id}``); 500,000 orders rows paged under the 1 MiB
    budget (pages, rows/s, the pager's peak within 3x the budget); a
    partitioned join on 4 shards whose ``/v1/query/{id}`` carries at
    least 2 exchanges; ``/v1/metrics`` and ``/v1/status``. The kernel
@@ -181,6 +181,27 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    skew shape's two mesh runs (one a shard) is then held against its
    plain version.
 
+7e. cluster: a coordinator and two worker processes on the card
+   (``MultiProcessQueryRunner(device="cuda")``, each process holding a
+   quarter of the card; every process started as ``chip_smoke.py
+   --cluster-process``, which holds every K2 build of the process against
+   its plain version and records it): TPC-H Q1, Q3, Q5, Q6, Q9, Q10 and Q18
+   at ``tpch.sf1``, cold and once warm, and the 22 queries at ``tpch.tiny``
+   once (the 22 at SF1 took 275.5 s, past the phase's 180) in
+   ``execution_mode=cluster``, rows against the committed answers, each
+   line with its cold and warm ms,
+   the in-process warm ms of phase ``tpch22``, its tasks and their
+   execution paths, the pages and bytes shipped over HTTP, the workers'
+   K1 and K2 launches and its host-to-device copies; the chaos scenarios
+   of ``scripts/chaos_smoke.py`` on Q1 (30% task crashes under TASK retry,
+   a ten-times-slow worker under speculation), rows against the clean
+   run's; a scaled CTAS of four lineitem columns written from both
+   workers; the cluster memory manager's kill of a query reported over
+   the limit and a small query after it; a drain and a restart (Q1 at
+   tiny); last a node death under spooling. The phase's K2 count is the workers' launches
+   over the 22 queries' runs; it must be above 0 and every checked build
+   equal to plain. ``--only cluster`` runs it alone.
+
 8. tpcds: all 64 TPC-DS queries of the port's corpus, spec text, over
    ``tpcds.sf1`` from the port's tpcds connector: the 24 tables generated
    and staged on the card (rows, bytes, generation and staging seconds
@@ -212,12 +233,13 @@ object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
-``python3 chip_smoke.py --only tpch22,programs,server,surface,files,tpcds,spill,mesh``
+``python3 chip_smoke.py --only tpch22,programs,server,surface,files,tpcds,spill,mesh,cluster``
 runs the device phase and the named phases alone (``tpch22``,
 ``programs``, ``server``, ``surface`` and ``files`` stage the SF1 tables
 first, ``spill``
-generates the SF10 tables first, ``mesh`` does both), for work on one of
-them; it prints no result lines.
+generates the SF10 tables first, ``mesh`` does both, ``cluster``'s
+workers generate their own splits), for work on one of them; it prints
+no result lines.
 
 After every phase a ``pool`` line gives the graph pools' bytes of the
 phase's engine, which must be at or under their budget (an eighth of the
@@ -1313,6 +1335,7 @@ TPCH22_PEAKS = (5, 6)     # queries whose peak device memory is attributed
 # queries with a join fragment that streams on the lineitem probe spine
 TPCH22_STREAMED = (3, 5, 7, 10, 17, 19)
 TPCH22_WARM_TOTAL: dict = {}  # phase tpch22's in-process warm sum, for phase server
+TPCH22_WARM_MS: dict = {}  # phase tpch22's in-process warm ms a query, for phase cluster
 
 
 def peak_attribution(runner, sql: str, top: int = 8, with_joins: bool = False) -> dict:
@@ -1647,6 +1670,7 @@ def phase_tpch22(smi: str, runner) -> tuple[dict, int]:
             failures.append(f"Q{q}: no join fragment streamed")
     launches = dict(_kernels.LAUNCHES)
     TPCH22_WARM_TOTAL["ms"] = sum(warm_ms.values())
+    TPCH22_WARM_MS.update(warm_ms)
     log("tpch22", card=smi, launches=launches,
         warm_total_ms=sum(warm_ms.values()), max_peak_device_bytes=max(peaks.values()),
         **pool_counts(runner.engine, pool_before))
@@ -1860,13 +1884,15 @@ def phase_programs(smi: str, runner) -> tuple[dict, int]:
 
 SERVER_WARM = 3           # warm runs of Q-A and Q-B over HTTP
 SERVER_CLIENTS = 8        # concurrent clients, one Q6 literal variant each
+# a third of orders (500,000 rows, ~120 pages of the 1 MiB budget): the
+# pager's bound shows as on all of it, and the script keeps within 900 s
 SERVER_EXTRACT = ("select o_orderkey, o_custkey, o_totalprice, o_orderdate "
-                  "from tpch.sf1.orders")
+                  "from tpch.sf1.orders where o_orderkey <= 2000000")
 # its order-free checksum in-process (:func:`order_free_checksum`)
 SERVER_EXTRACT_CHECKSUM = ("select count(*), sum(o_orderkey), sum(o_custkey), "
                            "sum(o_totalprice), "
                            "sum(date_diff('day', date '1970-01-01', o_orderdate)) "
-                           "from tpch.sf1.orders")
+                           "from tpch.sf1.orders where o_orderkey <= 2000000")
 # a partitioned join on the mesh: both sides hash-repartitioned, then the
 # aggregate's exchange
 SERVER_MESH_SQL = ("select c_mktsegment, count(*), sum(o_totalprice) from tpch.sf1.orders "
@@ -1875,9 +1901,13 @@ SERVER_MESH_SQL = ("select c_mktsegment, count(*), sum(o_totalprice) from tpch.s
 
 
 def http_json(uri: str, method: str = "GET", body: Optional[bytes] = None):
+    """One request, with the internal credential where the process has a
+    cluster's shared secret (phase ``cluster``)."""
     import urllib.request
 
-    req = urllib.request.Request(uri, data=body, method=method)
+    from trino_tpu_torch.server import auth
+
+    req = urllib.request.Request(uri, data=body, method=method, headers=auth.headers())
     with urllib.request.urlopen(req, timeout=60) as r:
         raw = r.read().decode()
     try:
@@ -1939,7 +1969,7 @@ def phase_server(smi: str, runner) -> tuple[dict, int, int]:
        answers;
     3. 8 clients at once, one Q6 literal variant each (batched), each
        query's ``batchStats`` from ``/v1/query/{id}``;
-    4. ``SERVER_EXTRACT`` (1,500,000 rows) under the default 1 MiB page
+    4. ``SERVER_EXTRACT`` (500,000 rows) under the default 1 MiB page
        budget: pages, rows/s, the pager's peak buffered bytes within 3x
        the budget;
     5. a partitioned join on a mesh of 4 shards, ``/v1/query/{id}``
@@ -3711,6 +3741,420 @@ def phase_mesh(smi: str, runner) -> tuple[dict, int]:
     return launches, k2_err
 
 
+# --- phase cluster ------------------------------------------------------------
+
+CLUSTER_WORKERS = 2
+# each process's share of the card: the coordinator and two workers, the
+# memory scenario's coordinator and worker (CLUSTER_KILL_SHARE each), and
+# this script's own quarter: 3 * 0.22 + 2 * 0.04 + 0.25 = 0.99
+CLUSTER_SHARE = 0.22
+CLUSTER_KILL_SHARE = 0.04
+CLUSTER_MEMORY_LIMIT = 32 << 30
+# the cluster memory scenario's own cluster, booted beside the main one:
+# the worker's scan of orders (1,500,000 rows at SF1, 32 bytes a row)
+# reserves its result past the limit for as long as it serializes its
+# pages (1.5M distinct o_comment values: seconds, so the worker's 2 s
+# announce reports it); a region count stays far below it
+CLUSTER_KILL_LIMIT = 16 << 20
+CLUSTER_KILL_SQL = ("select o_orderkey, o_custkey, o_totalprice, o_orderdate, o_comment"
+                    " from tpch.{schema}.orders")
+CLUSTER_SCHEMA = "sf1"
+# the 22 queries at SF1 took 275.5 s of the phase's 180 on an H100 80GB
+# HBM3 at 700 W, so the phase runs these seven at SF1 and the 22 at
+# tpch.tiny
+CLUSTER_SF1_QUERIES = (1, 3, 5, 6, 9, 10, 18)
+# those of them whose workers build a join table: each run launches K2
+CLUSTER_JOIN_QUERIES = (3, 5, 9, 10, 18)
+# the chaos scenarios of scripts/chaos_smoke.py, on TPC-H Q1
+CLUSTER_CHAOS = {
+    "retry": {"retry_policy": "TASK", "task_retry_attempts": 8, "fault_injection_seed": 3,
+              "fault_task_crash_p": 0.3, "retry_initial_delay_ms": 20,
+              "retry_max_delay_ms": 200},
+    "speculation": {"pipeline_fusion": False, "retry_policy": "TASK",
+                    "fault_injection_seed": 3, "fault_slow_workers": "worker-1",
+                    "fault_task_slow_factor": 10.0, "speculation": True,
+                    "speculation_floor_ms": 100, "speculation_multiplier": 2.0,
+                    "speculation_max_fraction": 1.0},
+    "node_death": {"retry_policy": "TASK", "exchange_spooling": True,
+                   "worker_execution": "per_fragment", "task_retry_attempts": 8,
+                   "retry_initial_delay_ms": 20, "retry_max_delay_ms": 200,
+                   "fault_worker_exit_site": "2.0", "fault_worker_exit_delay_ms": 300,
+                   "fault_task_stall_ms": 1000},
+}
+
+
+def cluster_process(argv: list) -> int:
+    """One process of phase ``cluster`` (``chip_smoke.py --cluster-process
+    <server arguments>``): ``trino_tpu_torch.server.main`` with every K2
+    build held against ``build_table_plain`` on the same inputs, one JSON
+    line a build appended to ``$CHIP_SMOKE_K2_DIR/k2.<pid>.jsonl``, and
+    the process's allocator peak and launch counts in
+    ``proc.<pid>.json`` when the server stops."""
+    import threading
+
+    import torch
+
+    from trino_tpu_torch import _kernels
+    from trino_tpu_torch.ops import dense_join as DJ
+    from trino_tpu_torch.server.main import main as server_main
+
+    out = os.environ["CHIP_SMOKE_K2_DIR"]
+    lock = threading.Lock()
+    real = DJ.build_table_cuda
+
+    def checked(slot_base, use, capacity, window):
+        res = real(slot_base, use, capacity, window)
+        if torch.cuda.is_current_stream_capturing():
+            return res
+        ptable, punplaced = DJ.build_table_plain(slot_base, use, capacity, window)
+        rec = {"rows": int(slot_base.shape[0]), "live": int(use.sum()),
+               "capacity": capacity, "window": window, "unplaced": int(res[1]),
+               "max_abs_err": int((res[0].to(torch.int64)
+                                   - ptable.to(torch.int64)).abs().max()),
+               "unplaced_err": abs(int(res[1]) - int(punplaced))}
+        with lock, open(os.path.join(out, f"k2.{os.getpid()}.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        return res
+
+    DJ.build_table_cuda = checked
+    try:
+        return server_main(argv)
+    finally:
+        with open(os.path.join(out, f"proc.{os.getpid()}.json"), "w") as f:
+            json.dump({"argv": argv, "launches": dict(_kernels.LAUNCHES),
+                       "peak_bytes": (torch.cuda.max_memory_allocated()
+                                      if torch.cuda.is_available() else None)}, f)
+
+
+def cluster_query_info(runner, sql: str) -> dict:
+    """The coordinator's document of the newest query with text ``sql``."""
+    qs = [q for q in http_json(f"{runner.coordinator_uri}/v1/query")
+          if q.get("query", "").strip() == sql.strip()]
+    q = max(qs, key=lambda x: x.get("createTime") or 0)
+    return http_json(f"{runner.coordinator_uri}/v1/query/{q['queryId']}")
+
+
+def cluster_fields(info: dict) -> dict:
+    """What a cluster query's document says of its stages: tasks, their
+    execution paths, the pages and bytes they shipped over HTTP, the
+    workers' K2 launches and the device peak of their programs."""
+    stages = (info.get("queryStats") or {}).get("stages") or []
+    paths, launches, fused_errors = {}, {}, []
+    pages = {"pages_out": 0, "page_bytes_out": 0, "serialize_ms": 0.0, "d2h_ms": 0.0}
+    for st in stages:
+        for k, v in (st.get("executionPaths") or {}).items():
+            paths[k] = paths.get(k, 0) + v
+        fused_errors += st.get("fusedErrors") or []
+        for k, v in (st.get("kernelLaunches") or {}).items():
+            launches[k] = launches.get(k, 0) + v
+        for k in pages:
+            pages[k] += (st.get("pages") or {}).get(k, 0)
+    ds = info.get("deviceStats") or {}
+    return {"tasks": sum(st.get("tasks", 0) for st in stages),
+            "attempts": sum(st.get("attempts", 0) for st in stages),
+            "execution_paths": paths, "fused_errors": fused_errors,
+            "http_pages": pages["pages_out"],
+            "http_page_bytes": pages["page_bytes_out"],
+            "serialize_ms": round(pages["serialize_ms"], 3),
+            "d2h_ms": round(pages["d2h_ms"], 3), "kernel_launches": launches,
+            "program_peak_bytes": ds.get("peak_hbm_bytes"),
+            "h2d_bytes": (info.get("ingestStats") or {}).get("h2d_bytes"),
+            "h2d_transfers": (info.get("ingestStats") or {}).get("h2d_transfers")}
+
+
+def cluster_query(runner, smi: str, schema: str, q: int, answers: dict,
+                  launches: dict, failures: list, runs: int = 2) -> tuple[list, bool]:
+    """TPC-H query ``q`` over ``tpch.<schema>`` on the cluster, cold then
+    warm (``runs`` runs), rows against ``answers``; its line, and the
+    workers' launches added to ``launches``. Returns the runs' ms and
+    whether a run failed."""
+    from trino_tpu_torch.benchmarks import tpch as B
+
+    sql = B.queries(f"tpch.{schema}")[q]
+    want = answers["queries"][str(q)]
+    times, fields, failed, matches = [], None, False, True
+    for run in range(runs):
+        t0 = time.perf_counter()
+        rows, _ = runner.execute(sql)
+        times.append((time.perf_counter() - t0) * 1e3)
+        bad = B.first_mismatch(B.canonical_rows(rows), want["rows"], want["order_by"])
+        if bad is not None:
+            failures.append(f"{schema} Q{q} run {run}: {bad}")
+            failed, matches = True, False
+        fields = cluster_fields(cluster_query_info(runner, sql))
+        for k, v in fields["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        # every task on the card's fused path: a task the interpreter ran
+        # (a fused-path failure it hid) launches no hand kernel
+        off_path = {k: v for k, v in fields["execution_paths"].items()
+                    if k not in ("fused", "fused-pipeline")}
+        if off_path or fields["fused_errors"]:
+            failures.append(f"{schema} Q{q} run {run}: tasks off the fused path "
+                            f"{off_path}, fused errors {fields['fused_errors']}")
+            failed = True
+        if q in CLUSTER_JOIN_QUERIES and schema == CLUSTER_SCHEMA \
+                and not fields["kernel_launches"].get("dense_join_build"):
+            failures.append(f"{schema} Q{q} run {run}: the workers launched no K2")
+            failed = True
+    log("cluster", card=smi, schema=schema, query=f"Q{q}", rows=len(rows),
+        matches_reference=matches, cold_ms=times[0],
+        warm_ms=times[1] if runs > 1 else None,
+        inprocess_warm_ms=TPCH22_WARM_MS.get(q) if schema == CLUSTER_SCHEMA else None,
+        **fields)
+    return times, failed
+
+
+def cluster_chaos(runner, smi: str, name: str, sql: str, clean: list,
+                  failures: list) -> None:
+    """One chaos scenario of :data:`CLUSTER_CHAOS` on ``sql``: its rows
+    against the clean run's, its retry, hedge and recovery counters, and
+    the workers' task states."""
+    t0 = time.perf_counter()
+    rows, _ = runner.execute(sql, session_properties=CLUSTER_CHAOS[name])
+    info = cluster_query_info(runner, sql)
+    rec = {k: info.get(k) for k in ("taskRetries", "speculativeAttempts", "speculativeWins",
+                                     "recoveredTasks", "spooledBytes", "queryAttempts")}
+    tasks = {}
+    for uri in runner.worker_uris:
+        try:
+            for t in http_json(f"{uri}/v1/task"):
+                if t["taskId"].startswith(info["queryId"]):
+                    tasks[t["state"]] = tasks.get(t["state"], 0) + 1
+        except OSError:
+            pass  # the dead worker of the node-death scenario
+    log("cluster", card=smi, scenario=name, ms=(time.perf_counter() - t0) * 1e3,
+        rows_equal=rows == clean, task_states=tasks, **rec)
+    if rows != clean:
+        failures.append(f"{name}: rows differ from the clean run")
+    if name == "retry" and rec["taskRetries"] < 1:
+        failures.append("retry: no task was retried")
+    if name == "speculation" and (rec["speculativeWins"] < 1
+                                  or not tasks.get("CANCELED_SPECULATIVE")):
+        failures.append(f"speculation: {rec}, task states {tasks}")
+    if name == "node_death" and (rec["recoveredTasks"] < 1 or rec["spooledBytes"] <= 0):
+        failures.append(f"node death: {rec}")
+
+
+def cluster_memory_kill(smi: str, runner, schema: str, failures: list) -> None:
+    """The cluster memory manager's kill, fed by the workers themselves,
+    on ``runner``: a coordinator and one worker with
+    ``--cluster-memory-limit-bytes``. A scan of orders whose task reserves
+    its result in the worker's pool while it serializes its pages, the
+    worker's announce loop reports the reservation, and the coordinator
+    kills the query with CLUSTER_OUT_OF_MEMORY. Once the worker's
+    reservations are back under the limit, a small query passes on the
+    same cluster."""
+    import re
+    import urllib.request
+
+    from trino_tpu_torch.server import auth
+
+    t0 = time.perf_counter()
+    uri = runner.coordinator_uri
+    limit = http_json(f"{uri}/v1/memory")["clusterMemoryLimitBytes"]
+    req = urllib.request.Request(
+        f"{uri}/v1/statement", method="POST",
+        data=CLUSTER_KILL_SQL.format(schema=schema).encode(),
+        headers={"X-Trino-User": "mem", "X-Trino-Session": "execution_mode=cluster",
+                 **auth.headers()})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        qid = json.loads(r.read().decode())["id"]
+    deadline, state, err = time.time() + 120, None, {}
+    while time.time() < deadline:
+        info = http_json(f"{uri}/v1/query/{qid}")
+        state = info["state"]
+        if state in ("FAILED", "FINISHED", "CANCELED"):
+            err = info.get("error") or {}
+            break
+        time.sleep(0.2)
+    killed_s = time.perf_counter() - t0
+    # the worker still reports the killed query's reservation until
+    # its task has unwound; the manager would take the next largest
+    deadline, mem = time.time() + 120, {}
+    while time.time() < deadline:
+        mem = http_json(f"{uri}/v1/memory")
+        if mem["clusterReservedBytes"] <= limit:
+            break
+        time.sleep(0.2)
+    released_s = time.perf_counter() - t0
+    small, _ = runner.execute(f"select count(*) from tpch.{schema}.region")
+    mem = http_json(f"{uri}/v1/memory")
+    msg = err.get("message") or ""
+    reserved = re.search(r"this query reserved (\d+)", msg)
+    log("cluster", card=smi, scenario="cluster_memory", report="the worker's announce",
+        limit_bytes=limit, killed_state=state, error=err.get("errorName"),
+        killed=qid in mem.get("killedQueries", []),
+        reserved_bytes=int(reserved.group(1)) if reserved else None,
+        killed_after_s=killed_s, released_after_s=released_s, small_query_rows=small,
+        ms=(time.perf_counter() - t0) * 1e3)
+    if state != "FAILED" or err.get("errorName") != "CLUSTER_OUT_OF_MEMORY" \
+            or small != [(5,)]:
+        failures.append(f"cluster memory: {state} {err}, small query {small}")
+
+
+def close_booted(boot) -> None:
+    """Close the runner that a background boot (a future) made; a boot
+    that failed has stopped its own processes."""
+    try:
+        boot.result().close()
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def phase_cluster(smi: str) -> tuple[dict, int]:
+    """Phase ``cluster``: a coordinator and :data:`CLUSTER_WORKERS` worker
+    processes on the card (``MultiProcessQueryRunner(device="cuda")``,
+    each process holding :data:`CLUSTER_SHARE` of the card), started
+    through :func:`cluster_process` so every K2 build in a worker is held
+    against its plain version. TPC-H in ``execution_mode=cluster``, rows
+    against the committed answers: the queries of
+    :data:`CLUSTER_SF1_QUERIES` at SF1 cold and once warm, the 22 at
+    ``tpch.tiny`` once (the 22 at SF1 do not fit the phase's time); task
+    crashes under TASK retry and a slow worker under speculation, rows
+    against the clean run's; a scaled CTAS written from both workers; a
+    drain and a restart; a node death with spooling; last, on a cluster
+    of its own booted beside the main one, the cluster memory manager's
+    kill of a query whose reservations pass the limit while a small one
+    passes (:func:`cluster_memory_kill`).
+    Returns the workers' launches over the TPC-H queries' runs and the
+    largest K2 error."""
+    import secrets
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.server import auth
+    from trino_tpu_torch.testing import MultiProcessQueryRunner
+
+    t_phase = time.perf_counter()
+    answers = B.load_answers()
+    texts = B.queries(f"tpch.{CLUSTER_SCHEMA}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    k2_dir = os.path.join(work, "k2")
+    os.makedirs(k2_dir)
+    failures, launches = [], {"dense_groupby": 0, "dense_join_build": 0}
+    # one internal credential for both clusters, set before either boots
+    os.environ.setdefault(auth.ENV_VAR, secrets.token_hex(16))
+    # the memory scenario's cluster boots beside the main one and idles
+    # until the phase's end
+    booter = ThreadPoolExecutor(1)
+    kill_boot = booter.submit(
+        MultiProcessQueryRunner, n_workers=1, device="cuda", card_share=CLUSTER_KILL_SHARE,
+        cluster_memory_limit_bytes=CLUSTER_KILL_LIMIT,
+        extra_env={"PYTHONPATH": CHILD_ENV["PYTHONPATH"]})
+    booter.shutdown(wait=False)
+    t0 = time.perf_counter()
+    try:
+        runner = MultiProcessQueryRunner(
+            n_workers=CLUSTER_WORKERS, device="cuda", card_share=CLUSTER_SHARE,
+            cluster_memory_limit_bytes=CLUSTER_MEMORY_LIMIT,
+            catalogs=[f"shared=file:{os.path.join(work, 'shared')}"],
+            command=[sys.executable, os.path.abspath(__file__), "--cluster-process"],
+            extra_env={"CHIP_SMOKE_K2_DIR": k2_dir, "PYTHONPATH": CHILD_ENV["PYTHONPATH"]},
+        )
+    except BaseException:
+        close_booted(kill_boot)
+        raise
+    log("cluster", card=smi, workers=CLUSTER_WORKERS, card_share=CLUSTER_SHARE,
+        kill_cluster_share=CLUSTER_KILL_SHARE, boot_s=time.perf_counter() - t0,
+        coordinator=runner.coordinator_uri)
+    try:
+        # 1. TPC-H queries, cold then warm: seven at SF1, the 22 at tiny
+        log("cluster", card=smi, note="the 22 TPC-H queries at SF1 do not fit the "
+            "phase's 180 s (275.5 s on an H100 80GB HBM3 at 700 W): Q1, Q3, Q5, Q6, "
+            "Q9, Q10 and Q18 at SF1, the 22 at tpch.tiny")
+        tiny_answers = B.load_answers(
+            B.ANSWERS_SF1.replace("tpch_sf1_answers", "tpch_tiny_answers"))
+        # the 22 at tiny run once: they hold the rows, the times are SF1's
+        for schema, qs, ans, runs in ((CLUSTER_SCHEMA, CLUSTER_SF1_QUERIES, answers, 2),
+                                      ("tiny", range(1, 23), tiny_answers, 1)):
+            cold_sum = warm_sum = 0.0
+            for q in qs:
+                times, failed = cluster_query(runner, smi, schema, q, ans, launches,
+                                              failures, runs)
+                cold_sum += times[0]
+                warm_sum += times[-1] if runs > 1 else 0.0
+            log("cluster", card=smi, part="tpch", schema=schema, queries=len(qs),
+                cold_total_ms=cold_sum, warm_total_ms=warm_sum if runs > 1 else None,
+                inprocess_warm_total_ms=(
+                    sum(TPCH22_WARM_MS.get(q, 0.0) for q in qs)
+                    if schema == CLUSTER_SCHEMA and TPCH22_WARM_MS else None),
+                worker_launches=launches, seconds=time.perf_counter() - t_phase)
+        if launches.get("dense_join_build", 0) < 1:
+            failures.append("the workers launched no K2 over the TPC-H queries")
+        # 2. task crashes and a slow worker, rows against the clean run's
+        q1 = texts[1]
+        clean, _ = runner.execute(q1)
+        for name in ("retry", "speculation"):
+            cluster_chaos(runner, smi, name, q1, clean, failures)
+        # 3. a scaled CTAS from both workers
+        t0 = time.perf_counter()
+        src = (f"select l_orderkey, l_partkey, l_quantity, l_extendedprice"
+               f" from tpch.{CLUSTER_SCHEMA}.lineitem")
+        runner.execute(f"create table shared.default.lineitem_copy as {src}",
+                       session_properties={"scaled_writers": True,
+                                           "writer_target_bytes": 64 << 20})
+        check = ("select count(*), sum(l_orderkey), sum(l_partkey), sum(l_quantity),"
+                 " sum(l_extendedprice) from {}")
+        got, _ = runner.execute(check.format("shared.default.lineitem_copy"))
+        want, _ = runner.execute(check.format(f"tpch.{CLUSTER_SCHEMA}.lineitem"))
+        parts = [f for f in os.listdir(os.path.join(work, "shared", "default", "lineitem_copy"))
+                 if f.endswith(".ttp")]
+        log("cluster", card=smi, scenario="scaled_ctas", ms=(time.perf_counter() - t0) * 1e3,
+            rows=got[0][0], rows_equal=got == want, part_files=len(parts))
+        if got != want or len(parts) < 3:
+            failures.append(f"scaled CTAS: {got} vs {want}, {len(parts)} parts")
+        # 5. a graceful drain, then a restart (TPC-H Q1 at tiny), and last a
+        # node death under spooling (the dead worker is not restarted)
+        t0 = time.perf_counter()
+        tiny_q1 = B.queries("tpch.tiny")[1]
+        tiny_clean, _ = runner.execute(tiny_q1)
+        runner.drain_worker(0)
+        drained, _ = runner.execute(tiny_q1)
+        runner.restart_worker(0)
+        restarted, _ = runner.execute(tiny_q1)
+        log("cluster", card=smi, scenario="drain_and_restart",
+            ms=(time.perf_counter() - t0) * 1e3,
+            rows_equal=drained == restarted == tiny_clean)
+        if not drained == restarted == tiny_clean:
+            failures.append("drain: rows differ from the clean run")
+        cluster_chaos(runner, smi, "node_death", q1, clean, failures)
+    except BaseException:
+        close_booted(kill_boot)
+        raise
+    finally:
+        runner.close()
+    # 6. cluster memory, on the cluster of its own with a small limit
+    try:
+        cluster_memory_kill(smi, kill_boot.result(), CLUSTER_SCHEMA, failures)
+    finally:
+        close_booted(kill_boot)
+    # every worker build against plain; each process's peak and launches
+    builds, procs = [], []
+    for name in sorted(os.listdir(k2_dir)):
+        with open(os.path.join(k2_dir, name)) as f:
+            if name.startswith("k2."):
+                builds += [json.loads(line) for line in f if line.strip()]
+            else:
+                procs.append(json.load(f))
+    k2_err = max([max(b["max_abs_err"], b["unplaced_err"]) for b in builds] or [0])
+    log("cluster", card=smi, part="processes",
+        processes=[{"role": p["argv"][p["argv"].index("--role") + 1],
+                    "peak_bytes": p["peak_bytes"], "launches": p["launches"]} for p in procs],
+        k2_checked_builds=len(builds), k2_max_abs_err=k2_err,
+        largest_build_rows=max([b["rows"] for b in builds] or [0]),
+        seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    if not builds:
+        failures.append("no worker K2 build was checked")
+    if k2_err:
+        failures.append(f"a worker's K2 build differs from plain (max |err| {k2_err})")
+    if failures:
+        raise AssertionError("cluster: " + "; ".join(failures))
+    return launches, k2_err
+
+
 def phase_spill_alone(smi: str) -> None:
     """Phase ``spill`` on its own: the SF10 tables and their oracle, the
     memory tables of phase ``join``, then the spilled runs."""
@@ -3749,9 +4193,18 @@ def phase_mesh_alone(smi: str) -> None:
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--cluster-process":
+        return cluster_process(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    try:
+        import trino_tpu_torch  # noqa: F401
+    except ImportError:
+        # the script alone, without its repository: nothing to run
+        print("chip_smoke: the trino_tpu_torch package is not beside this script",
+              file=sys.stderr)
+        return 3
     t_run = time.perf_counter()
     smi = phase_device()
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
@@ -3764,7 +4217,7 @@ def main() -> int:
              "server": lambda smi: phase_server(smi, tpch_sf1_runner(smi)),
              "obs": lambda smi: phase_obs(smi, tpch_sf1_runner(smi)),
              "tpcds": phase_tpcds, "spill": phase_spill_alone,
-             "mesh": phase_mesh_alone}[name](smi)
+             "mesh": phase_mesh_alone, "cluster": phase_cluster}[name](smi)
             gc.collect()
             torch.cuda.empty_cache()
         return 0
@@ -3817,6 +4270,9 @@ def main() -> int:
     del sf1_runner
     gc.collect()
     torch.cuda.empty_cache()
+    clustered, cluster_k2_err = phase_cluster(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     ds, ds_k2_err = phase_tpcds(smi)
     a, ka = kern["a"], k2["a"]
     log("run", card=smi, seconds=time.perf_counter() - t_run)
@@ -3831,7 +4287,8 @@ def main() -> int:
                      + surface["dense_groupby"] + served["dense_groupby"]
                      + observed["dense_groupby"]
                      + files["dense_groupby"] + ds["dense_groupby"]
-                     + mesh_join_launches["dense_groupby"] + mesh["dense_groupby"]),
+                     + mesh_join_launches["dense_groupby"] + mesh["dense_groupby"]
+                     + clustered.get("dense_groupby", 0)),
         "matches_plain": True,
         "max_abs_err": max(kern["max_abs_err"], surface_k1_err, served_k1_err, obs_k1_err),
         "ms": a["ms"],
@@ -3849,12 +4306,13 @@ def main() -> int:
                      + surface["dense_join_build"] + served["dense_join_build"]
                      + observed["dense_join_build"]
                      + files["dense_join_build"] + ds["dense_join_build"]
-                     + mesh_join_launches["dense_join_build"] + mesh["dense_join_build"]),
+                     + mesh_join_launches["dense_join_build"] + mesh["dense_join_build"]
+                     + clustered["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
                            + [join_k2_err, t22_k2_err, progs_k2_err, surface_k2_err,
                               served_k2_err, obs_k2_err, files_k2_err,
-                              ds_k2_err, mesh_join_k2_err, mesh_k2_err]),
+                              ds_k2_err, mesh_join_k2_err, mesh_k2_err, cluster_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

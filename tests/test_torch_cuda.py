@@ -707,3 +707,141 @@ def test_fresh_engine_seeds_k2_from_history(cuda, tmp_path):
     assert ex["overflow_retries"] == 0 and ex.get("compile_halvings", 0) == 0
     assert _kernels.LAUNCHES["dense_join_build"] > before
     assert builds and all(b["max_abs_err"] == 0 and b["unplaced_err"] == 0 for b in builds)
+
+
+# --- the cluster tier on the card ----------------------------------------
+
+
+def _query_doc(runner, marker):
+    """The coordinator's document of the newest query holding ``marker``."""
+    import json
+    import urllib.request
+
+    from trino_tpu_torch.server import auth
+
+    def get(path):
+        req = urllib.request.Request(runner.coordinator_uri + path, headers=auth.headers())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read().decode())
+
+    qs = [q for q in get("/v1/query") if marker in q["query"]]
+    return get("/v1/query/" + max(qs, key=lambda q: q["createTime"])["queryId"])
+
+
+@pytest.mark.cuda
+def test_cluster_join_launches_k2_in_a_worker(cuda):
+    """TPC-H Q3 at tiny over a coordinator and one worker process on the
+    card: the worker's join tasks launch K2 (their stage's
+    ``kernelLaunches``), the tasks run programs (``fused`` or
+    ``fused-pipeline``), and the rows equal the in-process engine's."""
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.config import Session
+    from trino_tpu_torch.engine import Engine
+    from trino_tpu_torch.testing import MultiProcessQueryRunner
+
+    sql = B.queries("tpch.tiny")[3]
+    with MultiProcessQueryRunner(n_workers=1, device="cuda") as runner:
+        rows, _ = runner.execute(sql, {"join_distribution_type": "PARTITIONED"})
+        doc = _query_doc(runner, "revenue")
+    stages = doc["queryStats"]["stages"]
+    k2 = sum((st.get("kernelLaunches") or {}).get("dense_join_build", 0) for st in stages)
+    assert k2 > 0, stages
+    paths = {p for st in stages for p in (st.get("executionPaths") or {})}
+    assert paths and paths <= {"fused", "fused-pipeline"}, paths
+    local = Engine(device=cuda).execute_statement(
+        sql, Session(properties={"execution_mode": "distributed"}))
+    assert rows == local.rows
+
+
+@pytest.mark.cuda
+def test_concurrent_tasks_in_one_worker_while_one_captures(cuda):
+    """Several tasks of one worker engine run at once while one of them
+    captures its program as a CUDA graph, and another thread reads the
+    card on the host the while: the capture (thread-local error mode,
+    one capture at a time) is neither broken nor breaks the others, every
+    task finishes, and a retried attempt of the captured fragment
+    replays it with the same output."""
+    import threading
+
+    from trino_tpu_torch.engine import Engine
+    from trino_tpu_torch.planner.fragmenter import fragment_plan
+    from trino_tpu_torch.planner.serde import fragment_to_json
+    from trino_tpu_torch.server.task import SqlTask
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    engine = Engine(device=cuda)
+    planner = LocalQueryRunner(device="cpu")
+    sub = fragment_plan(planner.plan(
+        "select l_returnflag, sum(l_quantity), count(*) from tpch.tiny.lineitem"
+        " group by l_returnflag"))
+    leaf = next(f for f in sub.all_fragments() if not f.source_fragment_ids)
+    key = next(iter({f"{n.catalog}.{n.schema}.{n.table}" for n in _scans(leaf)}))
+    table = key.split(".")[-1]
+
+    def payload(index):
+        return {"fragment": fragment_to_json(leaf), "sources": {}, "session": {},
+                "output_partitions": 1, "splits": {key: [
+                    {"table": table, "index": index, "total": 4, "info": None}]}}
+
+    stop = threading.Event()
+
+    def host_reads():
+        x = torch.arange(1 << 20, device=cuda)
+        while not stop.is_set():
+            (x * 3).sum().item()  # an allocation and a sync, eager
+
+    reader = threading.Thread(target=host_reads, daemon=True)
+    reader.start()
+    captures = engine.program_pool.captures
+    try:
+        tasks = [SqlTask(f"cq.1.{i}", engine, payload(i)) for i in range(4)]
+        for t in tasks:
+            t._thread.join(timeout=300)
+    finally:
+        stop.set()
+        reader.join(timeout=30)
+    assert [t.state for t in tasks] == ["FINISHED"] * 4, [t.error for t in tasks]
+    assert all(t.execution_path == "fused" for t in tasks)
+    assert engine.program_pool.captures > captures
+    # the first task's retry replays the program captured for its entry
+    again = SqlTask("cq.1.0r2", engine, payload(0))
+    again._thread.join(timeout=300)
+    assert again.state == "FINISHED"
+    assert again.buffer.get(0, 0, 0)[0] == tasks[0].buffer.get(0, 0, 0)[0]
+
+
+def _scans(frag):
+    from trino_tpu_torch.planner import plan as P
+
+    return [n for n in P.walk_plan(frag.root) if isinstance(n, P.TableScan)]
+
+
+@pytest.mark.cuda
+def test_process_budgets_sum_within_the_card(cuda):
+    """A coordinator and two workers on one card each hold a third of it:
+    their memory pools (``/v1/status``) sum to at most the card, and a
+    worker on a machine with a card refuses ``--device cpu``."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import urllib.request
+
+    from trino_tpu_torch.server import auth
+    from trino_tpu_torch.testing import MultiProcessQueryRunner
+
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    with MultiProcessQueryRunner(n_workers=2, device="cuda") as runner:
+        pools = []
+        for uri in [runner.coordinator_uri, *runner.worker_uris]:
+            req = urllib.request.Request(uri + "/v1/status", headers=auth.headers())
+            with urllib.request.urlopen(req, timeout=30) as r:
+                pools.append(json.loads(r.read().decode())["memoryInfo"]["totalNodeMemory"])
+    assert len(pools) == 3 and all(p > 0 for p in pools)
+    assert sum(pools) <= total
+    assert max(pools) <= total // 3 + 1
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "trino_tpu_torch.server.main", "--role",
+                          "worker", "--device", "cpu"], cwd=repo, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 2 and "runs on the GPU" in out.stderr

@@ -9,11 +9,13 @@
   classification, and the session, prepared-statement and transaction
   headers;
 - ``tests/test_skew.py::TestCountersOverHttp`` on the port's 8-shard mesh;
-- ``TrinoTpuServer()`` raises without a GPU, and every route of the
-  cluster tier (item 9c) answers 501 naming its item; the routes of the
-  repeat tiers (history, result cache, SLO sentinel, flight journal)
-  answer as the reference server's; the routes of the repeat tiers (history, result cache, SLO
-  sentinel, flight journal) answer as the reference server's.
+- ``TrinoTpuServer()`` raises without a GPU; SPMD, the one part of the
+  cluster tier (item 9c) not ported, answers 501 naming its item, and
+  the cluster tier's other routes (tasks, spool, scaled writes,
+  discovery, announcements) answer as the reference server's; a worker
+  starts and announces itself to a coordinator; the routes of the repeat
+  tiers (history, result cache, SLO sentinel, flight journal) answer as
+  the reference server's.
 
 The port's event-loop thread is registered with the repository's lockdep
 (``tests/conftest.py`` checks it as it checks the reference's loop).
@@ -487,46 +489,88 @@ class TestCountersOverHttp:
 # --- the device policy and the tiers not ported yet ------------------------
 
 
-def test_server_raises_without_a_gpu(monkeypatch):
+def _announced(coordinator_uri, node_id, deadline_s=30.0) -> bool:
+    deadline = time.time() + deadline_s
+    while time.time() < deadline:
+        _, body = _status(coordinator_uri, "GET", "/v1/node")
+        if any(n["nodeId"] == node_id for n in json.loads(body.decode())["nodes"]):
+            return True
+        time.sleep(0.1)
+    return False
+
+
+def test_server_raises_without_a_gpu(monkeypatch, server):
+    """Without a GPU the default device raises; SPMD raises naming item
+    9c; a worker (with its discovery URI) starts on the CPU when asked
+    and announces itself to a coordinator."""
     from trino_tpu_torch.server.http import NotPortedError, TrinoTpuServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrinoTpuServer()
-    for kwargs in ({"role": "worker"}, {"spmd": True},
-                   {"discovery_uri": "http://127.0.0.1:1"}):
-        with pytest.raises(NotPortedError, match=r"ROADMAP item 9c"):
-            TrinoTpuServer(device="cpu", **kwargs)
+    with pytest.raises(NotPortedError, match=r"ROADMAP item 9c"):
+        TrinoTpuServer(device="cpu", spmd=True)
+    for kwargs in ({"role": "worker", "node_id": "w-plain"},
+                   {"role": "worker", "node_id": "w-disc", "discovery_uri": server.base_uri}):
+        worker = TrinoTpuServer(device="cpu", **kwargs).start()
+        try:
+            assert _status(worker.base_uri, "GET", "/v1/info")[0] == 200
+            if "discovery_uri" in kwargs:
+                assert _announced(server.base_uri, "w-disc")
+        finally:
+            worker.stop()
 
 
-def test_main_refuses_cluster_options():
+def test_main_refuses_cluster_options(server):
+    """``main`` refuses SPMD naming item 9c; ``--role worker`` with
+    ``--discovery`` starts a worker process that announces itself."""
+    import os
+    import subprocess
+    import sys
+
     from trino_tpu_torch.server.http import NotPortedError
     from trino_tpu_torch.server.main import main
 
-    for argv in (["--role", "worker"], ["--discovery-uri", "http://127.0.0.1:1"],
-                 ["--spmd-coordinator", "127.0.0.1:1"], ["--spmd-procs", "2"],
+    for argv in (["--spmd-coordinator", "127.0.0.1:1"], ["--spmd-procs", "2"],
                  ["--spmd-rank", "1"]):
         with pytest.raises(NotPortedError, match=r"ROADMAP item 9c"):
             main(["--device", "cpu", *argv])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "trino_tpu_torch.server.main", "--role", "worker",
+         "--node-id", "w-main", "--device", "cpu", "--discovery-uri", server.base_uri],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    try:
+        assert _announced(server.base_uri, "w-main", deadline_s=120.0), proc.poll()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
 
 
-# (method, path, ROADMAP item) of every route of the reference's cluster
-# tier
+# (method, path, ROADMAP item) of the routes of the reference's cluster
+# tier that this package does not serve
 NOT_PORTED_ROUTES = [
-    ("POST", "/v1/task/t1.0.0", "9c"),
-    ("GET", "/v1/task/t1.0.0", "9c"),
-    ("GET", "/v1/task/t1.0.0/results/0/0", "9c"),
-    ("DELETE", "/v1/task/t1.0.0", "9c"),
-    ("POST", "/v1/write", "9c"),
     ("POST", "/v1/spmd", "9c"),
-    ("POST", "/v1/spool/t1.0.0", "9c"),
-    ("GET", "/v1/spool", "9c"),
-    ("GET", "/v1/spool/t1.0.0/results/0/0", "9c"),
-    ("PUT", "/v1/spool/t1.0.0/complete", "9c"),
-    ("DELETE", "/v1/spool/t1.0.0", "9c"),
-    ("PUT", "/v1/announce", "9c"),
-    ("DELETE", "/v1/announce/worker-1", "9c"),
-    ("PUT", "/v1/discovery", "9c"),
+]
+
+# the cluster tier's other routes, each with the body a peer sends:
+# answered as a reference server answers them
+CLUSTER_ROUTES = [
+    ("POST", "/v1/task/t1.0.0", b"{}"),
+    ("GET", "/v1/task/t1.0.0", None),
+    ("GET", "/v1/task/t1.0.0/results/0/0", None),
+    ("DELETE", "/v1/task/t1.0.0", None),
+    ("POST", "/v1/write?catalog=memory&schema=default&table=nope", b"not a page"),
+    ("POST", "/v1/spool/t1.0.0?query=q1&partition=0&seq=0", b"page-bytes"),
+    ("GET", "/v1/spool", None),
+    ("GET", "/v1/spool/t1.0.0/results/0/0", None),
+    ("PUT", "/v1/spool/t1.0.0/complete", b'{"queryId": "q1", "partitions": {"0": 1}}'),
+    ("DELETE", "/v1/spool/t1.0.0", None),
+    ("PUT", "/v1/announce", b'{"nodeId": "worker-9", "uri": "http://127.0.0.1:9"}'),
+    ("DELETE", "/v1/announce/worker-1", None),
+    ("PUT", "/v1/discovery", b'{"uri": "http://127.0.0.1:9"}'),
 ]
 
 
@@ -545,6 +589,37 @@ def _status(base_uri, method, path, body=b"{}"):
         return e.code, e.read()
 
 
+@pytest.fixture(scope="module")
+def ref_server():
+    from trino_tpu.server.http import TrinoTpuServer as RefServer
+
+    s = RefServer().start()
+    try:
+        yield s
+    finally:
+        s.stop()
+
+
+def _doc_keys(status, body):
+    try:
+        doc = json.loads(body.decode())
+    except ValueError:
+        return status, None
+    return status, sorted(doc) if isinstance(doc, dict) else type(doc).__name__
+
+
+@pytest.mark.parametrize("method,path,body", CLUSTER_ROUTES)
+def test_cluster_routes_answer_as_the_reference(server, ref_server, method, path, body):
+    """Each route of the cluster tier answers a coordinator's peer as the
+    reference's coordinator does: the same status and the same document
+    keys (each module's two servers see the same requests in the same
+    order, so their states agree)."""
+    got = _doc_keys(*_status(server.base_uri, method, path, body))
+    want = _doc_keys(*_status(ref_server.base_uri, method, path, body))
+    assert got == want, (method, path)
+    assert got[0] != 501
+
+
 @pytest.mark.parametrize("method,path,item", NOT_PORTED_ROUTES)
 def test_routes_not_ported_answer_501_naming_their_item(server, method, path, item):
     status, body = _status(server.base_uri, method, path)
@@ -554,11 +629,14 @@ def test_routes_not_ported_answer_501_naming_their_item(server, method, path, it
     assert f"ROADMAP item {item}" in doc["error"]
 
 
-def test_empty_cluster_listings_equal_a_reference_coordinator(server):
+def test_empty_cluster_listings_equal_a_reference_coordinator():
     """``GET /v1/task`` and ``/v1/node`` list nothing, as a reference
-    coordinator with no workers does; ``/v1/memory`` reports the own pool."""
+    coordinator with no workers does; ``/v1/memory`` reports the own pool.
+    (Fresh servers: the module's coordinator has had workers announce.)"""
     from trino_tpu.server.http import TrinoTpuServer as RefServer
+    from trino_tpu_torch.server.http import TrinoTpuServer
 
+    server = TrinoTpuServer(device="cpu").start()
     ref = RefServer().start()
     try:
         for path in ("/v1/task", "/v1/node"):
@@ -568,6 +646,7 @@ def test_empty_cluster_listings_equal_a_reference_coordinator(server):
         assert mem[0].keys() == mem[1].keys()
         assert mem[0]["clusterMemoryLimitBytes"] == mem[1]["clusterMemoryLimitBytes"]
     finally:
+        server.stop()
         ref.stop()
 
 

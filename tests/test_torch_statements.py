@@ -213,12 +213,8 @@ def test_statement_scripts_equal_the_reference(script):
         port = port_runner(mode)
         for sql, want in zip(SCRIPTS[script], wants):
             got = outcome(port, sql)
-            if script == "scaled_writers" and sql.startswith("insert"):
-                # the reference writes locally without a cluster; the port
-                # refuses until the cluster is ported (ROADMAP item 9)
-                assert want[1:] == ("INSERT", 1)
-                assert got[:2] == ("error", "SemanticError") and "not yet ported" in got[2]
-                continue
+            # scaled_writers without a cluster write locally, as the
+            # reference's do
             assert got == want, (mode, sql, got, want)
 
 

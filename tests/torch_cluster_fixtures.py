@@ -1,0 +1,69 @@
+"""Helpers of the port's cluster tests (``tests/test_torch_cluster*.py``,
+``test_torch_fault_tolerance.py``, ``test_torch_scaled_writers.py``):
+reads of a cluster's HTTP documents with the internal credential, as a
+cluster peer sends them. Not a test file."""
+
+from __future__ import annotations
+
+import json
+import urllib.error
+import urllib.request
+
+
+def get_json(uri: str, path: str, timeout: float = 30.0):
+    from trino_tpu_torch.server import auth
+
+    req = urllib.request.Request(f"{uri}{path}", headers=auth.headers())
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read().decode())
+
+
+def get_text(uri: str, path: str, timeout: float = 30.0) -> str:
+    from trino_tpu_torch.server import auth
+
+    req = urllib.request.Request(f"{uri}{path}", headers=auth.headers())
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def query_infos(cluster) -> list[dict]:
+    """The coordinator's query listing (``/v1/query``)."""
+    return get_json(cluster.coordinator_uri, "/v1/query")
+
+
+def query_info_for(cluster, marker: str) -> dict:
+    """The newest query whose text holds ``marker``, as ``/v1/query``
+    lists it (the listing is not in submission order: the latest
+    ``createTime`` wins)."""
+    qs = [q for q in query_infos(cluster) if marker in q["query"]]
+    assert qs, f"no query matching {marker!r} on the coordinator"
+    return max(qs, key=lambda q: q.get("createTime") or 0)
+
+
+def query_id_for(cluster, marker: str) -> str:
+    return query_info_for(cluster, marker)["queryId"]
+
+
+def worker_tasks(cluster) -> dict[str, dict]:
+    """Every live worker's task listing by task id (a killed worker's
+    tasks are gone with it)."""
+    out: dict[str, dict] = {}
+    for uri in cluster.worker_uris:
+        try:
+            for t in get_json(uri, "/v1/task", timeout=10):
+                out[t["taskId"]] = t
+        except OSError:
+            continue
+    return out
+
+
+def cluster_timeline(cluster, qid: str) -> list:
+    """Union of the coordinator's and every worker's span dump for one
+    trace — the cross-process view a real backend would assemble."""
+    spans = list(get_json(cluster.coordinator_uri, f"/v1/query/{qid}/timeline")["spans"])
+    for uri in cluster.worker_uris:
+        try:
+            spans.extend(get_json(uri, f"/v1/query/{qid}/timeline")["spans"])
+        except (urllib.error.HTTPError, OSError):
+            pass  # worker saw no tasks for this query
+    return spans

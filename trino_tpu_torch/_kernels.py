@@ -61,6 +61,7 @@ LAUNCHES: dict[str, int] = {name: 0 for name in _ENTRY}
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in _ENTRY}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -70,13 +71,64 @@ def reset_counts() -> None:
             d[k] = 0
 
 
+_scopes = threading.local()
+
+
+def _count(launches: dict[str, int]) -> None:
+    """Add ``launches`` to this thread's open scopes, innermost first; a
+    capture's scope keeps them (its graph's replays count them), else
+    they reach :data:`LAUNCHES` too."""
+    for counts, capture in reversed(getattr(_scopes, "stack", ())):
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+        if capture:
+            return
+    with _count_lock:
+        for name, n in launches.items():
+            LAUNCHES[name] += n
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name`` where its wrapper launches it.
+    Another thread's launches during a capture count as launches, not as
+    the graph's."""
+    _count({name: 1})
+
+
 def count_replay(launches: dict[str, int]) -> None:
     """Count the kernel launches of one CUDA graph replay: a graph
     (``exec/programs.py``) launches again every kernel its capture
     recorded, without passing through the wrappers, so each replay adds
     the launches its capture counted."""
-    for name, n in launches.items():
-        LAUNCHES[name] += n
+    _count(launches)
+
+
+class launch_scope:
+    """``with launch_scope() as launches:`` counts into ``launches`` the
+    kernel launches this thread makes in the block (its graphs' replays
+    included), besides :data:`LAUNCHES`: a worker's task ships its own.
+    ``launch_scope(capture=True)`` collects one graph capture's launches,
+    which are no launches of their own."""
+
+    def __init__(self, capture: bool = False):
+        self.capture = capture
+
+    def __enter__(self) -> dict:
+        if not hasattr(_scopes, "stack"):
+            _scopes.stack = []
+        counts: dict[str, int] = {}
+        _scopes.stack.append((counts, self.capture))
+        return counts
+
+    def __exit__(self, *exc) -> None:
+        _scopes.stack.pop()
+
+
+class KernelError(RuntimeError):
+    """A hand kernel failed to build, load or launch. Never retryable: the
+    same kernel fails the same way on a retry (``ft/retry.py``)."""
+
+    retryable = False
 
 
 def _nvcc() -> str:
@@ -86,7 +138,7 @@ def _nvcc() -> str:
     cand = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build kernels")
+    raise KernelError("nvcc not found: the CUDA toolkit is needed to build kernels")
 
 
 def _lib_path(name: str) -> Path:
@@ -114,7 +166,7 @@ def _finish_build(name: str, job) -> None:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
@@ -146,7 +198,10 @@ def load(name: str) -> ctypes.CDLL:
             job = _start_build(name)
             if job is not None:
                 _finish_build(name, job)
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            try:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+            except OSError as e:  # an OSError would read as retryable
+                raise KernelError(f"kernel library {name} failed to load: {e}") from e
             symbol, argtypes = _ENTRY[name]
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
@@ -167,4 +222,4 @@ def entry(name: str):
 def check(name: str, rc: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        raise KernelError(f"{name}: CUDA launch failed with error {rc}")

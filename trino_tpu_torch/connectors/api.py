@@ -67,12 +67,45 @@ class Split:
     info: Any = None
 
 
+# a scaled writer's staged part: ``<part>.pending`` until committed
+PENDING_SUFFIX = ".pending"
+
+
+def commit_staged_parts(directory: str, parts) -> None:
+    """Make a scaled write's staged parts visible: one rename each; a
+    part already committed stays as it is."""
+    import os
+
+    for part in parts:
+        staged = os.path.join(directory, str(part) + PENDING_SUFFIX)
+        if part and os.path.exists(staged):
+            os.replace(staged, os.path.join(directory, part))
+
+
+def delete_staged_parts(directory: str, parts) -> None:
+    """Best-effort removal of named parts, committed or staged (the
+    scaled write's abort)."""
+    import os
+
+    for part in parts:
+        if not part:
+            continue
+        for name in (part, part + PENDING_SUFFIX):
+            try:
+                os.remove(os.path.join(directory, name))
+            except OSError:
+                pass
+
+
 class Connector:
     name: str = "connector"
     # False for connectors whose reads reflect live process state rather
     # than versioned table data (system tables): the result cache
     # (trino_tpu_torch/cache) refuses queries touching them
     supports_result_caching: bool = True
+    # True where writer tasks on any node can append a table's parts and
+    # the coordinator can commit or drop them (scaled writers)
+    supports_distributed_writes: bool = False
 
     # --- metadata --------------------------------------------------------
     def get_table(self, schema: str, table: str) -> Optional[TableSchema]:
@@ -379,6 +412,11 @@ def register_catalog_spec(manager: CatalogManager, spec: str) -> None:
     elif kind == "tpch":
         from trino_tpu_torch.connectors.tpch import TpchConnector
 
-        manager.register(name, TpchConnector())
+        # ``tpch:<rows>``: rows a split (a cluster's tests split tiny
+        # tables over several tasks); any other argument is ignored, as
+        # the reference ignores it
+        split_rows = int(arg) if arg and arg.isdigit() else None
+        manager.register(name, TpchConnector() if split_rows is None
+                         else TpchConnector(split_rows=split_rows))
     else:
         raise ValueError(f"unknown catalog kind in spec: {spec!r}")

@@ -11,7 +11,10 @@ equivalent of ORC stripe footers driving
 
 A copy of ``trino_tpu/connectors/file.py``: part files are byte-equal to
 the reference's for the same batches, and DELETE swaps the table's data
-through :meth:`FileConnector.replace_data`.
+through :meth:`FileConnector.replace_data`. A scaled writer's part is
+written staged (``insert_part(pending=True)``: ``<part>.pending``, which
+no reader lists) and becomes visible when the coordinator commits it
+(:meth:`FileConnector.commit_parts`).
 """
 
 from __future__ import annotations
@@ -22,7 +25,15 @@ from typing import Optional, Sequence
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import Batch
-from trino_tpu_torch.connectors.api import ColumnSchema, Connector, Split, TableSchema
+from trino_tpu_torch.connectors.api import (
+    PENDING_SUFFIX,
+    ColumnSchema,
+    Connector,
+    Split,
+    TableSchema,
+    commit_staged_parts,
+    delete_staged_parts,
+)
 from trino_tpu_torch.serde import deserialize_batch, serialize_batch
 
 _SCHEMA_FILE = "_schema.json"
@@ -46,6 +57,10 @@ def _retry_fnf(fn, attempts: int = 50, delay: float = 0.01):
 
 class FileConnector(Connector):
     name = "file"
+    # part-file writes land on a shared filesystem, so writer
+    # tasks on any node append safely (scaled-writer eligible)
+    supports_distributed_writes = True
+
     def __init__(self, root: str):
         self.root = root
         os.makedirs(root, exist_ok=True)
@@ -132,29 +147,29 @@ class FileConnector(Connector):
     def insert(self, schema, table, batch: Batch) -> int:
         return self.insert_part(schema, table, batch)[0]
 
-    def insert_part(self, schema, table, batch: Batch) -> tuple[int, str]:
+    def insert_part(self, schema, table, batch: Batch,
+                    pending: bool = False) -> tuple[int, str]:
         """Insert returning (rows, part-file name) so scaled-writer
         coordinators can roll back committed parts when a sibling writer
         fails (reference: TableWriterOperator fragment IDs +
-        TableFinishOperator commit)."""
+        TableFinishOperator commit). ``pending`` writes the part staged,
+        invisible until :meth:`commit_parts`."""
         ts = self.get_table(schema, table)
         if ts is None:
             raise KeyError(f"table not found: {schema}.{table}")
         d = self._table_dir(schema, table)
-        rows, part = self._write_part_into(d, ts, batch)
+        rows, part = self._write_part_into(d, ts, batch, pending=pending)
         return rows, part
 
+    def commit_parts(self, schema, table, parts) -> None:
+        """Make staged parts visible (the scaled writers' commit)."""
+        commit_staged_parts(self._table_dir(schema, table), parts)
+
     def delete_parts(self, schema, table, parts) -> None:
-        """Best-effort removal of named part files (+ their stats
-        entries) — the scaled-INSERT abort path."""
+        """Best-effort removal of named part files, committed or staged
+        (+ their stats entries) — the scaled-INSERT abort path."""
         d = self._table_dir(schema, table)
-        for part in parts:
-            if not part:
-                continue
-            try:
-                os.remove(os.path.join(d, part))
-            except OSError:
-                pass
+        delete_staged_parts(d, parts)
         stats_path = os.path.join(d, _STATS_FILE)
         try:
             with open(stats_path) as f:
@@ -168,15 +183,18 @@ class FileConnector(Connector):
         except OSError:
             pass
 
-    def _write_part_into(self, d: str, ts: TableSchema, batch: Batch) -> tuple[int, str]:
+    def _write_part_into(self, d: str, ts: TableSchema, batch: Batch,
+                         pending: bool = False) -> tuple[int, str]:
         """Write one part file + stats into an explicit directory (used by
-        both the live-table insert path and replace_data staging)."""
+        both the live-table insert path and replace_data staging); a
+        ``pending`` part is written under its staged name."""
         import uuid
 
         compacted = batch.compact()
         # node-unique names: concurrent scaled-writer tasks must not collide
         part = f"part-{len(self._parts_in(d)):05d}-{uuid.uuid4().hex[:8]}.ttp"
-        with open(os.path.join(d, part), "wb") as f:
+        path = os.path.join(d, part + (PENDING_SUFFIX if pending else ""))
+        with open(path, "wb") as f:
             f.write(serialize_batch(compacted))
         # per-file column stats (the ORC stripe-footer analog)
         from trino_tpu_torch.connectors.api import batch_column_stats

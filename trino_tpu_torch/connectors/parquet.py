@@ -22,12 +22,23 @@ import threading
 from typing import Optional, Sequence
 
 from trino_tpu_torch.columnar import Batch
-from trino_tpu_torch.connectors.api import ColumnSchema, Connector, Split, TableSchema
+from trino_tpu_torch.connectors.api import (
+    PENDING_SUFFIX,
+    ColumnSchema,
+    Connector,
+    Split,
+    TableSchema,
+    commit_staged_parts,
+    delete_staged_parts,
+)
 from trino_tpu_torch.formats import parquet as PQ
 
 
 class ParquetConnector(Connector):
     name = "parquet"
+    # part-file writes land on a shared filesystem, so writer tasks on
+    # any node append safely (scaled-writer eligible)
+    supports_distributed_writes = True
     def __init__(self, root: str):
         self.root = root
         os.makedirs(root, exist_ok=True)
@@ -175,6 +186,13 @@ class ParquetConnector(Connector):
         self._pending_schema = schema_def  # first insert writes the footer
 
     def insert(self, schema, table, batch: Batch) -> int:
+        return self.insert_part(schema, table, batch)[0]
+
+    def insert_part(self, schema, table, batch: Batch,
+                    pending: bool = False) -> tuple[int, str]:
+        """Insert returning (rows, part-file name); ``pending`` writes
+        the part staged (``<part>.pending``, which no reader lists) until
+        :meth:`commit_parts` (scaled writers)."""
         d = self._table_dir(schema, table)
         if not os.path.isdir(d):
             raise KeyError(f"table not found: {schema}.{table}")
@@ -196,8 +214,16 @@ class ParquetConnector(Connector):
             tmp = path + ".tmp"
             with open(tmp, "wb") as f:
                 PQ.write_parquet(f, names, [batch])
-            os.replace(tmp, path)
-        return batch.compact().num_rows
+            os.replace(tmp, path + (PENDING_SUFFIX if pending else ""))
+        return batch.compact().num_rows, os.path.basename(path)
+
+    def commit_parts(self, schema, table, parts) -> None:
+        """A scaled write's staged parts become visible."""
+        commit_staged_parts(self._table_dir(schema, table), parts)
+
+    def delete_parts(self, schema, table, parts) -> None:
+        """A failed scaled write's parts go, committed or staged."""
+        delete_staged_parts(self._table_dir(schema, table), parts)
 
     def drop_table(self, schema, table) -> None:
         import shutil

@@ -11,8 +11,8 @@ the engine's device, or the server's node listing), ``runtime.metrics``
 program cache, ``exec/programs.py``, with the profiler's allocator
 stats), ``runtime.history`` (the engine's history stores,
 ``obs/history.py``) and ``metadata.catalogs`` read the engine;
-``runtime.tasks`` reads worker tasks, which this package does not keep
-yet (ROADMAP item 9c), and has no rows.
+``runtime.tasks`` reads the server's worker tasks (``server/task.py``;
+none on a bare engine).
 """
 
 from __future__ import annotations

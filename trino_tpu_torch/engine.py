@@ -32,8 +32,14 @@ the ``query`` span (``execute`` under a server's query root) with
 entry before the run, to seed capacities, and records what the run
 observed after it), the SLO sentinel (``obs/slo.py``) judging each run
 against that entry, and the semantic result cache (``cache/``), probed
-before the statement is parsed and stored after a SELECT. Not ported:
-the cluster scheduler, scaled writers and worker tasks (ROADMAP item 9c).
+before the statement is parsed and stored after a SELECT. The cluster
+tier (reference ``:932-970``, ``:1243-1344``): a coordinator server
+installs its ``ClusterScheduler``, and ``execution_mode=cluster`` runs a
+query's fragments as tasks of worker processes (``server/cluster.py``,
+``server/task.py``); ``scaled_writers`` ships a write's pages to the
+workers (:meth:`Engine._scaled_insert`), whose parts are committed only
+once every writer has answered. SPMD across processes is not ported
+(ROADMAP item 9c).
 """
 
 from __future__ import annotations
@@ -82,8 +88,8 @@ class StatementResult:
     # transaction mutations (X-Trino-Started-Transaction-Id / Clear-...)
     started_transaction_id: Optional[str] = None
     cleared_transaction: bool = False
-    # the cluster tier's retry and attempt counters (ROADMAP item 9c):
-    # empty on one engine, as the reference's are without a cluster
+    # the cluster tier's retry, attempt and stage counters
+    # (server/cluster.py): empty on one engine
     cluster_stats: dict[str, Any] = dataclasses.field(default_factory=dict)
     # per-exchange counters of a distributed run; None for local runs
     exchange_stats: Optional[dict[str, Any]] = None
@@ -183,6 +189,9 @@ class Engine:
         self._runtime_nodes_fn = None
         self._runtime_tasks_fn = None
         self.node_id: Optional[str] = None
+        # multi-process scheduling (server/cluster.py installs this on
+        # coordinator servers; execution_mode=cluster routes through it)
+        self.cluster_scheduler = None
         from trino_tpu_torch.connectors.system import SystemConnector
 
         self.catalogs.register("system", SystemConnector(self))
@@ -314,9 +323,9 @@ class Engine:
         return [("local", "local://", "trino-tpu-0.1", True, "ACTIVE")]
 
     def runtime_tasks(self) -> list[dict]:
-        """The server's task listing where one installed it. Worker tasks
-        belong to the cluster tier (ROADMAP item 9c), so a coordinator of
-        this package lists none either."""
+        """Live worker-task info for ``system.runtime.tasks``. The server
+        installs ``_runtime_tasks_fn`` (its SqlTaskManager registry);
+        standalone engines have no tasks."""
         if self._runtime_tasks_fn is not None:
             return self._runtime_tasks_fn()
         return []
@@ -840,6 +849,8 @@ class Engine:
         query_id: Optional[str] = None, programs: Optional[dict] = None,
         params: Optional[list] = None, history: Optional[dict] = None,
     ) -> StatementResult:
+        if session.get("execution_mode") == "cluster" and self.cluster_scheduler is not None:
+            return self._execute_cluster(plan, session, query_id, params)
         ctx = self._memory_ctx(session, query_id)
         try:
             executor = self._executor(session, ctx, programs=programs, params=params,
@@ -849,6 +860,39 @@ class Engine:
         finally:
             ctx.close()
         return self._result(executor, batch, names, ctx)
+
+    def _execute_cluster(self, plan: P.PlanNode, session: Session,
+                         query_id: Optional[str], params: Optional[list]) -> StatementResult:
+        """A query over the cluster's worker processes (reference
+        ``:932-970``, without its SPMD branch): the coordinator's
+        ``ClusterScheduler`` runs the fragments as worker tasks and the
+        root here; ``cluster_stats`` carries its stages, retries and the
+        workers' merged device, exchange and ingest stats."""
+        if params:
+            # a canonical (hoisted) plan reached the cluster path — a
+            # batch member, or its sequential fallback. The wire serde
+            # drops hoisted values, so bake this query's literals back
+            from trino_tpu_torch.planner.canonicalize import bind_params
+
+            plan = bind_params(plan, params)
+        cluster_stats: dict[str, Any] = {}
+        batch, names = self.cluster_scheduler.execute(
+            plan, session, stats_sink=cluster_stats, query_id=query_id,
+        )
+        from trino_tpu_torch.exec.programs import allow_sync
+
+        with allow_sync(batch.device):  # the result's read
+            rows = batch.to_pylist()
+        return StatementResult(
+            rows,
+            names,
+            [c.type for c in batch.columns],
+            cluster_stats=cluster_stats,
+            device_stats=cluster_stats.get("deviceStats"),
+            exchange_stats=cluster_stats.get("exchangeStats"),
+            ingest_stats=cluster_stats.get("ingestStats"),
+            operator_stats=(cluster_stats.get("exchangeStats") or {}).get("operators"),
+        )
 
     def _execute_query_plan_batched(
         self, plan: P.PlanNode, session: Session, query_ids: list[str],
@@ -890,10 +934,8 @@ class Engine:
                 ),
                 memory_ctx=ctx, history=history,
             )
-        if mode not in ("local", "distributed"):
-            raise SemanticError(
-                f"execution_mode={mode!r} is not yet ported to trino_tpu_torch"
-            )
+        if mode not in ("local", "distributed", "cluster"):
+            raise SemanticError(f"unknown execution_mode={mode!r}")
         if mode == "distributed" and self.mesh_n > 1:
             from trino_tpu_torch.parallel.distributed import DistributedExecutor
 
@@ -970,7 +1012,9 @@ class Engine:
         out, read with the programs' flags (``exch@`` sites on N shards,
         with the exchange section). The reference's device-program
         section renders the profiler's allocator stats
-        (``render_device_stats``)."""
+        (``render_device_stats``). A cluster run renders the distributed
+        plan: one section a stage, merged from the workers' task stats
+        (``render_distributed_plan``)."""
         from trino_tpu_torch import stats as S
 
         if getattr(stmt, "analyze", False):
@@ -980,6 +1024,22 @@ class Engine:
             collector = S.StatsCollector()
             plan = self.plan(inner, session)
             res = self._execute_query_plan(plan, session, collector=collector)
+            stages = (res.cluster_stats or {}).get("stages")
+            if stages:
+                # a cluster run: the distributed plan from the per-stage
+                # stats the coordinator merged out of every worker's
+                # shipped task stats (reference :1186-1194)
+                text = S.render_distributed_plan(plan, res.cluster_stats, res.device_stats)
+                wall_ms = max((st.get("elapsedMs", 0.0) for st in stages), default=0.0)
+                text += (
+                    f"\n\npeak memory: {res.peak_memory_bytes} bytes"
+                    f"\ndynamic filters: {res.dynamic_filters}"
+                    f"\noutput rows: {len(res.rows)}"
+                    f"\nwall time: {wall_ms:.1f}ms"
+                )
+                return StatementResult(
+                    [(line,) for line in text.splitlines()], ["Query Plan"], [T.VARCHAR]
+                )
             text = S.render_plan_with_stats(plan, collector)
             if collector.fragments:
                 text += "\n\n" + S.render_fragment_stats(collector.fragments)
@@ -1011,16 +1071,140 @@ class Engine:
 
     # === DDL / DML ========================================================
 
-    def _insert(self, conn, schema: str, table: str, batch: Batch,
+    # how long the coordinator waits for its scaled writers (seconds)
+    WRITER_JOIN_TIMEOUT_S = 600.0
+
+    def _insert(self, conn, catalog: str, schema: str, table: str, batch: Batch,
                 session: Session) -> int:
-        """Rows into a connector. The reference's scaled writers ship
-        pages to worker tasks (``_scaled_insert``), which needs the cluster
-        (ROADMAP item 9c)."""
-        if session.get("scaled_writers"):
-            raise SemanticError(
-                "scaled_writers is not yet ported to trino_tpu_torch"
-            )
-        return conn.insert(schema, table, batch)
+        """Rows into a connector: through the scaled writers where they
+        apply (:meth:`_scaled_insert`), else one local insert."""
+        n = self._scaled_insert(conn, catalog, schema, table, batch, session)
+        if n is None:
+            n = conn.insert(schema, table, batch)
+        return n
+
+    def _scaled_insert(
+        self, conn, catalog: str, schema: str, table: str, batch, session
+    ) -> Optional[int]:
+        """Distributed scaled writers, or None to insert locally.
+
+        Reference: ``trino_tpu/engine.py:1243-1344``
+        (``execution/scheduler/ScaledWriterScheduler.java`` + round-robin
+        ``FIXED_ARBITRARY_DISTRIBUTION`` writer placement). The writer
+        count scales statically from the materialized size (one writer
+        per ``writer_target_bytes``, capped at the worker count + 1). The
+        coordinator writes the first chunk itself, then ships the rest to
+        workers over ``POST /v1/write`` as serialized pages.
+
+        Unlike the reference, every worker's part is written staged
+        (``pending``: invisible to readers) and committed only once every
+        writer has answered (``commit_parts``). A failed write deletes the
+        coordinator's part and the staged ones; a writer that answers
+        after the coordinator gave up (``WRITER_JOIN_TIMEOUT_S``) deletes
+        its own, and one that never answers leaves a staged part no reader
+        lists: no committed row is left behind a failed INSERT (the
+        reference's abort can miss a part committed after its
+        ``join(timeout)``).
+        """
+        if not session.get("scaled_writers"):
+            return None
+        if not getattr(conn, "supports_distributed_writes", False):
+            return None
+        if self.cluster_scheduler is None:
+            return None
+        nodes = self.cluster_scheduler.node_manager.active_nodes()
+        if not nodes:
+            return None
+        import json as _json
+        import urllib.parse
+        import urllib.request
+
+        from trino_tpu_torch.exec.local import ExecutionError
+        from trino_tpu_torch.exec.streaming import _slice_rows
+        from trino_tpu_torch.memory import batch_nbytes
+        from trino_tpu_torch.serde import serialize_batch
+        from trino_tpu_torch.server import auth
+
+        batch = batch.compact()
+        target = int(session.get("writer_target_bytes"))
+        writers = max(1, min(len(nodes) + 1, -(-batch_nbytes(batch) // target)))
+        if writers <= 1 or batch.num_rows < 2:
+            return None
+        rows_per = -(-batch.num_rows // writers)
+        chunks = [
+            _slice_rows(batch, lo, min(lo + rows_per, batch.num_rows))
+            for lo in range(0, batch.num_rows, rows_per)
+        ]
+        # the coordinator's chunk anchors the table (a file format's first
+        # part carries its schema): written committed, deleted on abort
+        total, anchor_part = conn.insert_part(schema, table, chunks[0])
+        placements = self.cluster_scheduler.node_scheduler.select(
+            nodes, len(chunks) - 1
+        )
+        lock = threading.Lock()
+        state = {"aborted": False}
+        errors: list[Exception] = []
+        counts: list[int] = []
+        parts: list[str] = [anchor_part]
+
+        def write(node, chunk):
+            try:
+                qs = urllib.parse.urlencode(
+                    {"catalog": catalog, "schema": schema, "table": table,
+                     "pending": "true"}
+                )
+                req = urllib.request.Request(
+                    f"{node.uri}/v1/write?{qs}",
+                    data=serialize_batch(chunk),
+                    method="POST",
+                    headers=auth.headers(),
+                )
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    reply = _json.loads(r.read().decode())
+                if "error" in reply:
+                    raise ExecutionError(reply["error"])
+                with lock:
+                    if state["aborted"]:
+                        # the INSERT already failed: this part must not stay
+                        conn.delete_parts(schema, table, [reply.get("part", "")])
+                        return
+                    counts.append(reply["rows"])
+                    if reply.get("part"):
+                        parts.append(reply["part"])
+            except Exception as e:  # noqa: BLE001
+                with lock:
+                    errors.append(e)
+
+        threads = [
+            threading.Thread(target=write, args=(n, c), daemon=True)
+            for n, c in zip(placements, chunks[1:])
+        ]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + self.WRITER_JOIN_TIMEOUT_S
+        for t in threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        for node in placements:
+            self.cluster_scheduler.node_scheduler.release(node)
+        with lock:
+            if any(t.is_alive() for t in threads):
+                msg = "scaled write failed: a writer task did not complete"
+            elif errors:
+                msg = f"scaled write failed: {errors[0]}"
+            elif len(counts) != len(threads):
+                msg = (f"scaled write failed: {len(threads) - len(counts)} writer "
+                       f"tasks reported no row count")
+            else:
+                msg = None
+            if msg is not None:
+                # a failed scaled INSERT leaves no rows behind (a retry
+                # would duplicate them): the staged parts go, and a writer
+                # that answers later deletes its own
+                state["aborted"] = True
+                conn.delete_parts(schema, table, parts)
+                raise ExecutionError(msg)
+        conn.commit_parts(schema, table, parts[1:])
+        return total + sum(counts)
 
     def _do_createtableasselect(
         self, stmt: t.CreateTableAsSelect, session: Session
@@ -1035,7 +1219,7 @@ class Engine:
         )
         with self._write_guard(session):
             conn.create_table(schema, table, TableSchema(table, cols))
-            n = self._insert(conn, schema, table, batch, session)
+            n = self._insert(conn, catalog, schema, table, batch, session)
         return StatementResult(
             [], ["rows"], [T.BIGINT], update_type="CREATE TABLE", update_count=n
         )
@@ -1060,7 +1244,8 @@ class Engine:
             )
         if stmt.columns:
             batch = _to_table_columns(batch, stmt.columns, ts)
-        n = self._insert(conn, schema, table, batch, session)
+        n = self._insert(conn, self._qualify(stmt.name, session)[0], schema, table,
+                         batch, session)
         return StatementResult(
             [], ["rows"], [T.BIGINT], update_type="INSERT", update_count=n
         )

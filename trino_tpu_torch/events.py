@@ -5,9 +5,12 @@ created/completed events → ``eventlistener/EventListenerManager.java`` →
 pluggable ``EventListener``s (``spi/eventlistener/``,
 ``Plugin.getEventListenerFactories`` at ``spi/Plugin.java:80``).
 
-A copy of ``trino_tpu/events.py``. The engine fires the query events;
-the stage and task events are the cluster scheduler's, which this
-package does not have yet (ROADMAP item 9c), so nothing fires them here.
+Stage/task completion events (``SplitCompletedEvent`` territory in the
+reference) are fired by the cluster scheduler (``server/cluster.py``) once
+per stage / per task attempt, carrying the elapsed + retry accounting the
+observability registry aggregates.
+
+A copy of ``trino_tpu/events.py``.
 """
 
 from __future__ import annotations

@@ -1397,10 +1397,20 @@ class FragmentedExecutor(DistributedExecutor):
         return self._execute_fragments(sub)
 
     def _execute_fragments(self, sub: SubPlan) -> tuple[Batch, list[str]]:
+        from trino_tpu_torch.ft.injection import FaultInjector
+
         results: dict[int, Result] = {}
         names_holder: dict[int, list[str]] = {}
+        # the chaos hook (ft/injection.py): fragment-level crash sites,
+        # deterministic a (seed, fragment id); a fused unit keeps one site
+        # a member, so chaos schedules are the same with fusion on or off
+        injector = FaultInjector.from_session(self.session)
         for unit in self._fusion_units(sub):
-            if isinstance(unit, FusedFragment):
+            fused = isinstance(unit, FusedFragment)
+            if injector is not None:
+                for fid in (unit.fragment_ids if fused else (unit.id,)):
+                    injector.maybe_crash_task(f"frag:{fid}")
+            if fused:
                 results[unit.id] = self._run_fused_unit(unit, results, names_holder)
             else:
                 results[unit.id] = self._run_fragment(unit, results, names_holder)

@@ -482,12 +482,13 @@ class ProgramPool:
         # oldest first: {"handle": pool handle, "programs": ids, "open": bool}
         self._gens: list[dict] = []
         self._released = False  # a generation emptied since empty_cache
-        # the bound of all generations' segments (an eighth of the card:
-        # with the table cache's quarter, the working set of a query
-        # keeps more than half the card)
+        # the bound of all generations' segments (an eighth of the
+        # process's card share, memory.card_bytes: with the table cache's
+        # quarter, the working set of a query keeps more than half of it)
+        from trino_tpu_torch.memory import card_bytes
+
         self.budget_bytes = (
-            torch.cuda.get_device_properties(self.device).total_memory // 8
-            if self.device.type == "cuda" else None
+            card_bytes(self.device) // 8 if self.device.type == "cuda" else None
         )
         self._lru: "OrderedDict[int, tuple[dict, Any]]" = OrderedDict()
         # CPU rehearsal of each capture under HostReadGuard (tests)
@@ -507,7 +508,15 @@ class ProgramPool:
         # held by the profiler's peak window (obs/profiler.py) over one
         # program's warm-up and capture: the allocator's peak is
         # process-wide, so one window at a time resets it
-        self.profile_lock = threading.Lock()
+        from trino_tpu_torch.obs.profiler import window_lock
+
+        self.profile_lock = window_lock(self.device)
+        # one capture at a time: every capture runs on the pool's one
+        # stream and into its newest generation. A capture is begun in
+        # the thread-local error mode, so another thread's eager work (a
+        # host read, an allocation: a worker's concurrent task) neither
+        # breaks it nor is refused
+        self.capture_lock = threading.Lock()
 
     @property
     def on_card(self) -> bool:
@@ -711,8 +720,6 @@ def capture(pool: ProgramPool, program: Program, inputs: dict, copied: set,
     in place and kept alive by the program. On the CPU with
     ``pool.rehearse`` the pass runs under :class:`HostReadGuard`; on the
     CPU otherwise nothing is captured."""
-    from trino_tpu_torch import _kernels
-
     program.static_inputs = {
         k: (_static_copy(v) if k in copied else v) for k, v in inputs.items()
     }
@@ -722,20 +729,27 @@ def capture(pool: ProgramPool, program: Program, inputs: dict, copied: set,
                 program.fn(program.static_inputs)
         program.static_inputs = {}
         return
+    with pool.capture_lock:
+        _capture_on_card(pool, program, copied, recorder)
+
+
+def _capture_on_card(pool: ProgramPool, program: Program, copied: set,
+                     recorder: ConstantRecorder) -> None:
+    from trino_tpu_torch import _kernels
+
     t0 = time.perf_counter()
     recapture = program.capture_bytes is not None
     pool.make_room()
     gen = pool.generation()
     dev = pool.device
     reserved_before = pool.reserved_bytes() or 0
-    before = dict(_kernels.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
     side = pool.stream()
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        graph.capture_begin(pool=gen["handle"])
+        graph.capture_begin(pool=gen["handle"], capture_error_mode="thread_local")
         try:
-            with recorder.serve(), program_run():
+            with recorder.serve(), program_run(), _kernels.launch_scope(capture=True) as launches:
                 result, words = program.fn(program.static_inputs)
         except BaseException:
             try:
@@ -749,13 +763,8 @@ def capture(pool: ProgramPool, program: Program, inputs: dict, copied: set,
             raise
         graph.capture_end()
     torch.cuda.current_stream(dev).wait_stream(side)
-    program.launches = {
-        k: v - before.get(k, 0) for k, v in _kernels.LAUNCHES.items()
-        if v != before.get(k, 0)
-    }
     # the capture launched nothing: its kernel counts are the replays'
-    for k, n in program.launches.items():
-        _kernels.LAUNCHES[k] -= n
+    program.launches = dict(launches)
     program.graph = graph
     program.generation = gen
     gen["programs"].add(id(program))

@@ -1,12 +1,21 @@
-"""Fault-tolerant execution: the retry policies.
+"""Fault-tolerant execution: deterministic fault injection + retry policies.
 
-A copy of the retry half of ``trino_tpu/ft/``: :class:`Backoff`,
-:class:`RetryPolicy` and :func:`is_retryable`, which the query manager
-(retry_policy=QUERY) and the client (503 with Retry-After) use. Fault
-injection (``ft/injection.py``) belongs to the cluster tier, which this
-package does not have yet (ROADMAP item 9c).
+Reference: Trino's later fault-tolerant execution ("Tardigrade",
+``core/trino-main/.../execution/scheduler/faulttolerant/``) — retry
+policies NONE / TASK / QUERY over materialized (spooled) exchanges — and
+the chaos-style ``FailureInjector`` used by its test harness
+(``io.trino.execution.FailureInjector``). v356 itself has no mid-query
+retry; this subsystem is the cluster-level robustness layer the ROADMAP's
+preemptible-slice north star requires.
+
+A copy of ``trino_tpu/ft/__init__.py``.
 """
 
+from trino_tpu_torch.ft.injection import (
+    FaultInjector,
+    InjectedFault,
+    injection_properties,
+)
 from trino_tpu_torch.ft.retry import (
     Backoff,
     RetryPolicy,
@@ -17,8 +26,11 @@ from trino_tpu_torch.ft.retry import (
 
 __all__ = [
     "Backoff",
+    "FaultInjector",
+    "InjectedFault",
     "RetryPolicy",
     "TaskFailure",
     "TaskRetriesExhausted",
+    "injection_properties",
     "is_retryable",
 ]

@@ -56,24 +56,30 @@ def batch_nbytes(batch: Batch) -> int:
 
 def device_headroom_ok(nbytes: int, device, fraction: float = 0.9) -> bool:
     """Would pinning ``nbytes`` more on ``device`` stay under ``fraction``
-    of its memory? CPU devices admit (the byte budget still bounds the
-    cache)."""
+    of this process's memory of it (``memory.card_used_bytes``: the card,
+    or the process's share of it)? CPU devices admit (the byte budget
+    still bounds the cache)."""
+    from trino_tpu_torch.memory import card_used_bytes
+
     dev = torch.device(device)
     if dev.type != "cuda":
         return True
-    free, total = torch.cuda.mem_get_info(dev)
-    return (total - free) + nbytes <= fraction * total
+    used, budget = card_used_bytes(dev)
+    return used + nbytes <= fraction * budget
 
 
 def device_hbm_limit(device=None) -> int:
-    """The device's memory in bytes (``total_memory`` of a CUDA device),
+    """The device's memory in bytes for this process (``total_memory`` of
+    a CUDA device times the process's card share, ``memory.card_bytes``),
     or 0 for a device without memory accounting (the CPU): the history
     admission gate treats 0 as "inert" (reference: ``device_hbm_limit``,
     the backend's ``bytes_limit``)."""
+    from trino_tpu_torch.memory import card_bytes
+
     try:
         if device is None or torch.device(device).type != "cuda":
             return 0
-        return int(torch.cuda.get_device_properties(torch.device(device)).total_memory)
+        return card_bytes(device)
     except Exception:  # noqa: BLE001
         return 0
 

@@ -186,6 +186,63 @@ def capture_device_stats(program, window_peak: Optional[int] = None) -> Optional
         return None
 
 
+_WINDOW_LOCKS: dict[str, threading.Lock] = {}
+
+
+def window_lock(device) -> threading.Lock:
+    """The lock of the profiling windows on ``device``: one window at a
+    time, the allocator's peak being process-wide (a program pool's
+    ``profile_lock`` and :func:`profiled_call` share it)."""
+    with _PEAK_LOCK:
+        return _WINDOW_LOCKS.setdefault(str(torch.device(device)), threading.Lock())
+
+
+class _DeviceScope:
+    """What :class:`PeakWindow` needs of a pool: the device and its
+    windows' lock."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.on_card = self.device.type == "cuda"
+        self.profile_lock = window_lock(self.device)
+
+
+def profiled_call(device, fn, *args):
+    """Run ``fn(*args)`` (an interpreter step's eager call) and what the
+    allocator reports of it: ``(result, stats)``, ``stats`` holding
+    ``argument_bytes``, ``output_bytes`` and ``peak_hbm_bytes`` (the
+    argument bytes plus the allocator's peak above its bytes at the call)
+    on a card, None on the CPU or when another window runs (reference:
+    ``trino_tpu/parallel/distributed.py::_profiled_call``, which reads
+    XLA's memory analysis of the call's jit; nothing is compiled here).
+    Profiling never fails the call."""
+    scope = _DeviceScope(device)
+    window = PeakWindow(scope)
+    with window:
+        result = fn(*args)
+    if window.peak is None:
+        return result, None
+    try:
+        args_bytes = _storage_bytes(_leaves(args))
+        out_bytes = _storage_bytes(_leaves(result))
+        return result, {
+            "argument_bytes": args_bytes,
+            "output_bytes": out_bytes,
+            "peak_hbm_bytes": max(int(window.peak) + args_bytes, args_bytes + out_bytes),
+        }
+    except Exception:  # noqa: BLE001
+        return result, None
+
+
+def _leaves(value) -> list:
+    if isinstance(value, (list, tuple)):
+        out = []
+        for v in value:
+            out += _leaves(v)
+        return out
+    return _batch_tensors(value)
+
+
 def rollup_device_stats(programs: dict[str, dict]) -> dict:
     """Query-level rollup over per-program stats: summed FLOPs/bytes
     weighted by execution count, peak device bytes as the max across

@@ -26,9 +26,10 @@ A copy of ``trino_tpu/obs/trace.py``. The server's query root spans, the
 engine's (``query``/``execute``, ``plan``, ``optimize``) and the
 executors' (``execute_plan``, ``ingest.decode``, ``fragment``,
 ``fragment_execute``, ``fused_execute``, ``program_compile``,
-``device_pull``, ``batched_dispatch``) serve
-``/v1/query/{id}/timeline``; the cluster's task spans are ROADMAP item
-9c.
+``device_pull``, ``batched_dispatch``) and the cluster's (``stage``,
+``task_attempt``, and a worker's ``task_execute`` and ``exchange_read``,
+parented across processes by ``X-Trino-Trace``) serve
+``/v1/query/{id}/timeline``.
 """
 
 from __future__ import annotations

@@ -338,7 +338,7 @@ def dense_groupby_cuda(plan: DensePlan, bins, value_cols, blocks: int | None = N
         lt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _kernels.check("dense_groupby", rc)
-    _kernels.LAUNCHES["dense_groupby"] += 1
+    _kernels.count_launch("dense_groupby")
     return lt
 
 

@@ -120,7 +120,11 @@ def build_table_cuda(slot_base, use, capacity: int, window: int):
     dev = slot_base.device
     n = int(slot_base.shape[0])
     if n > _MAX_CUDA_ROWS:
-        raise ValueError(f"dense_join_build: {n} build rows, the kernel takes {_MAX_CUDA_ROWS}")
+        # a kernel's refusal, not a bad argument: it fails a worker's task
+        # (server/task.py::device_error) instead of sending it to the
+        # interpreter
+        raise _kernels.KernelError(
+            f"dense_join_build: {n} build rows, the kernel takes {_MAX_CUDA_ROWS}")
     table = torch.empty(capacity, dtype=torch.int32, device=dev)
     work = torch.empty((2, max(n, 1), 2), dtype=torch.int32, device=dev)
     # worklist lengths, then the counts, starts and cursors of the buckets
@@ -134,7 +138,7 @@ def build_table_cuda(slot_base, use, capacity: int, window: int):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _kernels.check("dense_join_build", rc)
-    _kernels.LAUNCHES["dense_join_build"] += 1
+    _kernels.count_launch("dense_join_build")
     lens = counts[: window + 1]
     return table, lens[window], lens
 

@@ -254,7 +254,8 @@ class DistributedExecutor(LocalExecutor):
         # device profiling (obs/profiler.py): per-program allocator stats
         # by a stable program label; the fragment executor records its
         # captured programs, this interpreter its eager partial
-        # aggregates (executions only: nothing is compiled)
+        # aggregates (_profiled_call: their allocator numbers on a card,
+        # executions only on the CPU; nothing is compiled)
         self.device_stats: dict[str, dict] = {}
         self._device_profiling = bool(session.get("device_profiling"))
 
@@ -281,6 +282,20 @@ class DistributedExecutor(LocalExecutor):
             get_registry().gauge(
                 "trino_tpu_program_peak_hbm_bytes", fragment=label
             ).set(ds["peak_hbm_bytes"])
+
+    def _profiled_call(self, label: str, fn, *args):
+        """Run one eager step of the interpreter (reference :126-160);
+        with ``device_profiling`` on, its execution and the allocator's
+        numbers (``obs/profiler.py::profiled_call``: argument, output and
+        peak bytes on a card; executions only on the CPU) land in
+        ``device_stats[label]``."""
+        if not self._device_profiling:
+            return fn(*args)
+        from trino_tpu_torch.obs.profiler import profiled_call
+
+        result, ds = profiled_call(self.device, fn, *args)
+        self._record_device_stats(label, ds)
+        return result
 
     def device_stats_snapshot(self) -> Optional[dict]:
         """The query's device-profiling rollup (``deviceStats``), None
@@ -406,9 +421,8 @@ class DistributedExecutor(LocalExecutor):
         :meth:`_final_combine` of the ``n * G`` partial rows."""
         n = self.n_shards
         while True:
-            if self._device_profiling:
-                self._record_device_stats("partial_agg")
-            (kd, kv), raw, ng, ovf = M.smap(
+            (kd, kv), raw, ng, ovf = self._profiled_call(
+                "partial_agg", M.smap,
                 lambda k, s, i: group_aggregate(k, s, i, specs, G),
                 self.mesh, [keys, sel, agg_inputs],
             )

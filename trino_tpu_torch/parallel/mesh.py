@@ -15,8 +15,8 @@ once over the ``[n, cap]`` view of its operands, and the collectives are
 tensor operations on that view (:func:`all_to_all`, :func:`all_gather`,
 :func:`psum`, :func:`pmax`); :func:`smap` runs a body that has no
 collective once a shard. Shards on several devices (peer copies or
-``torch.distributed``) come with ``parallel/spmd.py`` (ROADMAP item 9c):
-a mesh over distinct devices raises.
+``torch.distributed``) would come with ``parallel/spmd.py``, the one open
+part of ROADMAP item 9c: a mesh over distinct devices raises.
 """
 
 from __future__ import annotations
@@ -68,6 +68,13 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     if n < 1:
         raise ValueError(f"requested {n} shards")
     return Mesh([resolve_device(device)] * n)
+
+
+def make_local_mesh(device=None) -> Mesh:
+    """The mesh of one process's own devices (reference :42): one shard
+    on its card (or on ``device``). A worker process of the cluster tier
+    runs its fragments over it."""
+    return make_mesh(1, device)
 
 
 # --- the collectives over the [n, ...] view ----------------------------------

@@ -7,8 +7,9 @@ reject outside callers. The secret rides the ``TRINO_TPU_INTERNAL_SECRET``
 environment variable (every process of one cluster shares it); with no
 secret configured, auth is disabled (single-process/dev mode).
 
-A copy of ``trino_tpu/server/auth.py``. The internal paths it guards
-belong to the cluster tier (ROADMAP item 9c), which answers 501 here.
+A copy of ``trino_tpu/server/auth.py``. It guards the cluster tier's
+internal paths (tasks, spool, scaled writes, discovery, announcements;
+SPMD answers 501, ROADMAP item 9c).
 """
 
 from __future__ import annotations

@@ -22,18 +22,18 @@ canceled and its admission slot freed), and byte-budgeted streaming
 result pages with producer backpressure.
 
 A copy of ``trino_tpu/server/http.py`` for the coordinator role on one
-engine. The statement protocol, the node, query, resource-group and
-metrics endpoints, shedding, draining and the web UI are served as the
-reference serves them, and so are the repeat and post-mortem tiers:
-``/v1/history`` (the engine's history stores), ``/v1/cache`` (the result
-cache), ``/v1/slo`` (the SLO sentinel) and ``/v1/query/{id}/flight`` (the
-flight journal's replay, read off the loop thread). What belongs to the
-cluster tier (worker tasks, discovery and announcements, SPMD, spooling,
-scaled writes; ROADMAP item 9c) answers **501** with a body naming its
-item, and a server asked for a worker role, SPMD or a discovery URI
-refuses at construction. Where a reference coordinator with no workers
-answers with an empty listing (``GET /v1/task``, ``/v1/node``) or with its
-own pool (``/v1/memory``), this one answers the same.
+engine, and for the worker role. The statement protocol, the node,
+query, resource-group and metrics endpoints, shedding, draining and the
+web UI are served as the reference serves them, and so are the repeat and
+post-mortem tiers (``/v1/history``, ``/v1/cache``, ``/v1/slo``,
+``/v1/query/{id}/flight``) and the cluster tier: worker tasks and their
+results (``/v1/task``), spooled pages (``/v1/spool``), scaled-writer pages
+(``/v1/write``), discovery and announcements (``/v1/discovery``,
+``/v1/announce``, the worker's announce loop) and a worker's graceful
+drain (``PUT /v1/info/state``). SPMD (``POST /v1/spmd``; ROADMAP item 9c,
+its one open part: one card has no faithful ``torch.distributed`` form)
+answers **501** with a body naming its item, and a server asked for SPMD
+refuses at construction.
 """
 
 from __future__ import annotations
@@ -85,6 +85,10 @@ def _json_rows(rows, decimal_columns: list[int]) -> list[list]:
     return out
 
 
+# task/spool long-polls re-check on the loop at this cadence instead of
+# parking a thread in the buffer's condition wait
+_TASK_POLL_S = 0.015
+
 # where a route that is not ported yet belongs (ROADMAP item)
 CLUSTER_ITEM = "9c"
 
@@ -93,26 +97,24 @@ class NotPortedError(RuntimeError):
     """A server option of a tier this package does not have yet."""
 
 
-def refuse_cluster_options(role: str = "coordinator", spmd: bool = False,
-                           discovery_uri: Optional[str] = None) -> None:
-    """Raise for a server option of the cluster tier (ROADMAP item 9c)."""
-    for asked, what in ((role != "coordinator", f"role={role!r}"),
-                        (spmd, "spmd"),
-                        (discovery_uri, "discovery_uri")):
-        if asked:
-            raise NotPortedError(
-                f"{what} is not yet ported to trino_tpu_torch "
-                f"(ROADMAP item {CLUSTER_ITEM})"
-            )
+def refuse_cluster_options(spmd: bool = False) -> None:
+    """Raise for SPMD, the one part of the cluster tier (ROADMAP item 9c)
+    that is not ported: one program across the processes of one
+    ``torch.distributed`` group has no faithful form on one card."""
+    if spmd:
+        raise NotPortedError(
+            f"spmd is not yet ported to trino_tpu_torch (ROADMAP item {CLUSTER_ITEM})"
+        )
 
 
 class TrinoTpuServer:
     """Coordinator server wrapping Engine + QueryManager.
 
+    The same class serves coordinator and worker roles, mirroring the
+    reference's single binary with ``coordinator=true/false``.
     ``TrinoTpuServer()`` builds ``Engine(device=device)``: on ``cuda``
     unless ``device`` names another, raising where there is no GPU, as
-    ``Engine()`` does. The worker role, SPMD and discovery are the
-    cluster tier's (ROADMAP item 9c) and raise.
+    ``Engine()`` does. SPMD (ROADMAP item 9c) raises.
     """
 
     def __init__(
@@ -132,8 +134,9 @@ class TrinoTpuServer:
     ):
         from trino_tpu_torch.obs.trace import InMemorySpanSink, get_tracer
         from trino_tpu_torch.server.resourcegroups import ResourceGroupManager
+        from trino_tpu_torch.server.task import SqlTaskManager
 
-        refuse_cluster_options(role, spmd, discovery_uri)
+        refuse_cluster_options(spmd)
         self.engine = engine or Engine(device=device)
         self.server_config = server_config or ServerConfig()
         # registering a sink is what turns tracing ON for this process;
@@ -142,13 +145,32 @@ class TrinoTpuServer:
         get_tracer().add_sink(self.span_sink)
         self.role = role
         self.node_id = node_id or f"{role}-{port}"
+        # tasks need the node identity for delay-fault targeting
+        # (ft/injection.py is_slow_node) and task-span attribution
         self.engine.node_id = self.node_id
+        self.discovery_uri = discovery_uri
         self.resource_groups = resource_groups or ResourceGroupManager()
         # the device-memory gate reads the engine's card
         self.resource_groups.device = self.engine.device
-        # the coordinator's own pool is the cluster's while it has no
-        # workers: /v1/memory reports it against this limit
-        self.cluster_memory_limit_bytes = int(cluster_memory_limit_bytes or (64 << 30))
+        # every node can run tasks (reference: same binary, coordinator=true/false)
+        self.task_manager = SqlTaskManager(self.engine)
+        self.node_manager = None
+        if role == "coordinator":
+            from trino_tpu_torch.server.cluster import ClusterNodeManager, ClusterScheduler
+
+            self.node_manager = ClusterNodeManager()
+            self.engine.cluster_scheduler = ClusterScheduler(
+                self.engine, self.node_manager
+            )
+        self.cluster_memory_manager = None
+        if role == "coordinator":
+            from trino_tpu_torch.memory import ClusterMemoryManager
+
+            self.cluster_memory_manager = ClusterMemoryManager(
+                self.engine.memory_pool,
+                cluster_memory_limit_bytes or (64 << 30),
+                kill_fn=lambda qid, msg: self.query_manager.kill(qid, msg),
+            )
         # event-driven admission: queries queue as resource-group waiters
         # (no parked thread per QUEUED query) and run on a bounded pool
         self.query_manager = QueryManager(
@@ -171,19 +193,32 @@ class TrinoTpuServer:
         )
         self.host, self.port = self.httpd.server_address[:2]
         # bounded workers for handler stages that must block (engine
-        # dispatch) — the loop thread itself never blocks
+        # dispatch, SqlTask creation, spool/connector IO) — the loop
+        # thread itself never blocks
         self._front_pool = _DispatchPool(cfg.blocking_pool_size, name="http")
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._rate_limiter = TenantRateLimiter(
             cfg.tenant_rate_limit_qps, cfg.tenant_rate_limit_burst
         )
-        # live node info for system.runtime.nodes; this node runs no
-        # worker tasks (item 9c), so system.runtime.tasks lists none
+        if role == "coordinator":
+            # where workers spool finished output buffers (the scheduler
+            # passes this to tasks as payload["spool"]["uri"])
+            self.engine.spool_base_uri = self.base_uri
+        self._announce_thread: Optional[threading.Thread] = None
+        # shutdown sentinel for the announce thread: stop() sets it, so the
+        # thread exits immediately instead of finishing a sleep that can be
+        # a 10s backoff (and the state-flag check alone can't interrupt)
+        self._announce_stop = threading.Event()
+        # live node info for system.runtime.nodes
         self.engine._runtime_nodes_fn = lambda: [
             ("coordinator", self.base_uri, VERSION, True, self.state)
         ]
-        self.engine._runtime_tasks_fn = lambda: []
+        # live task registry for system.runtime.tasks (this node's
+        # SqlTaskManager — on a coordinator that includes any local tasks)
+        self.engine._runtime_tasks_fn = lambda: [
+            t.info() for t in self.task_manager.tasks()
+        ]
 
     # --- lifecycle --------------------------------------------------------
 
@@ -193,6 +228,11 @@ class TrinoTpuServer:
             1.0, max(0.05, self.server_config.client_timeout_s / 4.0)
         )
         self.httpd.loop.call_later(interval, self._housekeep, interval)
+        if self.role == "worker" and self.discovery_uri:
+            self._announce_thread = threading.Thread(
+                target=self._announce_loop, daemon=True
+            )
+            self._announce_thread.start()
         return self
 
     def _housekeep(self, interval: float) -> None:
@@ -218,9 +258,57 @@ class TrinoTpuServer:
             pass
         self.httpd.loop.call_later(interval, self._housekeep, interval)
 
+    def _announce_loop(self) -> None:
+        """Periodic worker announcement to the coordinator's embedded
+        discovery (reference: airlift discovery announcer). Failures back
+        off exponentially (deterministic jitter) instead of hammering a
+        coordinator that is not up yet."""
+        import urllib.request as _rq
+
+        from trino_tpu_torch.ft.retry import Backoff
+
+        backoff = Backoff(initial_ms=500.0, max_ms=10_000.0, seed=0)
+        failures = 0
+        while self.state == "ACTIVE" and not self._announce_stop.is_set():
+            delay = 2.0
+            if self.discovery_uri and not self.discovery_uri.startswith("@"):
+                try:
+                    from trino_tpu_torch.server import auth
+
+                    pool = self.engine.memory_pool
+                    with pool._lock:
+                        reservations = dict(pool._query_reserved)
+                    body = json.dumps(
+                        {
+                            "nodeId": self.node_id,
+                            "uri": self.base_uri,
+                            "memoryInfo": {
+                                "capacityBytes": pool.capacity,
+                                "reservedBytes": sum(reservations.values()),
+                                "queryReservations": reservations,
+                            },
+                        }
+                    ).encode()
+                    req = _rq.Request(
+                        f"{self.discovery_uri}/v1/announce",
+                        data=body,
+                        method="PUT",
+                        headers=auth.headers(),
+                    )
+                    _rq.urlopen(
+                        req, timeout=self.server_config.http_request_timeout_s
+                    )
+                    failures = 0
+                except Exception:  # noqa: BLE001 — coordinator may not be up yet
+                    failures += 1
+                    delay = backoff.delay(min(failures, 8))
+            if self._announce_stop.wait(delay):
+                return
+
     def stop(self) -> None:
         from trino_tpu_torch.obs.trace import get_tracer
 
+        self._announce_stop.set()
         self.state = "STOPPED"
         self.httpd.close()
         self._front_pool.shutdown()
@@ -228,10 +316,19 @@ class TrinoTpuServer:
         get_tracer().remove_sink(self.span_sink)
 
     def graceful_shutdown(self) -> None:
-        """Drain, then stop (GracefulShutdownHandler.java:142): refuse new
-        queries (shed 503), wait for active ones."""
+        """Drain, then stop (GracefulShutdownHandler.java:142).
+
+        Coordinator: refuse new queries (shed 503), wait for active ones.
+        Worker decommission: refuse new tasks (task POST 503s while not
+        ACTIVE), finish running tasks, force-publish every retained
+        buffer's spool manifest so consumers can re-read the output after
+        this process is gone, deregister from the coordinator, and exit —
+        the rolling-restart path with zero query failures."""
         self.state = "SHUTTING_DOWN"
-        threading.Thread(target=self._drain, daemon=True).start()
+        drain = self._drain_worker if self.role == "worker" else self._drain
+        threading.Thread(target=drain, daemon=True).start()
+
+
 
     def _drain(self) -> None:
         while any(
@@ -241,6 +338,46 @@ class TrinoTpuServer:
         # grace: let clients pull the final result pages of queries that
         # just reached a terminal state before the socket closes
         time.sleep(self.server_config.drain_grace_s)
+        self.stop()
+
+    def _drain_worker(self, timeout: Optional[float] = None) -> None:
+        cfg = self.server_config
+        if timeout is None:
+            timeout = cfg.drain_timeout_s
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and any(
+            t.state == "RUNNING" for t in self.task_manager.tasks()
+        ):
+            time.sleep(0.05)
+        # force-spool retained buffers: a consumer stage that has not yet
+        # pulled this worker's output reads it from the coordinator's
+        # spool once we are gone (finish() is idempotent — tasks that
+        # already published on FINISHED return their cached result).
+        # A fused-unit task is no different: its single retained buffer
+        # IS the unit-boundary output, so the whole unit stays readable
+        for t in self.task_manager.tasks():
+            writer = getattr(t.buffer, "spool_writer", None)
+            if writer is not None and t.state == "FINISHED":
+                try:
+                    writer.finish(timeout=cfg.spool_finish_timeout_s)
+                except Exception:  # noqa: BLE001 — best-effort
+                    pass
+        if self.discovery_uri and not self.discovery_uri.startswith("@"):
+            import urllib.request as _rq
+
+            from trino_tpu_torch.server import auth
+
+            try:
+                req = _rq.Request(
+                    f"{self.discovery_uri}/v1/announce/{self.node_id}",
+                    method="DELETE",
+                    headers=auth.headers(),
+                )
+                _rq.urlopen(req, timeout=cfg.http_request_timeout_s)
+            except Exception:  # noqa: BLE001 — coordinator may be gone too
+                pass
+        # grace: let in-flight result GETs finish before the socket closes
+        time.sleep(cfg.drain_grace_s)
         self.stop()
 
     @property
@@ -376,8 +513,8 @@ class TrinoTpuServer:
         """Run ``work`` on the blocking pool, responding with its result.
         ``ceiling=True`` (client-facing requests) enforces the global
         in-flight ceiling and sheds the excess; the flight journal's
-        replay (and, in the reference, internal cluster traffic) bypasses
-        it."""
+        replay and internal cluster traffic (tasks, spool, announce)
+        bypass it — shedding those would fail admitted queries."""
         cfg = self.server_config
         with self._inflight_lock:
             shed = ceiling and self._inflight >= cfg.max_inflight_requests
@@ -494,10 +631,78 @@ class TrinoTpuServer:
                 return json_response(self.query_results(q, "queued", 0))
 
             return self._offload(responder, create)
-        if (len(parts) == 3 and parts[:2] in (["v1", "task"], ["v1", "spool"])) or path in (
-                "/v1/write", "/v1/spmd"):
-            # task creation, scaled-writer pages, SPMD and spooled pages
+        if len(parts) == 3 and parts[:2] == ["v1", "task"]:
+            # TaskResource.createOrUpdateTask (reference :127)
+            if self.state != "ACTIVE":
+                # draining worker: refuse admission; the coordinator
+                # classifies the 503 retryable and re-dispatches the
+                # attempt to another node
+                return self._shed(
+                    responder, "draining", "worker is shutting down"
+                )
+            from trino_tpu_torch.obs.trace import TRACE_HEADER, parse_trace_header
+
+            trace = parse_trace_header(request.headers.get(TRACE_HEADER))
+
+            def create_task() -> Response:
+                payload = json.loads(request.body.decode())
+                task = self.task_manager.create_or_update(
+                    parts[2], payload, trace=trace
+                )
+                return json_response(task.info())
+
+            return self._offload(responder, create_task, ceiling=False)
+        if path == "/v1/write":
+            # scaled-writer data plane: binary serialized batch in the
+            # body, target table in query params; the connector appends
+            # a part file on shared storage (reference: TableWriter
+            # tasks under ScaledWriterScheduler)
+            def write() -> Response:
+                try:
+                    from trino_tpu_torch.serde import deserialize_batch
+
+                    batch = deserialize_batch(request.body)
+                    conn = self.engine.catalogs.get(qs["catalog"][0])
+                    part = ""
+                    if hasattr(conn, "insert_part"):
+                        # ?pending=true: a staged part that the
+                        # coordinator commits once every writer is done
+                        # (connectors/file.py::commit_parts)
+                        pending = qs.get("pending", [""])[0] == "true"
+                        kw = {"pending": True} if pending else {}
+                        n, part = conn.insert_part(
+                            qs["schema"][0], qs["table"][0], batch, **kw
+                        )
+                    else:
+                        n = conn.insert(qs["schema"][0], qs["table"][0], batch)
+                    # part name lets the coordinator roll back committed
+                    # parts when a sibling scaled writer fails
+                    return json_response({"rows": n, "part": part})
+                except Exception as e:  # noqa: BLE001
+                    return json_response({"error": f"write failed: {e}"}, 400)
+
+            return self._offload(responder, write, ceiling=False)
+        if path == "/v1/spmd":
+            # one program across the processes of a torch.distributed
+            # group: the one open part of item 9c
             return self._not_ported(responder, path, CLUSTER_ITEM)
+        if len(parts) == 3 and parts[:2] == ["v1", "spool"]:
+            # spooled exchange: a worker POSTs one finished-output page
+            # (raw bytes; idempotent per (task, partition, seq))
+            def put_page() -> Response:
+                from trino_tpu_torch.exchange.spool import get_spool_store
+
+                store = get_spool_store(self.engine)
+                accepted = store.put_page(
+                    qs.get("query", [""])[0],
+                    parts[2],
+                    int(qs.get("partition", ["0"])[0]),
+                    int(qs.get("seq", ["0"])[0]),
+                    request.body,
+                )
+                return json_response({"accepted": accepted})
+
+            return self._offload(responder, put_page, ceiling=False)
         responder.respond(json_response({"error": f"unknown path: {path}"}, 404))
 
     # --- GET --------------------------------------------------------------
@@ -514,17 +719,13 @@ class TrinoTpuServer:
                 }
             ))
         if path == "/v1/memory":
-            # a coordinator with no workers: its own pool's reservations
-            # against the cluster limit (ClusterMemoryManager.info)
-            pool = self.engine.memory_pool
-            with pool._lock:
-                reservations = dict(pool._query_reserved)
-            return responder.respond(json_response({
-                "clusterMemoryLimitBytes": self.cluster_memory_limit_bytes,
-                "clusterReservedBytes": sum(reservations.values()),
-                "queryReservations": reservations,
-                "killedQueries": [],
-            }))
+            if self.cluster_memory_manager is None:
+                return responder.respond(
+                    json_response({"error": "not a coordinator"}, 404)
+                )
+            return responder.respond(
+                json_response(self.cluster_memory_manager.info())
+            )
         if path == "/v1/info/state":
             return responder.respond(json_response(self.state))
         if path == "/v1/status":
@@ -558,14 +759,79 @@ class TrinoTpuServer:
                 json_response(self.resource_groups.info())
             )
         if path == "/v1/task":
-            # this node runs no worker tasks (item 9c)
-            return responder.respond(json_response([]))
+            return responder.respond(json_response(
+                [t.info() for t in self.task_manager.tasks()]
+            ))
+        if len(parts) == 3 and parts[:2] == ["v1", "task"]:
+            # task status, optional long-poll (?maxWait=seconds) — a loop
+            # timer re-checks instead of parking a thread
+            task = self.task_manager.get(parts[2])
+            if task is None:
+                return responder.respond(
+                    json_response({"error": "task not found"}, 404)
+                )
+            max_wait = parse_max_wait(qs.get("maxWait", ["0"])[0], default=0.0)
+            deadline = time.monotonic() + max_wait
+            return self._task_status_poll(responder, task, deadline)
+        if (
+            len(parts) == 6
+            and parts[:2] == ["v1", "task"]
+            and parts[3] == "results"
+        ):
+            # GET /v1/task/{id}/results/{partition}/{token}[?maxWait=s]
+            # (TaskResource.java:261 paged binary fetch)
+            task = self.task_manager.get(parts[2])
+            if task is None:
+                return responder.respond(
+                    json_response({"error": "task not found"}, 404)
+                )
+            max_wait = parse_max_wait(
+                qs.get("maxWait", ["1.0"])[0], default=1.0
+            )
+            deadline = time.monotonic() + max_wait
+            return self._task_results_poll(
+                responder, task, int(parts[4]), int(parts[5]), deadline
+            )
+        if (
+            len(parts) == 6
+            and parts[:2] == ["v1", "spool"]
+            and parts[3] == "results"
+        ):
+            # GET /v1/spool/{taskId}/results/{partition}/{token} — the
+            # exact task-results wire shape, so ExchangeClient pulls a
+            # spool URI exactly like a live worker's buffer
+            def read_spool() -> Response:
+                store = getattr(self.engine, "spool_store", None)
+                out = (
+                    store.read(parts[2], int(parts[4]), int(parts[5]))
+                    if store is not None
+                    else None
+                )
+                if out is None:
+                    return json_response(
+                        {"error": "spooled task not found"}, 404
+                    )
+                return json_response(out)
+
+            return self._offload(responder, read_spool, ceiling=False)
+        if path == "/v1/spool":
+            store = getattr(self.engine, "spool_store", None)
+            return responder.respond(json_response(
+                store.stats() if store is not None else {}
+            ))
         if path == "/v1/node":
-            # a coordinator with no announced workers
-            return responder.respond(json_response({"nodes": [], "failureInfo": []}))
-        if parts[:2] in (["v1", "task"], ["v1", "spool"]):
-            # task status and results, spooled pages and store stats
-            return self._not_ported(responder, path, CLUSTER_ITEM)
+            if self.node_manager is None:
+                return responder.respond(json_response([]))
+            return responder.respond(json_response(
+                {
+                    "nodes": [
+                        n.to_json() for n in self.node_manager.all_nodes()
+                    ],
+                    "failureInfo": (
+                        self.node_manager.failure_detector.info()
+                    ),
+                }
+            ))
         if path == "/v1/metrics":
             # Prometheus text scrape (text format 0.0.4); ?format=json
             # returns the structured snapshot for bench/chaos embeds
@@ -677,14 +943,55 @@ class TrinoTpuServer:
             return responder.respond(
                 json_response({"error": "query not found"}, 404)
             )
-        if len(parts) == 3 and parts[:2] in (["v1", "task"], ["v1", "spool"], ["v1", "announce"]):
-            # task cancel, spool drop, worker decommission
-            return self._not_ported(responder, path, CLUSTER_ITEM)
+        if len(parts) == 3 and parts[:2] == ["v1", "task"]:
+            # ?speculative=true marks a hedged-attempt loser: the state
+            # machine records CANCELED_SPECULATIVE instead of CANCELED
+            speculative = qs.get("speculative", [""])[0] == "true"
+            if self.task_manager.cancel(parts[2], speculative=speculative):
+                return responder.respond(Response(204))
+            return responder.respond(
+                json_response({"error": "task not found"}, 404)
+            )
+        if len(parts) == 3 and parts[:2] == ["v1", "spool"]:
+            # aborted spool write / cancelled attempt: drop its pages
+            store = getattr(self.engine, "spool_store", None)
+            if store is not None:
+                store.delete_task(parts[2])
+            return responder.respond(Response(204))
+        if len(parts) == 3 and parts[:2] == ["v1", "announce"]:
+            # worker decommission: deregister from discovery AND the
+            # failure detector (a drained node must not be pinged or
+            # counted failed afterwards)
+            if self.node_manager is None:
+                return responder.respond(
+                    json_response({"error": "not a coordinator"}, 400)
+                )
+            self.node_manager.decommission(parts[2])
+            return responder.respond(Response(204))
         responder.respond(json_response({"error": f"unknown path: {path}"}, 404))
 
     # --- PUT --------------------------------------------------------------
 
     def _route_put(self, request, responder, path, parts, qs) -> None:
+        if path == "/v1/discovery":
+            # late discovery injection (SPMD boot: the coordinator's
+            # HTTP port is unknown until every rank joins the mesh)
+            body = json.loads(request.body.decode())
+            self.discovery_uri = body["uri"]
+            return responder.respond(json_response({"ok": True}))
+        if path == "/v1/announce":
+            # embedded discovery: workers announce themselves
+            if self.node_manager is None:
+                return responder.respond(
+                    json_response({"error": "not a coordinator"}, 400)
+                )
+            body = json.loads(request.body.decode())
+            self.node_manager.announce(body["nodeId"], body["uri"])
+            if self.cluster_memory_manager is not None:
+                self.cluster_memory_manager.update(
+                    body["nodeId"], body.get("memoryInfo")
+                )
+            return responder.respond(json_response({"ok": True}))
         if path == "/v1/info/state":
             body = request.body.decode().strip().strip('"')
             if body == "SHUTTING_DOWN":
@@ -693,11 +1000,59 @@ class TrinoTpuServer:
             return responder.respond(
                 json_response({"error": f"unsupported state: {body}"}, 400)
             )
-        if path in ("/v1/discovery", "/v1/announce") or (
-                len(parts) == 4 and parts[:2] == ["v1", "spool"] and parts[3] == "complete"):
-            # late discovery, worker announcements, spool manifests
-            return self._not_ported(responder, path, CLUSTER_ITEM)
+        if (
+            len(parts) == 4
+            and parts[:2] == ["v1", "spool"]
+            and parts[3] == "complete"
+        ):
+            # spool completion manifest: {queryId, partitions: {p: n}}
+            def complete() -> Response:
+                from trino_tpu_torch.exchange.spool import get_spool_store
+
+                body = json.loads(request.body.decode())
+                store = get_spool_store(self.engine)
+                ok = store.complete(
+                    parts[2],
+                    body.get("queryId", ""),
+                    {
+                        int(p): int(n)
+                        for p, n in body.get("partitions", {}).items()
+                    },
+                )
+                return json_response({"complete": ok})
+
+            return self._offload(responder, complete, ceiling=False)
         responder.respond(json_response({"error": f"unknown path: {path}"}, 404))
+
+    def _task_status_poll(self, responder, task, deadline: float) -> None:
+        if responder.done or not responder.connected:
+            return
+        if task.state != "RUNNING" or time.monotonic() >= deadline:
+            return responder.respond(json_response(task.info()))
+        self.httpd.loop.call_later(
+            0.02, self._task_status_poll, responder, task, deadline
+        )
+
+    def _task_results_poll(
+        self, responder, task, partition: int, token: int, deadline: float
+    ) -> None:
+        if responder.done or not responder.connected:
+            return
+        # max_wait=0 makes the buffer read non-blocking: pages below the
+        # token are acked, available pages return immediately
+        out = task.results(partition, token, max_wait=0.0)
+        if (
+            out.get("pages")
+            or out.get("complete")
+            or out.get("failed")
+            or time.monotonic() >= deadline
+        ):
+            return responder.respond(json_response(out))
+        self.httpd.loop.call_later(
+            _TASK_POLL_S,
+            self._task_results_poll,
+            responder, task, partition, token, deadline,
+        )
 
     def _not_ported(self, responder: Responder, path: str, item: str) -> None:
         responder.respond(json_response(

@@ -1,11 +1,18 @@
 """Server entry point: ``python -m trino_tpu_torch.server.main``.
 
 Reference: ``server/Server.java:73`` — one binary, coordinator vs worker by
-config. A copy of ``trino_tpu/server/main.py`` for the coordinator role:
-``--device`` (``cuda`` by default, ``cpu`` on a machine without a GPU)
-takes the place of ``--platform``, and the cluster's options (``--role
-worker``, ``--discovery``, ``--spmd-coordinator``, a non-zero
-``--spmd-procs`` or ``--spmd-rank``) refuse with ROADMAP item 9c named.
+config. Workers take ``--discovery`` pointing at the coordinator and
+announce themselves (DiscoveryNodeManager analog in server/cluster.py).
+
+A copy of ``trino_tpu/server/main.py``: ``--device`` (``cuda`` by default,
+``cpu`` on a machine without a GPU) takes the place of ``--platform``; a
+worker on a machine with a card refuses ``--device cpu``. ``--card-share``
+is the process's share of its card where a coordinator and its workers
+share one card (``memory.set_card_share``; the reference has none: a TPU
+chip is never shared by processes). On a card the process loads the hand
+kernels' libraries at boot (built into ``.kernel_build/`` if missing).
+SPMD (``--spmd-coordinator``, a non-zero ``--spmd-procs`` or
+``--spmd-rank``) refuses with ROADMAP item 9c named.
 """
 
 from __future__ import annotations
@@ -23,21 +30,28 @@ def main(argv=None) -> int:
     parser.add_argument("--port", type=int, default=0)
     parser.add_argument("--node-id", default=None)
     parser.add_argument("--discovery", "--discovery-uri", default=None,
-                        help="coordinator URI (workers; not yet ported)")
+                        help="coordinator URI (workers)")
     parser.add_argument(
         "--device",
         default=None,
         help="torch device of the engine (default cuda; cpu runs on the host)",
     )
     parser.add_argument(
+        "--card-share",
+        type=float,
+        default=1.0,
+        help="this process's share of its card, in (0, 1]: every memory"
+        " budget reads it and the caching allocator is bound to it",
+    )
+    parser.add_argument(
         "--spmd-coordinator",
         default=None,
-        help="multi-host SPMD coordinator host:port (not yet ported)",
+        help="multi-host SPMD coordinator host:port (not ported: item 9c)",
     )
     parser.add_argument("--spmd-procs", type=int, default=0,
-                        help="SPMD process count (not yet ported)")
+                        help="SPMD process count (not ported: item 9c)")
     parser.add_argument("--spmd-rank", type=int, default=0,
-                        help="SPMD process rank (not yet ported)")
+                        help="SPMD process rank (not ported: item 9c)")
     parser.add_argument(
         "--catalog",
         action="append",
@@ -48,7 +62,7 @@ def main(argv=None) -> int:
         "--cluster-memory-limit-bytes",
         type=int,
         default=None,
-        help="cluster-wide memory ceiling reported at /v1/memory",
+        help="coordinator-enforced cluster-wide memory ceiling",
     )
     parser.add_argument(
         "--max-inflight-requests",
@@ -79,15 +93,28 @@ def main(argv=None) -> int:
 
     from trino_tpu_torch.server.http import TrinoTpuServer, refuse_cluster_options
 
-    refuse_cluster_options(
-        args.role,
-        bool(args.spmd_coordinator or args.spmd_procs or args.spmd_rank),
-        args.discovery,
-    )
+    refuse_cluster_options(bool(args.spmd_coordinator or args.spmd_procs or args.spmd_rank))
 
+    import torch
+
+    from trino_tpu_torch import resolve_device
     from trino_tpu_torch.engine import Engine
+    from trino_tpu_torch.memory import set_card_share
 
-    engine = Engine(device=args.device)
+    device = resolve_device(args.device)
+    if args.role == "worker" and device.type != "cuda" and torch.cuda.is_available():
+        # no fallback: a worker on a machine with a card runs on the card
+        parser.error("a worker on a machine with a GPU runs on the GPU (--device cuda)")
+    set_card_share(args.card_share, device)
+    if device.type == "cuda":
+        # the CUDA context and the hand kernels' libraries at boot
+        from trino_tpu_torch import _kernels
+
+        torch.zeros(1, device=device)
+        _kernels.build_all()
+        for name in _kernels.LAUNCHES:
+            _kernels.load(name)
+    engine = Engine(device=device)
     if args.catalog:
         from trino_tpu_torch.connectors.api import register_catalog_spec
 
@@ -112,7 +139,9 @@ def main(argv=None) -> int:
         engine=engine,
         host=args.host,
         port=args.port,
+        role=args.role,
         node_id=args.node_id,
+        discovery_uri=args.discovery,
         cluster_memory_limit_bytes=args.cluster_memory_limit_bytes,
         server_config=server_config,
     )
@@ -128,8 +157,9 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, on_term)
     signal.signal(signal.SIGINT, on_term)
     try:
-        # a drained coordinator (PUT /v1/info/state SHUTTING_DOWN) stops
-        # its server itself; the process then exits
+        # a drained worker (PUT /v1/info/state SHUTTING_DOWN) stops its
+        # server itself; the process must then exit so rolling restarts
+        # can respawn it
         while not stop["flag"] and server.state != "STOPPED":
             time.sleep(0.2)
     finally:

@@ -21,7 +21,8 @@ styles share one waiter queue:
   waiter objects, not thousands of stacks.
 
 A copy of ``trino_tpu/server/resourcegroups.py``; the device-memory gate
-reads the card through ``torch.cuda.mem_get_info``.
+reads the card through ``torch.cuda.mem_get_info``, or this process's
+share of it where processes share the card (``memory.card_used_bytes``).
 """
 
 from __future__ import annotations
@@ -573,8 +574,12 @@ class ResourceGroupManager:
             device = torch.device(self.device)
             if device.type != "cuda":
                 return True
-            free, total = torch.cuda.mem_get_info(device)
-            return (total - free) + int(peak_hbm_hint) <= 0.9 * total
+            from trino_tpu_torch.memory import card_used_bytes
+
+            # the card, or this process's share of it where processes
+            # share the card (memory.set_card_share)
+            used, budget = card_used_bytes(device)
+            return used + int(peak_hbm_hint) <= 0.9 * budget
         except Exception:  # noqa: BLE001 — accounting must never wedge
             return True
 

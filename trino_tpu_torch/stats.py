@@ -9,9 +9,8 @@ Our executor materializes one plan node at a time, so stats attach per
 plan node (the reference's per-operator granularity at our altitude); the
 fragmented executor reports one record per fragment. The port's copy of
 ``trino_tpu/stats.py``: the per-node collector, the plan, fragment,
-device-program, capacity, exchange and operator sections. The cluster's
-section (``render_distributed_plan``, which renders the stages of a
-cluster run) waits for the cluster tier (ROADMAP item 9c).
+device-program, capacity, exchange and operator sections, and the
+cluster's (``render_distributed_plan``, the stages of a cluster run).
 """
 
 from __future__ import annotations
@@ -153,6 +152,108 @@ def render_exchange_stats(exchange_stats: dict) -> str:
     out are in the operator section."""
     parts = [f"{k}={exchange_stats.get(k, 0)}" for k in EXCHANGE_FIELDS]
     return "Exchanges (all shards):\n  " + " ".join(parts)
+
+
+def render_distributed_plan(
+    node: P.PlanNode,
+    cluster_stats: dict,
+    device_stats: Optional[dict] = None,
+) -> str:
+    """Trino-style distributed EXPLAIN ANALYZE
+    (``PlanPrinter.textDistributedPlan`` analog): the logical plan
+    followed by one section per stage, annotated with task counts, rows,
+    wall, exchange bytes / padding ratio, the output pages (bytes, the
+    device-to-host read and the serialization), the tasks' execution
+    paths, and per-stage FLOPs / peak device memory — all merged by the
+    coordinator from every worker's shipped task stats
+    (``server/cluster.py::_finalize_query``). A copy of the reference's
+    with the page and path lines added."""
+    lines = ["Distributed plan:", render_plan_with_stats(node, None, 1), ""]
+    lines.append("Stages (stats merged from worker tasks):")
+    for st in cluster_stats.get("stages") or []:
+        lines.append(
+            f"Stage {st.get('stage')} "
+            f"[tasks: {st.get('tasks', 0)}, attempts: {st.get('attempts', 0)},"
+            f" wall: {st.get('elapsedMs', 0.0):.1f}ms]"
+        )
+        parts = []
+        if st.get("rows") is not None:
+            parts.append(f"output rows: {st['rows']:,}")
+        if st.get("inputRows") is not None:
+            parts.append(f"input rows: {st['inputRows']:,}")
+        if st.get("outputBytes") is not None:
+            parts.append(f"output bytes: {st['outputBytes']:,}")
+        if parts:
+            lines.append("    " + "  ".join(parts))
+        te = st.get("taskElapsedMs")
+        if te:
+            lines.append(
+                f"    task wall p50/p99/max: {te['p50']:.1f}/"
+                f"{te['p99']:.1f}/{te['max']:.1f} ms"
+            )
+        ex = st.get("exchange") or {}
+        exparts = [
+            f"{k}={ex[k]}"
+            for k in (
+                "shuffle_rows", "shuffle_bytes", "padding_ratio",
+                "hot_keys", "salted_rows", "overflow_retries",
+            )
+            if ex.get(k)
+        ]
+        if exparts:
+            lines.append("    exchange: " + " ".join(exparts))
+        pg = st.get("pages") or {}
+        if pg:
+            lines.append(
+                f"    pages: {int(pg.get('pages_out', 0)):,} "
+                f"({int(pg.get('page_bytes_out', 0)):,}B), "
+                f"d2h {pg.get('d2h_ms', 0.0):.1f}ms, "
+                f"serialize {pg.get('serialize_ms', 0.0):.1f}ms"
+            )
+        paths = st.get("executionPaths") or {}
+        if paths:
+            lines.append("    paths: " + " ".join(
+                f"{k}={v}" for k, v in sorted(paths.items())))
+        stage_caps = ex.get("capacities")
+        if isinstance(stage_caps, dict) and stage_caps:
+            cparts = []
+            for name, ent in sorted(
+                stage_caps.items(),
+                key=lambda kv: str(kv[1].get("site", kv[0])),
+            ):
+                if isinstance(ent, dict):
+                    cparts.append(
+                        f"{ent.get('site', name)}="
+                        f"{ent.get('value')}({ent.get('provenance', '?')})"
+                    )
+            if cparts:
+                lines.append("    capacities: " + " ".join(cparts))
+        stage_ops = ex.get("operators")
+        if isinstance(stage_ops, dict) and stage_ops:
+            lines.append("    operators:")
+            lines.extend(_operator_rows(stage_ops, indent="      "))
+        dparts = []
+        if st.get("flops") is not None:
+            dparts.append(f"flops={st['flops']:.4g}")
+        if st.get("peakHbmBytes") is not None:
+            dparts.append(f"peak_hbm={int(st['peakHbmBytes']):,}B")
+        if st.get("compileMs"):
+            dparts.append(f"compile={st['compileMs']:.1f}ms")
+        if dparts:
+            lines.append("    device: " + " ".join(dparts))
+    counters = []
+    for key, lab in (
+        ("task_retries", "task retries"),
+        ("speculative_attempts", "speculative attempts"),
+        ("speculative_wins", "speculative wins"),
+    ):
+        if cluster_stats.get(key):
+            counters.append(f"{lab}: {cluster_stats[key]}")
+    if counters:
+        lines.append("    " + "  ".join(counters))
+    if device_stats:
+        lines.extend(["", render_device_stats(device_stats)])
+    return "\n".join(lines)
 
 
 def render_plan_with_stats(
