@@ -218,6 +218,20 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    profiled, and the query with the largest peak and Q95 at SF10 (warm,
    then with its capacities forgotten) are attributed.
 
+9. verify: the port's query verifier (``trino_tpu_torch.verifier.main``)
+   in this process: the interpreter (``local``) against the program path
+   (``distributed``), both on the card, over phase surface's CREATE TABLE
+   AS of ``tpch.sf1.lineitem``, the K1 GROUP BY over it and the 22 TPC-H
+   queries, phase cluster's seven at SF1 and the others at tiny
+   (:func:`verify_corpus`); a coordinator of the port booted in
+   this process under the port's lockdep against ``distributed`` over the
+   22 at ``tpch.tiny`` (the lockdep's report must be empty); a statement
+   on a missing table (main must return 1). A line a query with each
+   side's ms, K1 and K2 launches and allocator peak; the test side must
+   launch K1 on the GROUP BY and K2 on every join query that launches it
+   in phase tpch22, every launch held against its plain version.
+   ``--only verify`` runs it alone.
+
 Every query line of phases 5, 7 and 8 gives its streamed join fragments
 (chunks and builds) and the streams that fell back to materialized;
 TPC-H Q3/5/7/10/17/19 and TPC-DS Q21/37/82 must stream one.
@@ -233,13 +247,13 @@ object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
-``python3 chip_smoke.py --only tpch22,programs,server,surface,files,tpcds,spill,mesh,cluster``
+``python3 chip_smoke.py --only tpch22,programs,server,surface,files,tpcds,spill,mesh,cluster,verify``
 runs the device phase and the named phases alone (``tpch22``,
 ``programs``, ``server``, ``surface`` and ``files`` stage the SF1 tables
 first, ``spill``
 generates the SF10 tables first, ``mesh`` does both, ``cluster``'s
-workers generate their own splits), for work on one of them; it prints
-no result lines.
+workers and ``verify``'s engines generate their own splits), for work on
+one of them; it prints no result lines.
 
 After every phase a ``pool`` line gives the graph pools' bytes of the
 phase's engine, which must be at or under their budget (an eighth of the
@@ -4155,6 +4169,205 @@ def phase_cluster(smi: str) -> tuple[dict, int]:
     return launches, k2_err
 
 
+VERIFY_SCHEMA = "sf1"     # phase verify's CTAS and its large queries
+# the TPC-H queries it runs at VERIFY_SCHEMA, the others at tiny: phase
+# cluster's seven (the 22 at SF1 took the phase 119.13 s, past its ~90 s)
+VERIFY_SF1_QUERIES = (1, 3, 5, 6, 9, 10, 18)
+# the TPC-H queries that launch K2 at SF1 (phase tpch22, PERF.md §4)
+VERIFY_K2_QUERIES = (2, 3, 5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21)
+VERIFY_K1_SQL = ("select l_linenumber, sum(l_quantity), count(*) from memory.default.li1"
+                 " group by l_linenumber")
+VERIFY_MISSING_SQL = "select count(*) from tpch.tiny.no_such_table"
+
+
+def verify_corpus(schema: str, large: tuple) -> dict:
+    """Label -> statement of phase verify's first run: phase surface's
+    CREATE TABLE AS of lineitem into ``memory.default.li1``, the K1 GROUP
+    BY over it, and the 22 TPC-H queries, spec text, those of ``large`` at
+    ``schema`` and the others at ``tpch.tiny``."""
+    from trino_tpu_torch.benchmarks import tpch as B
+
+    big, tiny = B.queries(f"tpch.{schema}"), B.queries("tpch.tiny")
+    out = {"ctas": f"create table memory.default.li1 as select {SURFACE_LI1_COLUMNS}"
+                   f" from tpch.{schema}.lineitem",
+           "k1": VERIFY_K1_SQL}
+    for q in sorted(big):
+        out[f"Q{q}" + ("" if q in large else "_tiny")] = big[q] if q in large else tiny[q]
+    return out
+
+
+def phase_verify(smi: str, schema: str = VERIFY_SCHEMA, device: str = "cuda") -> tuple[dict, int, int]:
+    """Phase ``verify``: the port's query verifier through its CLI entry,
+    ``trino_tpu_torch.verifier.main``, in this process so that the kernel
+    launches are counted. Three runs:
+
+    1. control ``local`` (the interpreter), test ``distributed`` (the
+       program path), both on the card, over :func:`verify_corpus`: main
+       returns 0, the test side launches K1 on the GROUP BY and K2 on
+       every query of ``VERIFY_K2_QUERIES`` run at ``schema``;
+    2. control a port coordinator booted in this process on an engine of
+       its own at an ephemeral port, with the port's lockdep installed
+       first (``install(only_paths=(ROOT,))``), test ``distributed``, the
+       22 queries at ``tpch.tiny``: main returns 0 and the lockdep's
+       report is empty; then the lockdep is uninstalled;
+    3. a statement on a missing table: counted as a failure, main
+       returns 1.
+    The verifier makes its own runners (``_runner_for``); the script wraps
+    each to time a statement and count its launches, allocator peak and
+    side. Every K1 launch and every K2 build that is no capture is held
+    against its plain version on the same inputs. The counts start at 0
+    before run 1 and are read after run 3. Any failed check raises.
+    Returns the launches and the largest K1 and K2 differences."""
+    import inspect
+    import shutil
+    import tempfile
+
+    import torch
+
+    from trino_tpu_torch import _kernels, verifier
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.engine import Engine
+    from trino_tpu_torch.lint import lockdep
+    from trino_tpu_torch.ops import dense_groupby as DG
+    from trino_tpu_torch.server.http import TrinoTpuServer
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    work = tempfile.mkdtemp(prefix="chip_smoke_verify_")
+    state = {"run": None, "made": [], "labels": {}}
+    calls, engines, k1_errs, builds, query = [], {}, [], [], [None]
+    real_runner_for, real_dense = verifier._runner_for, DG.dense_groupby_device
+
+    def checked_dense(plan, bins, vals):
+        lt = real_dense(plan, bins, vals)
+        if not (on_card and torch.cuda.is_current_stream_capturing()):
+            k1_errs.append(int((lt - DG.dense_groupby_plain(plan, bins, vals)).abs().max()))
+        return lt
+
+    def runner_for(spec, device=None):
+        run = real_runner_for(spec, device)
+        side = ("control", "test")[len(state["made"])]
+        state["made"].append(spec)
+        runner = inspect.getclosurevars(run).nonlocals.get("r")
+        if runner is not None:
+            engines[(state["run"], side)] = runner.engine
+
+        def counted(sql):
+            label = state["labels"].get(sql.strip(), sql.strip()[:40])
+            query[0] = f"{state['run']}:{side}:{label}"
+            before = dict(_kernels.LAUNCHES)
+            if on_card:
+                reset_peak()
+            t0 = time.perf_counter()
+            try:
+                return run(sql)
+            finally:
+                if on_card:
+                    torch.cuda.synchronize()
+                calls.append({
+                    "run": state["run"], "side": side, "query": label,
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "k1": _kernels.LAUNCHES["dense_groupby"] - before["dense_groupby"],
+                    "k2": _kernels.LAUNCHES["dense_join_build"] - before["dense_join_build"],
+                    "peak_bytes": read_peak() if on_card else None,
+                })
+        return counted
+
+    def main_over(run: str, control: str, statements: dict) -> int:
+        state["run"], state["made"] = run, []
+        state["labels"] = {sql.strip(): name for name, sql in statements.items()}
+        path = os.path.join(work, f"{run}.sql")
+        with open(path, "w") as f:
+            f.write(";\n".join(statements.values()) + ";\n")
+        t0 = time.perf_counter()
+        rc = verifier.main(["--control", control, "--test", "distributed",
+                            "--queries", path, "--device", device])
+        log("verify", card=smi, run=run, control=control, test="distributed",
+            statements=len(statements), rc=rc, run_s=time.perf_counter() - t0)
+        return rc
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"verify: {what}")
+
+    def pool_after(run: str) -> None:
+        # one pool line a run, for its test engine; then the runners' engines go
+        eng = engines.pop((run, "test"), None)
+        engines.clear()
+        if eng is not None:
+            check_pool(eng, f"verify:{run}")
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    _kernels.reset_counts()
+    verifier._runner_for = runner_for
+    DG.dense_groupby_device = checked_dense
+    server = None
+    try:
+        with k2_checked(builds, query):
+            # 1. the interpreter against the program path, on the card
+            rc1 = main_over("local", "local", verify_corpus(schema, VERIFY_SF1_QUERIES))
+            pool_after("local")
+            # 2. a coordinator of the port as control, under the port's lockdep
+            lockdep.reset()
+            check(lockdep.install(only_paths=(ROOT,)), "the lockdep was installed already")
+            try:
+                server = TrinoTpuServer(engine=Engine(device=device)).start()
+                tiny = {f"Q{q}": sql for q, sql in B.queries("tpch.tiny").items()}
+                rc2 = main_over("coordinator", server.base_uri, tiny)
+                server.stop()
+                server = None
+                problems = lockdep.report()
+            finally:
+                if server is not None:
+                    server.stop()
+                lockdep.uninstall()
+            pool_after("coordinator")
+            # 3. a failing statement
+            rc3 = main_over("missing", "local", {"missing": VERIFY_MISSING_SQL})
+            pool_after("missing")
+    finally:
+        verifier._runner_for = real_runner_for
+        DG.dense_groupby_device = real_dense
+        shutil.rmtree(work, ignore_errors=True)
+    launches = dict(_kernels.LAUNCHES)
+    by_query = {}
+    for c in calls:
+        row = by_query.setdefault((c["run"], c["query"]), {"run": c["run"], "query": c["query"]})
+        for k in ("ms", "k1", "k2", "peak_bytes"):
+            row[f"{c['side']}_{k}"] = c[k]
+    for row in by_query.values():
+        log("verify", card=smi, **row)
+    peaks = {}
+    for c in calls:
+        if c["peak_bytes"] is not None:
+            key = f"{c['run']}:{c['side']}"
+            peaks[key] = max(peaks.get(key, 0), c["peak_bytes"])
+    k2_err = max([b["max_abs_err"] + b["unplaced_err"] for b in builds], default=0)
+    k1_err = max(k1_errs, default=0)
+    test1 = {c["query"]: c for c in calls if c["run"] == "local" and c["side"] == "test"}
+    missing_k2 = [q for q in VERIFY_K2_QUERIES
+                  if q in VERIFY_SF1_QUERIES and not test1.get(f"Q{q}", {}).get("k2")]
+    log("verify", card=smi, k1_launches=launches["dense_groupby"],
+        k2_launches=launches["dense_join_build"],
+        test_k1_on_group_by=test1.get("k1", {}).get("k1"), k1_checked=len(k1_errs),
+        k1_max_abs_err=k1_err, k2_checked_builds=len(builds), k2_max_abs_err=k2_err,
+        allocator_peak_bytes=peaks, lockdep_report=len(problems), rcs=[rc1, rc2, rc3],
+        phase_s=time.perf_counter() - t_phase)
+    check(rc1 == 0, f"local against distributed: main returned {rc1}")
+    check(rc2 == 0, f"the coordinator against distributed: main returned {rc2}")
+    check(rc3 == 1, f"the missing table: main returned {rc3}, not 1")
+    check(not problems, "the lockdep found problems:\n" + "\n\n".join(problems))
+    check(test1.get("k1", {}).get("k1", 0) >= 1, "the GROUP BY over li1 launched no K1 on the test side")
+    check(not missing_k2, f"no K2 launch on the test side of Q{missing_k2}")
+    check(len(k1_errs) >= 1 and not k1_err, f"K1 differs from plain: {k1_errs}")
+    check(bool(builds) and not k2_err, f"K2 differs from plain by {k2_err} ({len(builds)} builds)")
+    missing = [c for c in calls if c["run"] == "missing"]
+    check(len(missing) == 1, f"the missing table ran {len(missing)} times")
+    return launches, k1_err, k2_err
+
+
 def phase_spill_alone(smi: str) -> None:
     """Phase ``spill`` on its own: the SF10 tables and their oracle, the
     memory tables of phase ``join``, then the spilled runs."""
@@ -4217,7 +4430,8 @@ def main() -> int:
              "server": lambda smi: phase_server(smi, tpch_sf1_runner(smi)),
              "obs": lambda smi: phase_obs(smi, tpch_sf1_runner(smi)),
              "tpcds": phase_tpcds, "spill": phase_spill_alone,
-             "mesh": phase_mesh_alone, "cluster": phase_cluster}[name](smi)
+             "mesh": phase_mesh_alone, "cluster": phase_cluster,
+             "verify": phase_verify}[name](smi)
             gc.collect()
             torch.cuda.empty_cache()
         return 0
@@ -4274,6 +4488,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ds, ds_k2_err = phase_tpcds(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    verified, verify_k1_err, verify_k2_err = phase_verify(smi)
     a, ka = kern["a"], k2["a"]
     log("run", card=smi, seconds=time.perf_counter() - t_run)
     print(json.dumps({"kernels": [{
@@ -4288,9 +4505,10 @@ def main() -> int:
                      + observed["dense_groupby"]
                      + files["dense_groupby"] + ds["dense_groupby"]
                      + mesh_join_launches["dense_groupby"] + mesh["dense_groupby"]
-                     + clustered.get("dense_groupby", 0)),
+                     + clustered.get("dense_groupby", 0) + verified["dense_groupby"]),
         "matches_plain": True,
-        "max_abs_err": max(kern["max_abs_err"], surface_k1_err, served_k1_err, obs_k1_err),
+        "max_abs_err": max(kern["max_abs_err"], surface_k1_err, served_k1_err, obs_k1_err,
+                           verify_k1_err),
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"],
@@ -4307,12 +4525,13 @@ def main() -> int:
                      + observed["dense_join_build"]
                      + files["dense_join_build"] + ds["dense_join_build"]
                      + mesh_join_launches["dense_join_build"] + mesh["dense_join_build"]
-                     + clustered["dense_join_build"]),
+                     + clustered["dense_join_build"] + verified["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
                            + [join_k2_err, t22_k2_err, progs_k2_err, surface_k2_err,
                               served_k2_err, obs_k2_err, files_k2_err,
-                              ds_k2_err, mesh_join_k2_err, mesh_k2_err, cluster_k2_err]),
+                              ds_k2_err, mesh_join_k2_err, mesh_k2_err, cluster_k2_err,
+                              verify_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

@@ -845,3 +845,30 @@ def test_process_budgets_sum_within_the_card(cuda):
                           "worker", "--device", "cpu"], cwd=repo, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 2 and "runs on the GPU" in out.stderr
+
+
+@pytest.mark.cuda
+def test_verifier_local_against_distributed_launches_k1_and_k2(cuda, tmp_path, capsys):
+    """The verifier's CLI with the interpreter as control and the program
+    path as test, both on the card, over a K1 GROUP BY of a CTAS-made
+    memory table and TPC-H Q3 at ``tpch.tiny``: 0 failures, and the run
+    launches K1 and K2."""
+    from trino_tpu_torch import verifier
+    from trino_tpu_torch.benchmarks import tpch as B
+
+    corpus = tmp_path / "q.sql"
+    corpus.write_text(";\n".join([
+        "set session stream_scan_threshold_rows = 16384",
+        "create table memory.default.li1 as select l_orderkey, l_linenumber,"
+        " l_quantity from tpch.tiny.lineitem",
+        "select l_linenumber, sum(l_quantity), count(*) from memory.default.li1"
+        " group by l_linenumber",
+        B.queries("tpch.tiny")[3],
+    ]) + ";\n")
+    before = dict(_kernels.LAUNCHES)
+    assert verifier.main(["--control", "local", "--test", "distributed",
+                          "--queries", str(corpus)]) == 0
+    out = capsys.readouterr().out
+    assert "4 queries, 0 failures" in out and out.count(" OK ") == 4
+    assert _kernels.LAUNCHES["dense_groupby"] > before["dense_groupby"]
+    assert _kernels.LAUNCHES["dense_join_build"] > before["dense_join_build"]

@@ -62,7 +62,9 @@ def test_port_imports_neither_jax_nor_reference():
                    "obs.history", "obs.slo", "obs.flight", "obs.profiler",
                    "cache", "cache.result_cache", "ft.injection",
                    "server.failuredetector", "server.task", "server.cluster",
-                   "exchange", "exchange.spool", "testing"):
+                   "exchange", "exchange.spool", "testing", "lint", "lint.cli",
+                   "lint.jit_safety", "lint.concurrency", "lint.obs_metrics",
+                   "lint.lockdep", "verifier"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 
@@ -427,13 +429,12 @@ def test_every_reference_route_has_a_counterpart_or_a_named_501():
 
 # the reference's modules with no counterpart in the port, each with its
 # ROADMAP item: SPMD across processes (9c's one open part: one card has
-# no faithful torch.distributed form), the lint and the verifier (9d)
-UNPORTED_MODULES = {"parallel/spmd.py": "9c", "lint/": "9d", "verifier.py": "9d"}
+# no faithful torch.distributed form)
+UNPORTED_MODULES = {"parallel/spmd.py": "9c"}
 
 
-def test_only_spmd_lint_and_verifier_are_unported():
-    """``comm -23`` of the two packages' module lists is SPMD, the lint
-    and the verifier."""
+def test_only_spmd_is_unported():
+    """``comm -23`` of the two packages' module lists is SPMD alone."""
     def modules(pkg):
         root = os.path.join(REPO, pkg)
         out = set()

@@ -280,7 +280,7 @@ class ResultCache:
             from trino_tpu_torch.obs.metrics import get_registry
 
             # closed vocabulary: callers pass literal suffixes only
-            get_registry().counter(f"trino_tpu_result_cache_{name}").inc(n)
+            get_registry().counter(f"trino_tpu_result_cache_{name}").inc(n)  # lint: ignore[OBS002]
         except Exception:  # noqa: BLE001 — metrics must never fail a query
             pass
 

@@ -20,9 +20,9 @@ the stdlib-only (``selectors``) machinery the server builds on:
 Nothing in this module knows about Trino routes; ``server/http.py`` wires
 the actual protocol on top.
 
-A copy of ``trino_tpu/server/eventloop.py``, except that the loop
-registers its thread with no lock checker of its own: it tells the
-callables in :data:`LOOP_THREAD_HOOKS` instead.
+A copy of ``trino_tpu/server/eventloop.py``: the loop registers its
+thread with the port's lockdep (``trino_tpu_torch/lint/lockdep.py``) and
+also tells the callables in :data:`LOOP_THREAD_HOOKS`.
 """
 
 from __future__ import annotations
@@ -68,8 +68,10 @@ _LOOP_THREAD_IDS: set[int] = set()
 
 
 # Callables ``hook(ident, running)`` told when a loop thread starts
-# (``running`` True) and when it ends: how a lock-order checker learns
-# which threads must never block (the package has no checker of its own).
+# (``running`` True) and when it ends: how a lock-order checker other
+# than the port's lockdep, which ``run`` registers the thread with,
+# learns which threads must never block (the tests wire the repository's
+# lockdep through it).
 LOOP_THREAD_HOOKS: list[Callable[[int, bool], None]] = []
 
 
@@ -368,11 +370,15 @@ class EventLoop:
         self._running = True
         ident = threading.get_ident()
         _LOOP_THREAD_IDS.add(ident)
+        from trino_tpu_torch.lint import lockdep
+
+        lockdep.register_loop_thread(ident)
         _notify_loop_thread(ident, True)
         try:
             self._run()
         finally:
             _LOOP_THREAD_IDS.discard(ident)
+            lockdep.unregister_loop_thread(ident)
             _notify_loop_thread(ident, False)
 
     def _run(self) -> None:
