@@ -169,8 +169,10 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    tables on a mesh of 4 shards on the card, once cold and once warm,
    against the committed answers, each line with its exchange counters
    (exchanges, shuffled and padded rows and bytes, padding ratio, hot keys,
-   salted rows, overflow retries), times, peak and the graph pools'
-   bytes; then the skew acceptance shape of ``tests/test_skew.py``
+   salted rows, overflow retries), times, peak, the graph pools'
+   bytes and its streamed fragments (steps, parts a step, which must be
+   one a shard, and the rows a part holds); the phase's line gives the
+   warm sum beside the one measured before one chunk a shard; then the skew acceptance shape of ``tests/test_skew.py``
    (Zipf(1.2) join keys over 2,000,000 rows, the join partitioned, on the
    reference's 8 shards) with
    skew handling on and off and through the interpreter: equal rows; on,
@@ -197,7 +199,9 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    a ten-times-slow worker under speculation), rows against the clean
    run's; a scaled CTAS of four lineitem columns written from both
    workers; the cluster memory manager's kill of a query reported over
-   the limit and a small query after it; a drain and a restart (Q1 at
+   the limit, whose worker task must read CANCELED and free its
+   reservation within 15 s (``tasks_canceled_after_s``), and a small
+   query after it; a drain and a restart (Q1 at
    tiny); last a node death under spooling. The phase's K2 count is the workers' launches
    over the 22 queries' runs; it must be above 0 and every checked build
    equal to plain. ``--only cluster`` runs it alone.
@@ -251,7 +255,8 @@ repository beside it, the script exits non-zero and prints no result.
 runs the device phase and the named phases alone (``tpch22``,
 ``programs``, ``server``, ``surface`` and ``files`` stage the SF1 tables
 first, ``spill``
-generates the SF10 tables first, ``mesh`` does both, ``cluster``'s
+generates the SF10 tables first, ``mesh`` does both, ``mesh_sf1``
+runs phase mesh's SF1 part alone, ``cluster``'s
 workers and ``verify``'s engines generate their own splits), for work on
 one of them; it prints no result lines.
 
@@ -3502,6 +3507,9 @@ def fingerprint_of(runner, sql: str) -> str:
 MESH_SHARDS = 4           # shards of phase mesh's mesh, all on the one card
 MESH_WARM = 1             # its second warm pass (~2 s) was cut for phase server
 MESH_SKEW_ROWS = 2_000_000  # tests/test_skew.py::TestSkewedJoin2M
+# the 22 queries' warm sum on 4 shards before one streamed chunk a shard
+# (H100 80GB HBM3 at 700.00 W), printed beside this run's
+MESH_WARM_BEFORE = 1967.98
 # the skew shape's shards: the reference's acceptance mesh. On 4 shards
 # the hot destination takes ~2.3x a fair share, which the cold bucket
 # (2x) and the spill tier absorb, so skew off would not overflow
@@ -3700,7 +3708,11 @@ def phase_mesh(smi: str, runner) -> tuple[dict, int]:
             cold_launches[f"Q{q}"] = k2[0]
             peaks[q] = read_peak()
             st = res.exchange_stats or {}
+            streams = st.get("streams") or []
+            if any(sm["parts"] != MESH_SHARDS for sm in streams):
+                failures.append(f"Q{q}: a stream steps {streams}, not one part a shard")
             log("mesh", card=smi, shards=MESH_SHARDS, query=f"Q{q}", rows=len(res.rows),
+                streams=streams,
                 trace_count=res.trace_count, captures=pool.captures,
                 dropped_graphs=pool.dropped, program_evictions=st.get("program_evictions"),
                 matches_reference=bad is None, cold_ms=times[0], warm_median_ms=warm_ms[q],
@@ -3710,7 +3722,8 @@ def phase_mesh(smi: str, runner) -> tuple[dict, int]:
         # the main path's count: the 22 queries on MESH_SHARDS shards alone
         launches = dict(_kernels.LAUNCHES)
         log("mesh", card=smi, part="sf1", launches=launches,
-            warm_total_ms=sum(warm_ms.values()), max_peak_device_bytes=max(peaks.values()))
+            warm_total_ms=sum(warm_ms.values()), warm_total_ms_before=MESH_WARM_BEFORE,
+            max_peak_device_bytes=max(peaks.values()))
         skew, skew_launches = {}, {}
         skew_mesh = mesh_runner(runner.engine, MESH_SKEW_SHARDS)
         for label, props in (("on", {}), ("off", {"skew_handling": False}),
@@ -3770,6 +3783,9 @@ CLUSTER_MEMORY_LIMIT = 32 << 30
 # pages (1.5M distinct o_comment values: seconds, so the worker's 2 s
 # announce reports it); a region count stays far below it
 CLUSTER_KILL_LIMIT = 16 << 20
+# the bound on the killed query's task to read CANCELED, and on the
+# worker's reservations to fall back under the limit, after the kill
+CLUSTER_KILL_CANCEL_S = 15
 CLUSTER_KILL_SQL = ("select o_orderkey, o_custkey, o_totalprice, o_orderdate, o_comment"
                     " from tpch.{schema}.orders")
 CLUSTER_SCHEMA = "sf1"
@@ -3955,9 +3971,11 @@ def cluster_memory_kill(smi: str, runner, schema: str, failures: list) -> None:
     ``--cluster-memory-limit-bytes``. A scan of orders whose task reserves
     its result in the worker's pool while it serializes its pages, the
     worker's announce loop reports the reservation, and the coordinator
-    kills the query with CLUSTER_OUT_OF_MEMORY. Once the worker's
-    reservations are back under the limit, a small query passes on the
-    same cluster."""
+    kills the query with CLUSTER_OUT_OF_MEMORY, which cancels its worker
+    task: the task must read CANCELED and the worker's reservations fall
+    back under the limit within :data:`CLUSTER_KILL_CANCEL_S` of the kill
+    (``tasks_canceled_after_s``, ``released_after_s``). Then a small
+    query passes on the same cluster."""
     import re
     import urllib.request
 
@@ -3982,15 +4000,33 @@ def cluster_memory_kill(smi: str, runner, schema: str, failures: list) -> None:
             break
         time.sleep(0.2)
     killed_s = time.perf_counter() - t0
-    # the worker still reports the killed query's reservation until
-    # its task has unwound; the manager would take the next largest
-    deadline, mem = time.time() + 120, {}
+    t_kill = time.perf_counter()
+
+    def task_states() -> dict:
+        states = {}
+        for wuri in runner.worker_uris:
+            for t in http_json(f"{wuri}/v1/task"):
+                if t["taskId"].startswith(qid + "."):
+                    states[t["state"]] = states.get(t["state"], 0) + 1
+        return states
+
+    # the kill cancels the query's worker task: a bounded check that it
+    # reads CANCELED, and that the worker's next announce (every 2 s)
+    # reports its reservation gone
+    deadline, tasks, canceled_s = time.time() + CLUSTER_KILL_CANCEL_S, {}, None
+    while time.time() < deadline:
+        tasks = task_states()
+        if tasks and "RUNNING" not in tasks:
+            canceled_s = time.perf_counter() - t_kill
+            break
+        time.sleep(0.1)
+    deadline, mem, released_s = time.time() + CLUSTER_KILL_CANCEL_S, {}, None
     while time.time() < deadline:
         mem = http_json(f"{uri}/v1/memory")
         if mem["clusterReservedBytes"] <= limit:
+            released_s = time.perf_counter() - t_kill
             break
         time.sleep(0.2)
-    released_s = time.perf_counter() - t0
     small, _ = runner.execute(f"select count(*) from tpch.{schema}.region")
     mem = http_json(f"{uri}/v1/memory")
     msg = err.get("message") or ""
@@ -3999,11 +4035,16 @@ def cluster_memory_kill(smi: str, runner, schema: str, failures: list) -> None:
         limit_bytes=limit, killed_state=state, error=err.get("errorName"),
         killed=qid in mem.get("killedQueries", []),
         reserved_bytes=int(reserved.group(1)) if reserved else None,
-        killed_after_s=killed_s, released_after_s=released_s, small_query_rows=small,
+        killed_after_s=killed_s, task_states=tasks, tasks_canceled_after_s=canceled_s,
+        released_after_s=released_s, small_query_rows=small,
         ms=(time.perf_counter() - t0) * 1e3)
     if state != "FAILED" or err.get("errorName") != "CLUSTER_OUT_OF_MEMORY" \
             or small != [(5,)]:
         failures.append(f"cluster memory: {state} {err}, small query {small}")
+    if canceled_s is None or not tasks.get("CANCELED") or released_s is None:
+        failures.append(f"cluster memory: the killed query's tasks {tasks} did not cancel, "
+                        f"or its reservations stayed over the limit, "
+                        f"{CLUSTER_KILL_CANCEL_S} s after the kill")
 
 
 def close_booted(boot) -> None:
@@ -4430,7 +4471,9 @@ def main() -> int:
              "server": lambda smi: phase_server(smi, tpch_sf1_runner(smi)),
              "obs": lambda smi: phase_obs(smi, tpch_sf1_runner(smi)),
              "tpcds": phase_tpcds, "spill": phase_spill_alone,
-             "mesh": phase_mesh_alone, "cluster": phase_cluster,
+             "mesh": phase_mesh_alone,
+             "mesh_sf1": lambda smi: phase_mesh(smi, tpch_sf1_runner(smi)),
+             "cluster": phase_cluster,
              "verify": phase_verify}[name](smi)
             gc.collect()
             torch.cuda.empty_cache()

@@ -174,3 +174,85 @@ class TestClusterMemoryIntegration:
     def test_small_queries_unaffected(self, small_cluster):
         rows, _ = small_cluster.execute("select count(*) from tpch.tiny.region")
         assert rows == [(5,)]
+
+
+# --- a kill or cancel cancels the query's worker tasks -----------------------
+
+# a join whose worker tasks stall 30 s before they run (the fault
+# injector's pre-execute stall), so they are still running when the query
+# is killed or cancelled
+STALLED_SQL = (b"select count(*) from tpch.tiny.lineitem, tpch.tiny.orders"
+               b" where l_orderkey = o_orderkey")
+STALLED_SESSION = "execution_mode=cluster,fault_task_stall_ms=30000"
+
+
+def _json(url, method="GET", data=None, headers=None):
+    from trino_tpu_torch.server import auth
+
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={**auth.headers(), **(headers or {})})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        body = r.read().decode()
+    return json.loads(body) if body else None
+
+
+def _announce(runner, reservations: dict) -> None:
+    """What the worker's announce loop sends, with ``reservations``."""
+    _json(f"{runner.coordinator_uri}/v1/announce", "PUT", json.dumps({
+        "nodeId": "worker-0", "uri": runner.worker_uris[0],
+        "memoryInfo": {"capacityBytes": 1 << 30, "reservedBytes": sum(reservations.values()),
+                       "queryReservations": reservations},
+    }).encode(), {"Content-Type": "application/json"})
+
+
+def _task_states(runner, qid) -> list:
+    return [t["state"] for uri in runner.worker_uris
+            for t in _json(f"{uri}/v1/task") if t["taskId"].startswith(qid + ".")]
+
+
+def _until(pred, timeout):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.1)
+    return pred()
+
+
+@pytest.mark.parametrize("how", ["memory_kill", "user_delete"])
+def test_kill_or_cancel_cancels_the_worker_tasks(small_cluster, how):
+    """A query killed by the cluster memory manager, or cancelled by its
+    user's ``DELETE /v1/query``, while its worker tasks run: every task
+    reads CANCELED within a few seconds (not after its 30-s stall), the
+    query keeps the kill's or the cancel's error, and the cluster's
+    reservation falls under the limit."""
+    uri = small_cluster.coordinator_uri
+    # the worker at its own address (an earlier test announced it at
+    # another), so that the query's tasks are placed on it
+    _announce(small_cluster, {})
+    qid = _json(f"{uri}/v1/statement", "POST", STALLED_SQL,
+                {"X-Trino-User": "mem", "X-Trino-Session": STALLED_SESSION})["id"]
+    running = _until(lambda: "RUNNING" in _task_states(small_cluster, qid), 30)
+    assert running, _task_states(small_cluster, qid)
+    if how == "memory_kill":
+        # the worker's announce, reporting this query over the 8 MiB limit
+        _announce(small_cluster, {qid: 1 << 30})
+    else:
+        _json(f"{uri}/v1/query/{qid}", "DELETE")
+    t0 = time.monotonic()
+    canceled = _until(lambda: (lambda s: s and all(x == "CANCELED" for x in s))(
+        _task_states(small_cluster, qid)), 10)
+    assert canceled, _task_states(small_cluster, qid)
+    assert time.monotonic() - t0 < 10
+    info = _until(lambda: (lambda i: i if i["state"] in ("FAILED", "CANCELED") else None)(
+        _json(f"{uri}/v1/query/{qid}")), 10)
+    if how == "memory_kill":
+        assert info["state"] == "FAILED"
+        assert info["error"]["errorName"] == "CLUSTER_OUT_OF_MEMORY"
+    else:
+        assert info["state"] == "CANCELED"
+    # the worker's next announce (every 2 s) reports what its pool holds
+    mem = _until(lambda: (lambda m: m if m["clusterReservedBytes"] <= m["clusterMemoryLimitBytes"]
+                          else None)(_json(f"{uri}/v1/memory")), 10)
+    assert mem, _json(f"{uri}/v1/memory")

@@ -18,13 +18,15 @@ exchanges between them (``parallel/exchange.py``). Held here:
   8-device mesh, field by field for the counters that the data decides
   (``exchanges``, ``shuffle_rows``, ``hot_keys``, ``salted_rows``, and
   the ``operators`` rows in and out). Where every exchanged input is a
-  scan (the JOIN query, on and off, and the GROUP query on), the
-  exchange sites' capacities and provenance, the padded rows and bytes,
-  the padding ratio and the overflow retries are equal too. Downstream of
-  a join or a partial aggregate they are not: an exchange's capacity
-  follows its input's, which the port sizes to the counted matches and
-  groups (ROADMAP, reference quirks: first capacities; the acceptance
-  item is open there);
+  scan (the JOIN query, on and off, and the GROUP query on) or a streamed
+  fragment (one chunk a shard, ``tests/test_torch_streaming_shards.py``),
+  the exchange sites' capacities and provenance, the padded rows and
+  bytes, the padding ratio and the overflow retries are equal too.
+  Downstream of a join or a partial aggregate that does not stream they
+  are not, and that difference is final: an exchange's capacity follows
+  its input's, which the port sizes to the counted matches and groups
+  where the reference sizes it from its probe's capacity (ROADMAP,
+  reference quirks: first capacities); TPC-H Q3 pins it;
 - ``tests/test_skew.py::TestSkewedJoin`` at 2^12 rows: rows equal with
   skew handling on, off and locally; on, hot keys are found, rows are
   salted; the join alone (its sides' exchanges are the only ones) has
@@ -178,6 +180,33 @@ def test_tpch_tiny_on_eight_shards(dist, answers, q, request):
         for f in STAT_FIELDS:
             assert res.exchange_stats[f] == ref.exchange_stats[f], f
         assert res.exchange_stats["exchanges"] >= 1
+
+
+def test_q3_exchange_capacities_downstream_of_a_join(dist, request):
+    """TPC-H Q3 on 8 shards, its fragments materialized: the output
+    exchange of its join-and-partial-aggregate fragment ships the same
+    rows as the reference's (``exchanges``, ``shuffle_rows``), through
+    the same sites, but the port's capacity follows the groups it
+    counted (256 slots a (source, destination) pair) where the
+    reference's follows its probe's capacity (4,096), and the padded
+    rows and bytes follow the capacities on both sides: n x (n x bucket
+    + spill) slots. The difference is final (ROADMAP, reference quirks:
+    first capacities); no session property takes the reference's."""
+    from trino_tpu.benchmarks.tpch import queries as ref_queries
+
+    ref_dist = request.getfixturevalue("ref_dist")
+    got = dist.engine.execute_statement(B.queries("tpch.tiny")[3], dist.session)
+    want = ref_dist.engine.execute_statement(ref_queries("tpch.tiny")[3], ref_dist.session)
+    assert got.rows == want.rows
+    assert "streamed" not in got.fragment_modes.values()
+    for f in ("exchanges", "shuffle_rows"):
+        assert got.exchange_stats[f] == want.exchange_stats[f], f
+    caps, ref_caps = (exchange_capacities(r.exchange_stats) for r in (got, want))
+    assert caps == {"exch@2": (256, "default"), "spill@2": (128, "default")}
+    assert ref_caps == {"exch@2": (4096, "default"), "spill@2": (2048, "default")}
+    for st, c in ((got.exchange_stats, caps), (want.exchange_stats, ref_caps)):
+        assert st["padded_shuffle_rows"] == N * (N * c["exch@2"][0] + c["spill@2"][0])
+    assert got.exchange_stats["shuffle_bytes"] < want.exchange_stats["shuffle_bytes"]
 
 
 def test_streamed_fragments_on_eight_shards(dist, answers):

@@ -650,8 +650,12 @@ class _FragmentTracer(LocalExecutor):
         right = self._exec(node.right)
         left = self._exec(node.left)
         full = node.join_type == "FULL"
-        if self.n > 1 and self.builds is None and not full and not node.single_row:
-            return self._sharded_join(node, left, right)
+        if self.n > 1 and not full and not node.single_row:
+            if self.builds is None:
+                return self._sharded_join(node, left, right)
+            # a streamed chunk on N shards: each shard's probe rows meet the
+            # whole build side, built once an attempt
+            return self._stream_sharded_join(node, left, right)
         lkeys, rkeys = self._join_keys(
             left, right, node.criteria, remap_probe=self.builds is not None
         )
@@ -756,6 +760,49 @@ class _FragmentTracer(LocalExecutor):
         result = join_output(node, left, right, out_cols, n * cap, out_sel)
         mask = out_sel
         if node.filter is not None:
+            expr = self._bind(node.filter, result.layout)
+            mask = bound_filter_mask(expr, result.batch.columns, self.device, self.params) & out_sel
+        return Result(Batch(result.batch.columns, n * cap, mask, self.device, shards=n),
+                      result.layout)
+
+    def _stream_sharded_join(self, node: P.Join, left: Result, right: Result) -> Result:
+        """An INNER or LEFT join of a streamed chunk on N shards (reference:
+        the chunk step's ``_exec_join`` over ``_sharded_probe`` with a
+        replicated build): the build side, made once an attempt and shared
+        by the chunks (:attr:`builds`), is probed by each shard's rows of
+        the chunk at the site's per-shard output capacity; the first chunk
+        sizes it to the largest shard's matches, and an overflow grows it
+        to the most matches a shard of a chunk needed."""
+        from trino_tpu_torch.parallel import mesh as M
+        from trino_tpu_torch.parallel.distributed import _sharded_probe
+
+        n = self.n
+        left = Result(M.as_sharded(left.batch, n), left.layout)
+        lkeys, rkeys = self._join_keys(left, right, node.criteria, remap_probe=True)
+        ph, _ = J.hash_keys(lkeys)
+        probe_cols, probe_keys = [], []
+        for s in node.left.output_symbols:
+            c = left.column(s)
+            probe_cols += [c.data, c.valid_mask()]
+        for kd, kv in lkeys:
+            probe_keys += [kd, kv]
+        join_site = self._site("join", node)
+        dense_site = self._site("densejoin", node)
+        strategy = self._join_strategy(node, lkeys)
+        self.caps.join_strategies[dense_site] = strategy
+        build = self._join_build(node, right, rkeys, strategy, dense_site, False)
+        cap = self.caps.vals.get(join_site)
+        out_cols, out_sel, ovf, _, total = _sharded_probe(
+            self.mesh, probe_cols, probe_keys, ph, left.batch.selection_mask(),
+            None, None, None, None, cap, node.join_type, len(rkeys), build=build,
+        )
+        if cap is None:
+            cap = self.caps.get(join_site, out_sel.shape[0] // n)
+        self.overflows.append((join_site, ovf))
+        self.needed[join_site] = total
+        result = join_output(node, left, right, out_cols, n * cap, out_sel)
+        mask = out_sel
+        if node.filter is not None:  # INNER only: LEFT took the local path
             expr = self._bind(node.filter, result.layout)
             mask = bound_filter_mask(expr, result.batch.columns, self.device, self.params) & out_sel
         return Result(Batch(result.batch.columns, n * cap, mask, self.device, shards=n),
@@ -2297,6 +2344,12 @@ class FragmentedExecutor(DistributedExecutor):
                 {"fragment": frag.id, "chunks": stream.chunks,
                  "builds": len(stream.builds)}
             )
+        # the stream's shape: its steps, the parts (shards) a step and the
+        # rows a part holds
+        self.exchange_stats.setdefault("streams", []).append(
+            {"fragment": frag.id, "steps": stream.chunks, "parts": stream.n,
+             "shard_cap": stream.shard_cap}
+        )
         if isinstance(frag.root, P.Output):
             names_holder[frag.id] = list(frag.root.column_names)
             cols = [res.column(s) for s in frag.root.symbols]

@@ -42,12 +42,18 @@ fixed output capacity (see :class:`StreamingAggregator`).
 A connector that generates its rows (the synthetic connector's
 ``device_generator``) streams chunks made on the device, after the slab
 and before host chunks. Not ported: the reference's compile-failure chunk
-halving (an XLA workaround). On a mesh of N > 1 shards the stream runs
-over the whole table (the staged slab, else host chunks) and the dense
-path stays off, as the reference gates it to a mesh of one
-(``trino_tpu/exec/streaming.py:311``); the fragment's output exchange
-follows the stream. The reference streams one host chunk a shard there
-(``:209-250``); the rows are the same.
+halving (an XLA workaround).
+
+On a mesh of N > 1 shards the stream takes one chunk a shard, as the
+reference does (``trino_tpu/exec/streaming.py:204-250``): a step is N
+parts, each padded to one per-shard capacity, shard-major in one chunk of
+N x cap rows; the state holds G groups a shard (N x G rows); each shard
+steps over its own part and carried groups; the stream's output is N x G
+rows (N without group keys) for the fragment's output exchange. The
+reference streams host chunks there (its slab path takes a mesh of one,
+``:311``); the port cuts a staged slab into N views a step in the host
+stream's shape instead, so no row goes through the host. The generated
+chunks and the dense path (K1) serve a mesh of one.
 """
 
 from __future__ import annotations
@@ -160,6 +166,9 @@ class StreamingAggregator:
     def __init__(self, executor, frag, agg_node, scan_node, caps,
                  build_roots=(), build_inputs=None, build_layouts=None):
         self.executor = executor
+        # the mesh: on N > 1 shards a step streams one part a shard
+        self.mesh = getattr(executor, "mesh", None)
+        self.n = int(getattr(executor, "n_shards", 1))
         self.frag = frag
         self.agg = agg_node
         self.scan = scan_node
@@ -180,6 +189,9 @@ class StreamingAggregator:
         self._flags: dict[str, torch.Tensor] = {}
         self._needed: dict[str, torch.Tensor] = {}
         self.chunks = 0
+        # the rows a shard's part holds in every step (the chunk capacity
+        # on a mesh of one)
+        self.shard_cap = 0
         # one running dictionary per string column of the host chunk
         # stream (see _canonicalize_dicts)
         self._running_dicts: Optional[list] = None
@@ -222,14 +234,22 @@ class StreamingAggregator:
         """Stream the fragment: the device slab when the connector stages
         the table, chunks the connector generates on the device next, host
         chunks otherwise. Raises :class:`StreamOverflow` when the group
-        budget or a join's capacity overflowed."""
+        budget or a join's capacity overflowed. On N > 1 shards a step is
+        one part a shard, of host chunks or of the slab in their shape
+        (:meth:`_slab_shard_chunks`), and only a partial aggregate streams:
+        its N per-shard states are what the output exchange takes."""
+        from trino_tpu_torch.exec.fragments import FusedUnsupported
+
+        if self.n > 1 and self.agg.step != "partial":
+            raise FusedUnsupported("a single-step aggregate streams on one shard")
         self._prebuild()
         res = self._run_device_slab()
         if res is not None:
             return res
-        res = self._run_generated()
-        if res is not None:
-            return res
+        if self.n == 1:
+            res = self._run_generated()
+            if res is not None:
+                return res
         chunk_rows = int(self.executor.session.get("stream_chunk_rows"))
         return self._run_chunks(self._chunks(chunk_rows))
 
@@ -288,6 +308,8 @@ class StreamingAggregator:
         if staged is None:
             return None
         slab, num_rows = staged
+        if self.n > 1:
+            return self._run_chunks(self._slab_shard_chunks(slab, num_rows))
         dense = None if self.build_roots else self._try_dense(slab, num_rows)
         if dense is not None:
             return dense
@@ -295,6 +317,7 @@ class StreamingAggregator:
             cap = min(cap, slab.capacity)
         else:
             cap = self._fitting_chunk_rows(slab, num_rows)
+        self.shard_cap = cap
         return self._run_chunks(self._slab_chunks(slab, num_rows, cap))
 
     # === connector-generated device chunks ================================
@@ -321,6 +344,7 @@ class StreamingAggregator:
         else:
             probe = Batch(make_chunk(0, 1), 1)
             cap = self._fitting_chunk_rows(probe, num_rows)
+        self.shard_cap = cap
 
         stats = self.executor.ingest_stats
 
@@ -371,6 +395,41 @@ class StreamingAggregator:
                 for c in slab.columns
             ]
             yield Batch(cols, cap, pos < num_rows - off)
+
+    def _slab_shard_chunks(self, slab: Batch, num_rows: int):
+        """On N > 1 shards, the staged slab in the shape of the host stream
+        (:meth:`_host_parts`): the connector's splits for the same target
+        set the per-shard capacity (a split's mean rows, at most
+        ``stream_chunk_rows``), N parts a step, and dead rows past the
+        table's end pad a short last step. The parts are cut from the
+        slab's rows in order, not at split boundaries, so a step's N parts
+        are one view of N x cap slab rows (shard-major), copied only where
+        the last step runs past the slab. Nothing goes through the host."""
+        chunk_rows = int(self.executor.session.get("stream_chunk_rows"))
+        n = self.n
+        connector = self.executor.catalogs.get(self.scan.catalog)
+        est = connector.estimate_rows(self.scan.schema, self.scan.table)
+        target = max(n, ((est or 0) + chunk_rows - 1) // chunk_rows)
+        splits = max(1, len(connector.get_splits(
+            self.scan.schema, self.scan.table, target_splits=target)))
+        cap = bucket_capacity(max(1, min(-(-num_rows // splits), chunk_rows)))
+        self.shard_cap = cap
+        width = n * cap
+        pos = torch.arange(width, device=self.device)
+
+        def rows(x, off):
+            view = x[off : off + width]
+            if view.shape[0] == width:
+                return view
+            return torch.cat([view, view.new_zeros((width - view.shape[0],) + tuple(x.shape[1:]))])
+
+        for off in range(0, max(num_rows, 1), width):
+            cols = [
+                Column(c.type, rows(c.data, off),
+                       None if c.valid is None else rows(c.valid, off), c.dictionary)
+                for c in slab.columns
+            ]
+            yield Batch(cols, width, pos < num_rows - off, self.device, shards=n)
 
     def _try_dense(self, slab: Batch, num_rows: int) -> Optional[Result]:
         """Dense-domain fast path: when the group keys span a small
@@ -556,18 +615,23 @@ class StreamingAggregator:
             cols[j] = Column(c.type, data, c.valid, running)
         return Batch(cols, b.num_rows, b.sel)
 
-    def _chunks(self, chunk_rows: int):
-        """Device chunks of the table's splits, decoded through the ingest
-        tier (``_read_splits``), each padded to one capacity decided from
-        the first split and copied to the device (``_to_device``)."""
+    def _host_parts(self, chunk_rows: int):
+        """The host parts of the table's splits, decoded through the ingest
+        tier (``_read_splits``): lists of N parts a step (one a shard), each
+        at most ``cap`` rows, a per-shard capacity decided from the first
+        split; a short last step is filled with empty parts. Yields
+        ``(parts, cap)`` (reference ``_chunks``, ``:204-250``)."""
         connector = self.executor.catalogs.get(self.scan.catalog)
         est = connector.estimate_rows(self.scan.schema, self.scan.table)
-        target = max(1, ((est or 0) + chunk_rows - 1) // chunk_rows)
+        target = max(self.n, ((est or 0) + chunk_rows - 1) // chunk_rows)
         splits = connector.get_splits(
             self.scan.schema, self.scan.table, target_splits=target,
             constraint=self.scan.constraint,
         )
-        cap = None
+        if not splits:
+            return
+        cap = proto = None
+        pending: list[Batch] = []
         # double-buffered decode: the next split decodes on a background
         # thread while the device steps over the current chunk
         for b in self.executor._read_splits(
@@ -577,14 +641,45 @@ class StreamingAggregator:
             b = self._canonicalize_dicts(b)
             if cap is None:
                 cap = bucket_capacity(max(1, min(b.num_rows, chunk_rows)))
+                proto = b
             lo = 0
             while True:
                 hi = min(lo + cap, b.num_rows)
-                piece = _slice_rows(b, lo, hi) if b.num_rows else b
-                yield self.executor._to_device(_pad_batch(piece, cap))
+                pending.append(_slice_rows(b, lo, hi) if b.num_rows else b)
+                if len(pending) == self.n:
+                    yield pending, cap
+                    pending = []
                 lo = hi
                 if lo >= b.num_rows:
                     break
+        if pending:
+            pending += [_empty_like(proto)] * (self.n - len(pending))
+            yield pending, cap
+
+    def _chunks(self, chunk_rows: int):
+        """Device chunks of the host parts (:meth:`_host_parts`): each
+        step's parts padded to the per-shard capacity, shard-major in one
+        batch of N x cap rows (its selection marks the parts' live rows),
+        copied to the device in one transfer."""
+        for parts, cap in self._host_parts(chunk_rows):
+            self.shard_cap = cap
+            padded = [_pad_batch(p, cap) for p in parts]
+            if self.n == 1:
+                yield self.executor._to_device(padded[0])
+                continue
+            cols = []
+            for j, c in enumerate(padded[0].columns):
+                valids = [p.columns[j].valid for p in padded]
+                valid = None if all(v is None for v in valids) else torch.cat(
+                    [torch.ones(cap, dtype=torch.bool) if v is None else v for v in valids]
+                )
+                cols.append(Column(c.type, torch.cat([p.columns[j].data for p in padded]),
+                                   valid, c.dictionary))
+            moved = self.executor._to_device(
+                Batch(cols, self.n * cap, torch.cat([p.sel for p in padded]))
+            )
+            yield Batch(moved.columns, moved.num_rows, moved.sel, self.device,
+                        shards=self.n)
 
     # === the step ========================================================
 
@@ -605,7 +700,13 @@ class StreamingAggregator:
         return tracer
 
     def _chunk_prep(self, tracer):
+        from trino_tpu_torch.parallel import mesh as M
+
         res = tracer._exec(self.agg.source)
+        if self.n > 1:
+            # shard-major over the N shards, whatever the spine's last
+            # operator left (an interpreted join compacts its rows)
+            res = Result(M.as_sharded(res.batch, self.n), res.layout)
         sel = res.batch.selection_mask()
         agg_inputs, specs, string_dicts = tracer._agg_inputs(self.agg, res)
         keys = [res.opt_pair(k) for k in self.agg.group_keys]
@@ -649,7 +750,10 @@ class StreamingAggregator:
         }
 
     def _init_state(self, meta: dict) -> dict:
-        rows = self.G if self.nkeys else 1
+        """The carried state: G group rows a shard (N x G, shard-major, as
+        ``parallel/mesh.py`` lays out a sharded column), one row a shard
+        without group keys."""
+        rows = self.n * (self.G if self.nkeys else 1)
         dev = self.device
 
         def zeros(shape, dt):
@@ -670,10 +774,26 @@ class StreamingAggregator:
         return state
 
     def _step(self, state, prep, meta) -> dict:
+        """One step: each shard folds its rows of the chunk into its own
+        carried state, a grouped one in one pass over all shards
+        (:meth:`_step_grouped`), a global one under ``smap``; a shard's
+        group-budget overflow sets the flag (the reference's ``pmax``)."""
+        from trino_tpu_torch.parallel import mesh as M
+
         agg_inputs, _, keys, _, sel, chunk_dicts = prep
+        carried = {k: v for k, v in state.items() if k != "overflow"}
         if self.nkeys:
-            return self._step_grouped(state, keys, sel, agg_inputs, meta, chunk_dicts)
-        return self._step_global(state, sel, agg_inputs, meta, chunk_dicts)
+            out, ovf = self._step_grouped(carried, keys, sel, agg_inputs, meta, chunk_dicts)
+        elif self.n == 1:
+            out, ovf = self._step_global(carried, sel, agg_inputs, meta, chunk_dicts)
+        else:
+            out, ovf = M.smap(
+                lambda c, s, a: self._step_global(c, s, a, meta, chunk_dicts),
+                self.mesh, [carried, sel, agg_inputs],
+            )
+            ovf = ovf.any()
+        out["overflow"] = state["overflow"] | ovf
+        return out
 
     @staticmethod
     def _string_ranks(meta, j, chunk, state_codes, chunk_ranks):
@@ -691,17 +811,27 @@ class StreamingAggregator:
             codes = remap_codes(codes, remap)
         return rank_codes(carried, state_codes), rank_codes(carried, codes)
 
-    def _step_grouped(self, state, keys, sel, agg_inputs, meta, chunk_dicts) -> dict:
-        """Chunk rows -> at most G chunk groups, then the carried groups
-        and the chunk groups -> at most G groups. Every integer lane that
+    def _step_grouped(self, state, keys, sel, agg_inputs, meta, chunk_dicts):
+        """The chunk rows -> chunk groups, then the carried groups and the
+        chunk groups -> at most G groups a shard; returns the new state
+        and the overflow flag. On N > 1 shards both group-bys run once over
+        all N x G rows with the shard as the leading key, so the groups
+        come out shard by shard, each shard's in key order (as a group-by
+        a shard gives them), and the merged groups are placed G a shard
+        (:func:`_place_by_shard`). Every integer lane that
         merges by addition (the counts, the integer sums, each limb lane)
         travels in one packed (rows, lanes) input; min/max combine over
         the non-empty sides and float sums add, each as its own input."""
         specs, combine = meta["specs"], meta["combine"]
-        G = self.G
-        glive = torch.arange(G, device=self.device)
+        n, total = self.n, self.n * self.G
+        glive = torch.arange(total, device=self.device)
+        state_kd, state_kv = list(state["key_data"]), list(state["key_valid"])
+        if n > 1:
+            rows = sel.shape[0]
+            keys = [(torch.arange(rows, device=self.device) // (rows // n), None)] + list(keys)
+            state_kd, state_kv = [glive // self.G] + state_kd, [None] + state_kv
         (ckd, ckv), craw, cng, covf = group_aggregate(
-            keys, sel, agg_inputs, specs, G
+            keys, sel, agg_inputs, specs, total
         )
         cvals, ccnts = [], []
         for spec, r in zip(specs, craw):
@@ -715,10 +845,10 @@ class StreamingAggregator:
                  if combine[j] == "sum" and not v.is_floating_point()]
 
         def packed(vals, cnts):
-            lanes = [vals[j].reshape(G, -1).to(torch.int64) for j in packs]
-            lanes += [c.reshape(G, 1).to(torch.int64) for c in cnts]
+            lanes = [vals[j].reshape(total, -1).to(torch.int64) for j in packs]
+            lanes += [c.reshape(total, 1).to(torch.int64) for c in cnts]
             if not lanes:  # a GROUP BY without aggregates: keys alone
-                lanes = [torch.zeros((G, 1), dtype=torch.int64, device=self.device)]
+                lanes = [torch.zeros((total, 1), dtype=torch.int64, device=self.device)]
             return torch.cat(lanes, dim=1)
 
         minputs = [(torch.cat([packed(state["values"], state["counts"]),
@@ -737,14 +867,12 @@ class StreamingAggregator:
                 minputs.append((torch.cat([sv, cv]), None))
             mspecs.append(AggSpec(combine[j]))
         mkeys = [
-            (torch.cat([sk, ck.to(sk.dtype)]), torch.cat([sv, cv]))
-            for sk, ck, sv, cv in zip(
-                state["key_data"], ckd, state["key_valid"], ckv
-            )
+            (torch.cat([sk, ck.to(sk.dtype)]), None if sv is None else torch.cat([sv, cv]))
+            for sk, ck, sv, cv in zip(state_kd, ckd, state_kv, ckv)
         ]
         msel = torch.cat([state["live"], glive < cng])
         (nkd, nkv), nraw, nng, novf = group_aggregate(
-            mkeys, msel, minputs, mspecs, G
+            mkeys, msel, minputs, mspecs, total
         )
         summed = nraw[0][0]
         nvals = [None] * len(specs)
@@ -757,16 +885,21 @@ class StreamingAggregator:
             nvals[j] = r[0]
             if j in strings:
                 nvals[j] = codes_of_ranks(meta["string_dicts"][j], r[0]).to(torch.int64)
-        return {
+        out = {
             "key_data": nkd,
             "key_valid": nkv,
             "live": glive < nng,
             "values": nvals,
             "counts": [summed[:, col + j] for j in range(len(specs))],
-            "overflow": state["overflow"] | covf | novf,
         }
+        if n == 1:
+            return out, covf | novf
+        return _place_by_shard(out, n, self.G, covf | novf)
 
-    def _step_global(self, state, sel, agg_inputs, meta, chunk_dicts) -> dict:
+    def _step_global(self, state, sel, agg_inputs, meta, chunk_dicts):
+        """One shard's step without group keys: its one accumulator row
+        and the chunk's totals -> one row (a global aggregate cannot
+        overflow)."""
         from trino_tpu_torch.ops.decimal128 import compare128
 
         specs, combine = meta["specs"], meta["combine"]
@@ -797,11 +930,9 @@ class StreamingAggregator:
                 nv = sv + cv
             nvals.append(nv)
             ncnts.append(sc + cc)
-        return {
-            "values": nvals,
-            "counts": ncnts,
-            "overflow": state["overflow"],  # a global agg cannot overflow
-        }
+        return {"values": nvals, "counts": ncnts}, torch.zeros(
+            (), dtype=torch.bool, device=self.device
+        )
 
     # === result assembly =================================================
 
@@ -823,17 +954,19 @@ class StreamingAggregator:
 
     def _finish_partial(self, state, meta) -> Result:
         """The partial aggregate's accumulator rows: keys, then per
-        aggregate its value (limb sums as wide (hi, lo)) and count."""
+        aggregate its value (limb sums as wide (hi, lo)) and count; G rows
+        a shard (N x G, reference ``:1030-1049``), one a shard without
+        group keys."""
         agg = self.agg
         cols: list[Column] = []
         layout: dict[str, int] = {}
         if self.nkeys:
             cols = self._key_columns(state, meta)
             layout = {k.name: i for i, k in enumerate(agg.group_keys)}
-            live, total = state["live"], self.G
+            live, total = state["live"], self.n * self.G
         else:
-            live = torch.ones(1, dtype=torch.bool, device=self.device)
-            total = 1
+            total = self.n
+            live = torch.ones(total, dtype=torch.bool, device=self.device)
         for (vsym, csym), spec, v, c, sdict in zip(
             agg.acc_symbols, meta["specs"], state["values"], state["counts"],
             meta["string_dicts"],
@@ -850,7 +983,7 @@ class StreamingAggregator:
             layout[vsym.name] = len(cols) - 1
             cols.append(Column(T.BIGINT, c))
             layout[csym.name] = len(cols) - 1
-        return Result(Batch(cols, total, live), layout)
+        return Result(Batch(cols, total, live, self.device, shards=self.n), layout)
 
     def _finish_single(self, state, meta) -> Result:
         agg = self.agg
@@ -886,6 +1019,46 @@ def _slice_rows(b: Batch, lo: int, hi: int) -> Batch:
         for c in b.columns
     ]
     return Batch(cols, hi - lo, None if b.sel is None else b.sel[lo:hi])
+
+
+def _place_by_shard(groups: dict, n: int, g: int, overflow):
+    """Groups of all shards, shard by shard (the shard their leading key
+    column), placed G = ``g`` a shard, shard-major: group ``i`` of shard
+    ``s`` goes to row ``s * g + i``. Returns the placed state and the
+    overflow flag, set where a shard has more than ``g`` groups (its
+    groups past ``g`` are dropped)."""
+    shard, live = groups["key_data"][0], groups["live"]
+    total = n * g
+    at = torch.where(live, shard, n)
+    per = torch.zeros(n + 1, dtype=torch.int64, device=live.device)
+    per = per.scatter_add_(0, at, torch.ones_like(at))[:n]
+    starts = torch.cumsum(per, 0) - per
+    rank = torch.arange(total, device=live.device) - starts[shard.clamp(0, n - 1)]
+    kept = live & (rank < g)
+    slot = torch.where(kept, shard * g + rank, total)
+
+    def place(x):
+        out = x.new_zeros((total + 1,) + tuple(x.shape[1:]))
+        out[slot] = x
+        return out[:total]
+
+    placed = {
+        "key_data": [place(x) for x in groups["key_data"][1:]],
+        "key_valid": [place(x) for x in groups["key_valid"][1:]],
+        "live": place(kept),
+        "values": [place(x) for x in groups["values"]],
+        "counts": [place(x) for x in groups["counts"]],
+    }
+    return placed, overflow | (per > g).any()
+
+
+def _empty_like(b: Batch) -> Batch:
+    """A part of no rows with ``b``'s columns: the padding of a short last
+    step (reference ``_empty_like``)."""
+    cols = [
+        Column(c.type, c.data[:0], None, c.dictionary) for c in b.columns
+    ]
+    return Batch(cols, 0)
 
 
 def _pad_batch(piece: Batch, cap: int) -> Batch:

@@ -178,14 +178,16 @@ def _pad_shards(cols, keys, h, sel, n: int):
 
 def _sharded_probe(mesh, probe_cols, probe_keys, ph, probe_sel, build_cols, build_keys,
                    bh, build_sel, per_shard_cap, join_type, nlk, build_sharded=False,
-                   strategy="sort", table_cap=None):
+                   strategy="sort", table_cap=None, build=None):
     """The per-shard join (reference :883-1041): each shard builds its
     table from the build side (its own slice when ``build_sharded``, the
     whole replicated side otherwise; K2 builds it on the dense and matmul
     tiers, once a shard), probes its own rows and expands the matches
     into ``per_shard_cap`` slots. ``per_shard_cap`` None sizes each shard
     to its matches (one host read a shard) and pads the shards to the
-    largest.
+    largest. ``build``, a :class:`JoinBuild` of the whole replicated
+    side made once (a streamed chunk's joins), is probed by every shard
+    instead; the build arguments are then unused.
 
     Returns ``(out_cols, out_sel, overflow, table_overflow, total)``:
     global shard-major output columns (probe payload then build payload,
@@ -195,15 +197,16 @@ def _sharded_probe(mesh, probe_cols, probe_keys, ph, probe_sel, build_cols, buil
     n = mesh.size
     probe_cols, probe_keys, ph, probe_sel = _pad_shards(
         list(probe_cols), list(probe_keys), ph, probe_sel, n)
-    build_cols, build_keys, bh, build_sel = _pad_shards(
-        list(build_cols), list(build_keys), bh, build_sel, n)
+    if build is None:
+        build_cols, build_keys, bh, build_sel = _pad_shards(
+            list(build_cols), list(build_keys), bh, build_sel, n)
 
     def local(xs, s, sharded=True):
         return [M.shard_view(x, n)[s] if sharded else x for x in xs]
 
     shards = []
     for s in range(n):
-        b = build_join(
+        b = build if build is not None else build_join(
             local(build_cols, s, build_sharded), local(build_keys, s, build_sharded),
             *local([bh, build_sel], s, build_sharded), nlk, strategy, table_cap,
         )

@@ -464,6 +464,39 @@ class ClusterScheduler:
         self.engine = engine
         self.node_manager = node_manager
         self.node_scheduler = NodeScheduler(node_manager)
+        # the remote tasks of every running query by query id (the dict
+        # that ``execute`` fills fragment by fragment), and the ids whose
+        # query a kill or cancel ended (in order, the newest kept):
+        # ``cancel_query`` cancels their tasks, and ``execute`` stops
+        # scheduling more, or never starts a query cancelled while planned
+        self._live_lock = threading.Lock()
+        self._live: dict[str, dict] = {}
+        self._cancelled: dict[str, None] = {}
+
+    # ids of cancelled queries kept for an ``execute`` that has not begun
+    _CANCELLED_KEPT = 256
+
+    def cancel_query(self, query_id: str) -> int:
+        """Cancel every remote task of a query (``DELETE /v1/task/{id}``
+        each), as soon as the coordinator kills or cancels it: a cancelled
+        task stops serializing pages and frees its reservation instead of
+        running to its end. Tasks that ``execute`` schedules afterwards are
+        cancelled as their stage is placed, and a query not yet scheduled
+        never starts. Returns the count of tasks cancelled here."""
+        with self._live_lock:
+            self._cancelled[query_id] = None
+            while len(self._cancelled) > self._CANCELLED_KEPT:
+                del self._cancelled[next(iter(self._cancelled))]
+            tasks = self._live.get(query_id) or {}
+            victims = [t for ts in tasks.values() for t in ts]
+        for t in victims:
+            t.cancel()
+        return len(victims)
+
+    def _check_cancelled(self, query_id: str) -> None:
+        with self._live_lock:
+            if query_id in self._cancelled:
+                raise ExecutionError(f"Query {query_id} was canceled")
 
     def _http_opts(self, session: Session) -> dict:
         """Per-query HTTP tuning + chaos hooks for remote-task calls."""
@@ -659,7 +692,10 @@ class ClusterScheduler:
                 "units": units_fused,
             }
         ok = False
+        with self._live_lock:
+            self._live[query_id] = remote_tasks
         try:
+            self._check_cancelled(query_id)
             for frag in order:
                 if frag.id == sub.fragment.id:
                     continue
@@ -701,6 +737,8 @@ class ClusterScheduler:
                     spool=spool_payload,
                     members=members,
                 )
+                # a kill or cancel that landed while the stage was placed
+                self._check_cancelled(query_id)
                 if policy == RetryPolicy.TASK:
                     # stage barrier: producers must FINISH (with retained
                     # output) before consumers launch, so a consumer only
@@ -739,6 +777,9 @@ class ClusterScheduler:
                     t.cancel()
             raise
         finally:
+            with self._live_lock:
+                self._live.pop(query_id, None)
+                self._cancelled.pop(query_id, None)
             if store is not None:
                 # the query is done either way: record what got spooled,
                 # then free the spool (results already left the cluster)
@@ -1392,6 +1433,8 @@ class ClusterScheduler:
 
         try:
             while pending:
+                # a killed or cancelled query stops at its stage barrier
+                self._check_cancelled(query_id)
                 for i in sorted(pending):
                     t = tasks[i]
                     if t.start_error is not None:

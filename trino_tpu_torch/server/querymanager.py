@@ -199,10 +199,13 @@ class ManagedQuery:
             from trino_tpu_torch.ft.retry import is_retryable
 
             code, name, typ = classify_error(e)
-            self.error = ErrorInfo(
-                str(e), code, name, typ, traceback.format_exc(),
-                retryable=is_retryable(e),
-            )
+            if not (self._cancelled.is_set() and self.state.is_terminal()):
+                # a kill or cancel ended the query and wrote its error;
+                # the engine call that its cancelled tasks unwound keeps it
+                self.error = ErrorInfo(
+                    str(e), code, name, typ, traceback.format_exc(),
+                    retryable=is_retryable(e),
+                )
             if release is not None:
                 release()
             self.state.set(QueryState.FAILED)
@@ -303,8 +306,22 @@ class ManagedQuery:
             spans=spans,
         )
 
+    def _cancel_tasks(self) -> None:
+        """Cancel the query's worker tasks through the engine's cluster
+        scheduler, on a thread of its own: each task's ``DELETE`` is an
+        HTTP call, and a kill comes from the announce handler. Without a
+        cluster scheduler the query has no remote task."""
+        scheduler = getattr(self._engine, "cluster_scheduler", None)
+        if scheduler is None:
+            return
+        threading.Thread(
+            target=scheduler.cancel_query, args=(self.query_id,),
+            name=f"cancel-tasks-{self.query_id}", daemon=True,
+        ).start()
+
     def cancel(self, message: str = "Query was canceled") -> None:
         self._cancelled.set()
+        self._cancel_tasks()
         abandon = self._admission_abandon
         if abandon is not None:
             self._admission_abandon = None
@@ -336,8 +353,10 @@ class ManagedQuery:
     def kill(self, message: str) -> bool:
         """Administrative kill (cluster memory manager): FAILED with
         CLUSTER_OUT_OF_MEMORY, not user-canceled (reference:
-        ``ClusterMemoryManager.java:104`` killQuery)."""
+        ``ClusterMemoryManager.java:104`` killQuery). The query's worker
+        tasks are cancelled with it."""
         self._cancelled.set()
+        self._cancel_tasks()
         if self.state.set(QueryState.FAILED):
             self._flight_event("killed", message=message)
             self.error = ErrorInfo(
