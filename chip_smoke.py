@@ -206,6 +206,24 @@ Phases, each printed as it ends (any failure raises and exits non-zero):
    over the 22 queries' runs; it must be above 0 and every checked build
    equal to plain. ``--only cluster`` runs it alone.
 
+7f. spmd: a coordinator and two workers on the card in one SPMD group
+   (``MultiProcessQueryRunner(spmd=True)``, a 0.24 share and a 64 MiB
+   exchange arena each, started through ``--cluster-process``). At boot
+   each process checks the peer-copy collectives (CUDA IPC arenas, gloo
+   barriers) and a hash repartition against the one-process mesh, with
+   an all to all and an all gather past the arena (rounds). TPC-H Q1, Q3,
+   Q5 and Q10 at SF1 cold and once warm against the committed answers:
+   each must run SPMD (no worker task; every process's run in the
+   query's ``exchangeStats.spmd``), Q3, Q5 and Q10 must launch K2 in
+   every process, and the exchange counters must equal a one-process
+   three-shard mesh's run on the card (made in phase ``mesh``'s time,
+   over its staged tables); each line gives every process's K2 launches,
+   the bytes and ms its transport moved, and phase ``cluster``'s and the
+   in-process times. Then two overlapping queries, a window query that
+   falls back to tasks, and after a worker is killed a query that falls
+   back, each against its reference rows. Every K2 build of every
+   process is held against plain. ``--only spmd`` runs it alone.
+
 8. tpcds: all 64 TPC-DS queries of the port's corpus, spec text, over
    ``tpcds.sf1`` from the port's tpcds connector: the 24 tables generated
    and staged on the card (rows, bytes, generation and staging seconds
@@ -251,13 +269,14 @@ object with one entry per kernel of the path; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
-``python3 chip_smoke.py --only tpch22,programs,server,surface,files,tpcds,spill,mesh,cluster,verify``
+``python3 chip_smoke.py --only tpch22,programs,server,surface,files,tpcds,spill,mesh,cluster,spmd,verify``
 runs the device phase and the named phases alone (``tpch22``,
 ``programs``, ``server``, ``surface`` and ``files`` stage the SF1 tables
 first, ``spill``
 generates the SF10 tables first, ``mesh`` does both, ``mesh_sf1``
 runs phase mesh's SF1 part alone, ``cluster``'s
-workers and ``verify``'s engines generate their own splits), for work on
+workers and ``verify``'s engines generate their own splits, ``spmd``
+stages SF1 for its one-process mesh first), for work on
 one of them; it prints no result lines.
 
 After every phase a ``pool`` line gives the graph pools' bytes of the
@@ -3847,6 +3866,17 @@ def cluster_process(argv: list) -> int:
         return res
 
     DJ.build_table_cuda = checked
+    if os.environ.get("CHIP_SMOKE_SPMD_CHECK"):
+        # phase spmd: the peer-copy collectives checked as the group forms
+        from trino_tpu_torch.parallel import spmd as SP
+
+        join = SP.initialize_spmd
+
+        def joined(*args, **kwargs):
+            join(*args, **kwargs)
+            spmd_selfcheck(out)
+
+        SP.initialize_spmd = joined
     try:
         return server_main(argv)
     finally:
@@ -3926,6 +3956,8 @@ def cluster_query(runner, smi: str, schema: str, q: int, answers: dict,
                 and not fields["kernel_launches"].get("dense_join_build"):
             failures.append(f"{schema} Q{q} run {run}: the workers launched no K2")
             failed = True
+    if schema == CLUSTER_SCHEMA:
+        CLUSTER_MS[q] = times
     log("cluster", card=smi, schema=schema, query=f"Q{q}", rows=len(rows),
         matches_reference=matches, cold_ms=times[0],
         warm_ms=times[1] if runs > 1 else None,
@@ -4210,9 +4242,329 @@ def phase_cluster(smi: str) -> tuple[dict, int]:
     return launches, k2_err
 
 
+SPMD_WORKERS = 2
+# each process's share of the card (a coordinator and two workers), and
+# this script's own quarter
+SPMD_SHARE = 0.24
+SPMD_SCHEMA = "sf1"
+SPMD_QUERIES = (1, 3, 5, 10)
+# those whose processes build a join table: each launches K2
+SPMD_JOIN_QUERIES = (3, 5, 10)
+# phase cluster's cold and warm ms a query, for phase spmd
+CLUSTER_MS: dict = {}
+# the one-process three-shard mesh's run of each SPMD query, on the card
+SPMD_MESH3: dict = {}
+SPMD_WINDOW_SQL = ("select o_orderstatus, rank() over (partition by o_orderstatus"
+                   " order by o_totalprice desc) as rnk from tpch.tiny.orders"
+                   " order by o_orderstatus, rnk limit 5")
+SPMD_COUNT_SQL = "select count(*), sum(l_quantity) from tpch.sf1.lineitem"
+
+
+def spmd_selfcheck(out_dir: str) -> None:
+    """In each process of phase ``spmd``'s group, right after it joined:
+    the collectives and a hash repartition through the peer-copy
+    transport against the one-process mesh of as many shards on the
+    card, on the same seeded inputs; an all to all and an all gather
+    larger than the exchange arena go through it in rounds. One JSON file
+    a process: each check's largest difference, its ms and the bytes it
+    moved."""
+    import torch
+
+    from trino_tpu_torch.parallel import exchange as X
+    from trino_tpu_torch.parallel import mesh as M
+    from trino_tpu_torch.parallel import transport as TR
+
+    tr = TR.current()
+    mesh = M.make_mesh(device="cuda")
+    one = M.make_mesh(mesh.world, "cuda")
+    w, r = mesh.world, mesh.rank
+    g = torch.Generator().manual_seed(17)
+    checks = {}
+
+    def check(name, fn_spmd, fn_one):
+        moved0 = tr.stats["bytes_moved"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn_spmd()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = fn_one()
+        err = 0 if got.shape == want.shape and bool((got == want).all()) else (
+            float((got.double() - want.double()).abs().max()) if got.shape == want.shape
+            else float("inf"))
+        checks[name] = {"max_abs_err": err, "ms": ms,
+                        "bytes_moved": tr.stats["bytes_moved"] - moved0}
+
+    rows = tr.slot // 8 + 4097  # a block past one arena slot: two rounds
+    blocks = torch.randint(-(1 << 40), 1 << 40, (w, w, rows), generator=g).cuda()
+    check("all_to_all", lambda: M.all_to_all(blocks[r:r + 1], mesh),
+          lambda: M.all_to_all(blocks)[r:r + 1])
+    parts = torch.randn((w, tr.arena_bytes // 8 + 1001), generator=g,
+                        dtype=torch.float64).cuda()
+    check("all_gather", lambda: M.all_gather(parts[r:r + 1], mesh), lambda: M.all_gather(parts))
+    vals = torch.randint(0, 1 << 40, (w, 5), generator=g).cuda()
+    check("psum", lambda: M.psum(vals[r:r + 1], mesh), lambda: M.psum(vals))
+    check("pmax", lambda: M.pmax(vals[r:r + 1], mesh), lambda: M.pmax(vals))
+    m = 1 << 20
+    khash = torch.randint(-(1 << 62), 1 << 62, (w * m,), generator=g).cuda()
+    sel = (torch.rand(w * m, generator=g) < 0.9).cuda()
+    col = torch.randint(-(1 << 40), 1 << 40, (w * m,), generator=g).cuda()
+    bucket = X.needed_bucket(one, khash, sel)
+    mine = slice(r * m, (r + 1) * m)
+    check("hash_repartition",
+          lambda: X.hash_repartition(mesh, [col[mine]], khash[mine], sel[mine], bucket)[0][0],
+          lambda: X.hash_repartition(one, [col], khash, sel, bucket)[0][0].reshape(w, -1)[r])
+    with open(os.path.join(out_dir, f"spmd_check.{os.getpid()}.json"), "w") as f:
+        json.dump({"rank": r, **tr.describe(), "slot_bytes": tr.slot, "checks": checks}, f)
+
+
+def spmd_mesh_reference(smi: str, runner) -> None:
+    """Phase ``spmd``'s comparison, made while phase ``tpch22``'s engine
+    and staged tables are there: each SPMD query once on a one-process
+    mesh of three shards on the card (:data:`SPMD_MESH3`: its exchange
+    counters, its cold ms and whether its rows equal the answers)."""
+    import torch
+
+    from trino_tpu_torch.benchmarks import tpch as B
+
+    answers = B.load_answers()
+    texts = B.queries(f"tpch.{SPMD_SCHEMA}")
+    mesh = mesh_runner(runner.engine, 1 + SPMD_WORKERS)
+    try:
+        for q in SPMD_QUERIES:
+            want = answers["queries"][str(q)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mesh.engine.execute_statement(texts[q], mesh.session)
+            torch.cuda.synchronize()
+            SPMD_MESH3[q] = {
+                "cold_ms": (time.perf_counter() - t0) * 1e3,
+                "matches_reference": B.first_mismatch(
+                    B.canonical_rows(res.rows), want["rows"], want["order_by"]) is None,
+                **mesh_fields(res)}
+    finally:
+        runner.engine.mesh = None
+    log("spmd", card=smi, part="mesh3_reference", shards=1 + SPMD_WORKERS,
+        queries={f"Q{q}": v for q, v in SPMD_MESH3.items()})
+
+
+def _spmd_run(runner, sql: str) -> tuple[list, dict]:
+    """``runner.execute`` of ``sql`` and the coordinator's document of
+    that statement, by the query id its first response names."""
+    from trino_tpu_torch.client import ClientSession, StatementClient
+
+    client = StatementClient(runner.coordinator_uri, sql,
+                             ClientSession(properties={"execution_mode": "cluster"}))
+    rows = list(client.rows())
+    return rows, http_json(f"{runner.coordinator_uri}/v1/query/{client.query_id}")
+
+
+def _worker_task_count(runner) -> int:
+    n = 0
+    for uri in runner.worker_uris:
+        try:
+            n += len(http_json(f"{uri}/v1/task"))
+        except OSError:
+            continue
+    return n
+
+
+def phase_spmd(smi: str) -> tuple[dict, int]:
+    """Phase ``spmd``: a coordinator and :data:`SPMD_WORKERS` workers on the
+    card in one SPMD group (``MultiProcessQueryRunner(spmd=True)``, each
+    process :data:`SPMD_SHARE` of the card and a 64 MiB exchange arena
+    (``transport.ARENA_BYTES``), started through :func:`cluster_process` so
+    that every K2 build of every process is held against its plain
+    version). At boot each process checks the peer-copy collectives
+    against the one-process mesh (:func:`spmd_selfcheck`). TPC-H Q1, Q3,
+    Q5 and Q10 at SF1, cold and once warm, rows against the committed
+    answers: each ran SPMD (no worker task; every process's run in the
+    query's document), Q3, Q5 and Q10 launched K2 in every process, the
+    exchange counters equal the one-process three-shard mesh's
+    (:data:`SPMD_MESH3`), beside phase ``cluster``'s and the in-process
+    times. Then two overlapping queries, a window query that falls back
+    to tasks, and after a worker is killed a query that falls back.
+    Returns the processes' launches over the four queries' runs and the
+    largest K2 error."""
+    import secrets
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch.benchmarks import tpch as B
+    from trino_tpu_torch.server import auth
+    from trino_tpu_torch.testing import LocalQueryRunner, MultiProcessQueryRunner
+
+    t_phase = time.perf_counter()
+    answers = B.load_answers()
+    texts = B.queries(f"tpch.{SPMD_SCHEMA}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    k2_dir = os.path.join(work, "k2")
+    os.makedirs(k2_dir)
+    failures, launches = [], {"dense_groupby": 0, "dense_join_build": 0}
+    os.environ.setdefault(auth.ENV_VAR, secrets.token_hex(16))
+    t0 = time.perf_counter()
+    checks: list = []
+    runner = MultiProcessQueryRunner(
+        n_workers=SPMD_WORKERS, device="cuda", card_share=SPMD_SHARE, spmd=True,
+        command=[sys.executable, os.path.abspath(__file__), "--cluster-process"],
+        extra_env={"CHIP_SMOKE_K2_DIR": k2_dir, "CHIP_SMOKE_SPMD_CHECK": "1",
+                   "PYTHONPATH": CHILD_ENV["PYTHONPATH"]},
+    )
+    boot_s = time.perf_counter() - t0
+    try:
+        for name in sorted(os.listdir(k2_dir)):
+            if name.startswith("spmd_check."):
+                with open(os.path.join(k2_dir, name)) as f:
+                    checks.append({**json.load(f), "pid": name.split(".")[1]})
+        checks.sort(key=lambda c: c["rank"])
+        log("spmd", card=smi, part="group", processes=1 + SPMD_WORKERS, card_share=SPMD_SHARE,
+            boot_s=boot_s, transports=sorted({c["transport"] for c in checks}),
+            arena_bytes=[c["arena_bytes"] for c in checks],
+            checks={c["rank"]: c["checks"] for c in checks})
+        if len(checks) != 1 + SPMD_WORKERS or {c["transport"] for c in checks} != {"peer"}:
+            failures.append(f"the group's data plane is not peer copies in every process: "
+                            f"{[(c['rank'], c['transport']) for c in checks]}")
+        for c in checks:
+            for nm, v in c["checks"].items():
+                if v["max_abs_err"]:
+                    failures.append(f"rank {c['rank']} {nm} != the one-process mesh")
+        # 1. the four queries, cold then warm
+        cold_sum = warm_sum = 0.0
+        for q in SPMD_QUERIES:
+            want = answers["queries"][str(q)]
+            times, per_run = [], []
+            for run in range(2):
+                t0 = time.perf_counter()
+                rows, doc = _spmd_run(runner, texts[q])
+                times.append((time.perf_counter() - t0) * 1e3)
+                bad = B.first_mismatch(B.canonical_rows(rows), want["rows"], want["order_by"])
+                if bad is not None:
+                    failures.append(f"Q{q} run {run}: {bad}")
+                spmd = (doc.get("exchangeStats") or {}).get("spmd")
+                if not spmd:
+                    failures.append(f"Q{q} run {run} did not run SPMD")
+                    continue
+                procs = [spmd["coordinator"]] + spmd["workers"]
+                k2 = [p.get("launches", {}).get("dense_join_build", 0) for p in procs]
+                for p in procs:
+                    for k in launches:
+                        launches[k] += p.get("launches", {}).get(k, 0)
+                if q in SPMD_JOIN_QUERIES and not all(k2):
+                    failures.append(f"Q{q} run {run}: a process launched no K2 {k2}")
+                per_run.append({
+                    "k2_launches_by_rank": k2,
+                    "bytes_moved_by_rank": [p["transport"]["bytes_moved"] for p in procs],
+                    "transport_ms_by_rank": [p["transport"]["ms"] for p in procs],
+                    "collectives": spmd["coordinator"]["transport"]["collectives"],
+                    "host_reductions": spmd["coordinator"]["transport"]["host_reductions"],
+                    "process_ms_by_rank": [p["ms"] for p in procs],
+                    "exchange": {k: spmd["coordinator"]["exchange"].get(k)
+                                 for k in MESH_EXCHANGE_KEYS},
+                })
+            ref = SPMD_MESH3.get(q)
+            if ref is not None and per_run:
+                for k in ("exchanges", "shuffle_rows", "padded_shuffle_rows"):
+                    if per_run[0]["exchange"].get(k) != ref.get(k):
+                        failures.append(f"Q{q}: {k} {per_run[0]['exchange'].get(k)} against "
+                                        f"the one-process mesh's {ref.get(k)}")
+            cold_sum += times[0]
+            warm_sum += times[1]
+            log("spmd", card=smi, query=f"Q{q}", cold_ms=times[0], warm_ms=times[1],
+                cluster_cold_ms=(CLUSTER_MS.get(q) or [None])[0],
+                cluster_warm_ms=(CLUSTER_MS.get(q) or [None, None])[-1],
+                inprocess_warm_ms=TPCH22_WARM_MS.get(q),
+                mesh3_cold_ms=(ref or {}).get("cold_ms"),
+                mesh3_exchange={k: (ref or {}).get(k) for k in MESH_EXCHANGE_KEYS},
+                runs=per_run)
+        tasks = _worker_task_count(runner)
+        if tasks:
+            failures.append(f"the SPMD queries left {tasks} worker tasks")
+        log("spmd", card=smi, part="tpch", queries=len(SPMD_QUERIES), cold_total_ms=cold_sum,
+            warm_total_ms=warm_sum, worker_tasks=tasks, launches=launches,
+            seconds=time.perf_counter() - t_phase)
+        # 2. two overlapping queries
+        from concurrent.futures import ThreadPoolExecutor
+
+        count_rows, _ = runner.execute(SPMD_COUNT_SQL)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            fa = pool.submit(runner.execute, texts[1])
+            fb = pool.submit(runner.execute, SPMD_COUNT_SQL)
+            a, b = fa.result(timeout=600)[0], fb.result(timeout=600)[0]
+        want = answers["queries"]["1"]
+        ok = (B.first_mismatch(B.canonical_rows(a), want["rows"], want["order_by"]) is None
+              and b == count_rows)
+        log("spmd", card=smi, scenario="overlapping", ms=(time.perf_counter() - t0) * 1e3,
+            rows_equal=ok)
+        if not ok:
+            failures.append("overlapping queries: rows differ")
+        # 3. a window query is not fusable: per-task scheduling
+        local = LocalQueryRunner(device="cuda")
+        want_rows, _ = local.execute(SPMD_WINDOW_SQL)
+        t0 = time.perf_counter()
+        got_rows, doc = _spmd_run(runner, SPMD_WINDOW_SQL)
+        ms = (time.perf_counter() - t0) * 1e3
+        tasks = _worker_task_count(runner)
+        fell_back = "spmd" not in (doc.get("exchangeStats") or {})
+        log("spmd", card=smi, scenario="window_falls_back", ms=ms,
+            rows_equal=got_rows == want_rows, worker_tasks=tasks, ran_spmd=not fell_back)
+        if got_rows != want_rows or not tasks or not fell_back:
+            failures.append(f"window query: rows equal {got_rows == want_rows}, "
+                            f"{tasks} worker tasks, spmd {not fell_back}")
+        # 4. a lost peer: the next query falls back to tasks
+        runner.kill_worker(SPMD_WORKERS - 1)
+        dead = f"worker-{SPMD_WORKERS - 1}"
+        deadline = time.time() + 60
+        failed = False
+        while time.time() < deadline and not failed:
+            info = http_json(f"{runner.coordinator_uri}/v1/node").get("failureInfo", [])
+            failed = any(n["nodeId"] == dead and n["failed"] for n in info)
+            time.sleep(0.2)
+        tiny = B.queries("tpch.tiny")[1]
+        tiny_want = B.load_answers(
+            B.ANSWERS_SF1.replace("tpch_sf1_answers", "tpch_tiny_answers"))["queries"]["1"]
+        t0 = time.perf_counter()
+        rows, doc = _spmd_run(runner, tiny)
+        ms = (time.perf_counter() - t0) * 1e3
+        ok = B.first_mismatch(B.canonical_rows(rows), tiny_want["rows"],
+                              tiny_want["order_by"]) is None
+        fell_back = "spmd" not in (doc.get("exchangeStats") or {})
+        log("spmd", card=smi, scenario="lost_peer_falls_back", ms=ms, rows_equal=ok,
+            ran_spmd=not fell_back, dead_node_failed=failed)
+        if not ok or not fell_back:
+            failures.append(f"after a lost peer: rows equal {ok}, spmd {not fell_back}")
+    finally:
+        runner.close()
+    builds, procs = [], []
+    for name in sorted(os.listdir(k2_dir)):
+        with open(os.path.join(k2_dir, name)) as f:
+            if name.startswith("k2."):
+                builds.append((name.split(".")[1],
+                               [json.loads(line) for line in f if line.strip()]))
+            elif name.startswith("proc."):
+                procs.append((name.split(".")[1], json.load(f)))
+    rank_of = {c["pid"]: c["rank"] for c in checks}
+    per_rank = {rank_of.get(pid, -1): len(bs) for pid, bs in builds}
+    flat_builds = [b for _, bs in builds for b in bs]
+    k2_err = max([max(b["max_abs_err"], b["unplaced_err"]) for b in flat_builds] or [0])
+    log("spmd", card=smi, part="processes", k2_checked_builds_by_rank=per_rank,
+        k2_max_abs_err=k2_err, peaks_by_rank={rank_of.get(pid): p["peak_bytes"]
+                                              for pid, p in procs},
+        seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    if sorted(r for r, n in per_rank.items() if n) != list(range(1 + SPMD_WORKERS)):
+        failures.append(f"K2 builds checked by rank {per_rank}: a process checked none")
+    if k2_err:
+        failures.append(f"a process's K2 build differs from plain (max |err| {k2_err})")
+    if failures:
+        raise AssertionError("spmd: " + "; ".join(failures))
+    return launches, k2_err
+
+
 VERIFY_SCHEMA = "sf1"     # phase verify's CTAS and its large queries
-# the TPC-H queries it runs at VERIFY_SCHEMA, the others at tiny: phase
-# cluster's seven (the 22 at SF1 took the phase 119.13 s, past its ~90 s)
+# the TPC-H queries it runs at VERIFY_SCHEMA, the others at tiny: the
+# seven phase cluster ran at SF1 before phase spmd took three of them
+# (the 22 at SF1 took the phase 119.13 s, past its ~90 s)
 VERIFY_SF1_QUERIES = (1, 3, 5, 6, 9, 10, 18)
 # the TPC-H queries that launch K2 at SF1 (phase tpch22, PERF.md §4)
 VERIFY_K2_QUERIES = (2, 3, 5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21)
@@ -4424,6 +4776,20 @@ def phase_spill_alone(smi: str) -> None:
     phase_spill(runner, oracle, smi)
 
 
+def phase_spmd_alone(smi: str) -> None:
+    """Phase ``spmd`` on its own: the staged SF1 tables for its one-process
+    mesh comparison first (:func:`spmd_mesh_reference`), released before
+    the group boots."""
+    import torch
+
+    runner = tpch_sf1_runner(smi)
+    spmd_mesh_reference(smi, runner)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_spmd(smi)
+
+
 def phase_mesh_alone(smi: str) -> None:
     """Phase ``mesh`` on its own: the SF10 tables and their oracle in
     memory tables, its SF10 part, then the staged SF1 tables and its SF1
@@ -4461,6 +4827,15 @@ def main() -> int:
         return 3
     t_run = time.perf_counter()
     smi = phase_device()
+    # each phase's wall seconds (a lap ends where the next phase starts)
+    laps: dict = {}
+    t_lap = [t_run]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         # a part of the script, for work on one phase: no result lines
         for name in sys.argv[2].split(","):
@@ -4474,68 +4849,91 @@ def main() -> int:
              "mesh": phase_mesh_alone,
              "mesh_sf1": lambda smi: phase_mesh(smi, tpch_sf1_runner(smi)),
              "cluster": phase_cluster,
+             "spmd": phase_spmd_alone,
              "verify": phase_verify}[name](smi)
             gc.collect()
             torch.cuda.empty_cache()
         return 0
     kern = phase_kernel()
+    lap("device+kernel")
     t0 = time.perf_counter()
     tables = tpch_tables(SF, seed=7)
     oracle = tpch_oracle(tables)
     log("tpch", sf=SF, rows={t: len(next(iter(c.values()))) for t, c in tables.items()},
         generate_and_oracle_s=time.perf_counter() - t0)
     k2 = phase_k2(tables)
+    lap("tables+k2")
     sql_launches = phase_sql()
     if sql_launches["dense_groupby"] < 1:
         raise AssertionError("the group-by path launched no dense group-by kernel")
+    lap("sql")
     join_launches, join_k2_err, join_runner = phase_join(tables, oracle)
+    lap("join")
     if join_launches["dense_join_build"] < 1:
         raise AssertionError("the join path launched no join-build kernel")
     check_pool(join_runner.engine, "join")
     spill_launches = phase_spill(join_runner, oracle, smi)
+    lap("spill")
     check_pool(join_runner.engine, "spill")
     mesh_join_launches, mesh_join_k2_err = phase_mesh_join(join_runner, oracle, smi)
+    lap("mesh_sf10")
     # release the join phase's tables and device memory first
     del tables, oracle, join_runner
     gc.collect()
     torch.cuda.empty_cache()
     tpch_launches = phase_tpch(smi)
+    lap("tpch")
     gc.collect()
     torch.cuda.empty_cache()
     sf1_runner = tpch_sf1_runner(smi)
     t22, t22_k2_err = phase_tpch22(smi, sf1_runner)
+    lap("tpch22")
     check_pool(sf1_runner.engine, "tpch22")
     if t22["dense_join_build"] < 1:
         raise AssertionError("the TPC-H queries launched no join-build kernel")
     progs, progs_k2_err = phase_programs(smi, sf1_runner)
+    lap("programs")
     check_pool(sf1_runner.engine, "programs")
     if progs["dense_join_build"] < 1:
         raise AssertionError("the programs launched no join-build kernel")
     served, served_k1_err, served_k2_err = phase_server(smi, sf1_runner)
+    lap("server")
     check_pool(sf1_runner.engine, "server")
     observed, obs_k1_err, obs_k2_err = phase_obs(smi, sf1_runner)
+    lap("obs")
     check_pool(sf1_runner.engine, "obs")
     surface, surface_k1_err, surface_k2_err = phase_surface(smi, sf1_runner)
+    lap("surface")
     check_pool(sf1_runner.engine, "surface")
     gc.collect()
     torch.cuda.empty_cache()
     files, files_k2_err = phase_files(smi, sf1_runner)
+    lap("files")
     check_pool(sf1_runner.engine, "files")
     gc.collect()
     torch.cuda.empty_cache()
     mesh, mesh_k2_err = phase_mesh(smi, sf1_runner)
+    spmd_mesh_reference(smi, sf1_runner)
+    lap("mesh_sf1")
     del sf1_runner
     gc.collect()
     torch.cuda.empty_cache()
     clustered, cluster_k2_err = phase_cluster(smi)
+    lap("cluster")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spmd, spmd_k2_err = phase_spmd(smi)
+    lap("spmd")
     gc.collect()
     torch.cuda.empty_cache()
     ds, ds_k2_err = phase_tpcds(smi)
+    lap("tpcds")
     gc.collect()
     torch.cuda.empty_cache()
     verified, verify_k1_err, verify_k2_err = phase_verify(smi)
+    lap("verify")
     a, ka = kern["a"], k2["a"]
-    log("run", card=smi, seconds=time.perf_counter() - t_run)
+    log("run", card=smi, seconds=time.perf_counter() - t_run, phase_seconds=laps)
     print(json.dumps({"kernels": [{
         "name": "dense_groupby",
         "route": "cuda",
@@ -4568,13 +4966,14 @@ def main() -> int:
                      + observed["dense_join_build"]
                      + files["dense_join_build"] + ds["dense_join_build"]
                      + mesh_join_launches["dense_join_build"] + mesh["dense_join_build"]
-                     + clustered["dense_join_build"] + verified["dense_join_build"]),
+                     + clustered["dense_join_build"] + spmd["dense_join_build"]
+                     + verified["dense_join_build"]),
         "matches_plain": True,
         "max_abs_err": max([p["max_abs_err"] for p in k2.values()]
                            + [join_k2_err, t22_k2_err, progs_k2_err, surface_k2_err,
                               served_k2_err, obs_k2_err, files_k2_err,
                               ds_k2_err, mesh_join_k2_err, mesh_k2_err, cluster_k2_err,
-                              verify_k2_err]),
+                              spmd_k2_err, verify_k2_err]),
         "ms": ka["ms"],
         "plain_ms": ka["plain_ms"],
         "bound_ms": ka["bound_ms"],

@@ -21,9 +21,11 @@ import pytest
 
 from torch_cluster_fixtures import (
     cluster_timeline,
+    execute_with_id,
     get_json,
     get_text,
     query_id_for,
+    query_info_by_id,
     query_info_for,
     worker_tasks,
 )
@@ -399,12 +401,12 @@ JOIN_SQL = ("select o_orderpriority, count(*) as fusion_probe from orders"
 def test_spooling_coexists_with_fusion(cluster):
     """Fusion and spooled exchange coexist: turning spooling on keeps the
     same fused schedule while unit boundaries become durable."""
-    base, _ = cluster.execute(JOIN_SQL, session_properties=FUSED_CLUSTER_PROPS)
-    ex_fused = query_info_for(cluster, "fusion_probe").get("exchangeStats") or {}
+    base, _, qid = execute_with_id(cluster, JOIN_SQL, FUSED_CLUSTER_PROPS)
+    ex_fused = query_info_by_id(cluster, qid).get("exchangeStats") or {}
     assert ex_fused.get("fusedFragments", 0) >= 3, ex_fused
-    spooled, _ = cluster.execute(JOIN_SQL, session_properties={
+    spooled, _, qid = execute_with_id(cluster, JOIN_SQL, {
         **FUSED_CLUSTER_PROPS, "exchange_spooling": True, "retry_policy": "TASK"})
-    info = query_info_for(cluster, "fusion_probe")
+    info = query_info_by_id(cluster, qid)
     ex_spool = info.get("exchangeStats") or {}
     assert spooled == base
     assert ex_spool.get("fusedFragments", 0) == ex_fused.get("fusedFragments", 0)
@@ -419,9 +421,9 @@ def test_task_retry_chaos_with_fusion_on(cluster):
         chaos = {**FUSED_CLUSTER_PROPS, "retry_policy": "TASK", "task_retry_attempts": 8,
                  "fault_injection_seed": seed, "fault_task_crash_p": 0.4,
                  "retry_initial_delay_ms": 20, "retry_max_delay_ms": 200}
-        chaotic, _ = cluster.execute(JOIN_SQL, session_properties=chaos)
+        chaotic, _, qid = execute_with_id(cluster, JOIN_SQL, chaos)
         assert chaotic == clean, f"seed={seed} diverged under chaos"
-        retries += query_info_for(cluster, "fusion_probe").get("taskRetries", 0)
+        retries += query_info_by_id(cluster, qid).get("taskRetries", 0)
     assert retries > 0
 
 

@@ -64,7 +64,7 @@ def test_port_imports_neither_jax_nor_reference():
                    "server.failuredetector", "server.task", "server.cluster",
                    "exchange", "exchange.spool", "testing", "lint", "lint.cli",
                    "lint.jit_safety", "lint.concurrency", "lint.obs_metrics",
-                   "lint.lockdep", "verifier"):
+                   "lint.lockdep", "verifier", "parallel.spmd", "parallel.transport"):
         assert f"trino_tpu_torch.{module}" in names
     assert leaked == ""
 
@@ -387,9 +387,8 @@ def _answer(base_uri, method, path):
 def test_every_reference_route_has_a_counterpart_or_a_named_501():
     """Each branch of ``trino_tpu/server/http.py``'s router has a sample
     here (read from its source), and the port answers every sample as the
-    reference does (the same status), or with 501 naming the ROADMAP item
-    that will serve it (the cluster tier, 9c); never with the router's
-    unknown-path 404."""
+    reference does (the same status); never with the router's
+    unknown-path 404, and with no 501: every route is ported."""
     from trino_tpu.server.http import TrinoTpuServer as RefServer
     from trino_tpu_torch.client import Connection
     from trino_tpu_torch.server.http import TrinoTpuServer
@@ -422,19 +421,19 @@ def test_every_reference_route_has_a_counterpart_or_a_named_501():
             continue
         assert status == ref_status, (key, status, ref_status)
         assert not (status == 404 and "unknown path" in str(doc)), key
-    # SPMD, the one route of the cluster tier not ported; the cluster
-    # tier's others and the repeat tiers' answer as the reference's
-    assert not_ported == [("POST", "/v1/spmd")]
+    # every route, SPMD's (400 on a server without it) included, answers
+    # as the reference's
+    assert not_ported == []
 
 
 # the reference's modules with no counterpart in the port, each with its
-# ROADMAP item: SPMD across processes (9c's one open part: one card has
-# no faithful torch.distributed form)
-UNPORTED_MODULES = {"parallel/spmd.py": "9c"}
+# ROADMAP item: none since SPMD (parallel/spmd.py) was ported
+UNPORTED_MODULES: dict = {}
 
 
-def test_only_spmd_is_unported():
-    """``comm -23`` of the two packages' module lists is SPMD alone."""
+def test_no_module_is_unported():
+    """``comm -23`` of the two packages' module lists is empty: every
+    module of the reference has its counterpart."""
     def modules(pkg):
         root = os.path.join(REPO, pkg)
         out = set()

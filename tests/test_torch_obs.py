@@ -190,7 +190,10 @@ _INERT_JOIN = (
 
 def _span_tree(trace, runner, sql, mode):
     """Each run's spans as (name, parent's name) in emission order, a
-    cold run then a warm one; times and ids dropped."""
+    cold run then a warm one; times and ids dropped. The tracer is global,
+    so the sink may also see another thread's trace: the run's own is the
+    one whose root ``query`` span carries the id of the statement this
+    runner's engine ran (a standalone query's trace id is its query id)."""
     runner.session.set("execution_mode", mode)
     runs = []
     for _ in range(2):
@@ -200,8 +203,11 @@ def _span_tree(trace, runner, sql, mode):
             rows = runner.execute(sql)[0]
         finally:
             trace.get_tracer().remove_sink(sink)
-        (tid,) = sink.trace_ids()
+        tid = [r for r in runner.engine._recent_queries if r["query"] == sql][-1]["queryId"]
         spans = sink.spans_for(tid)
+        roots = [s for s in spans if s["parentId"] is None]
+        assert [s["name"] for s in roots] == ["query"], roots
+        assert roots[0]["attrs"]["queryId"] == tid
         names = {s["spanId"]: s["name"] for s in spans}
         runs.append([(s["name"], names.get(s["parentId"])) for s in spans])
     return runs, rows

@@ -500,16 +500,22 @@ def _announced(coordinator_uri, node_id, deadline_s=30.0) -> bool:
 
 
 def test_server_raises_without_a_gpu(monkeypatch, server):
-    """Without a GPU the default device raises; SPMD raises naming item
-    9c; a worker (with its discovery URI) starts on the CPU when asked
-    and announces itself to a coordinator."""
-    from trino_tpu_torch.server.http import NotPortedError, TrinoTpuServer
+    """Without a GPU the default device raises; ``spmd=True`` builds the
+    SPMD runner (over a group of one process when this one joined none);
+    a worker (with its discovery URI) starts on the CPU when asked and
+    announces itself to a coordinator."""
+    from trino_tpu_torch.server.http import TrinoTpuServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrinoTpuServer()
-    with pytest.raises(NotPortedError, match=r"ROADMAP item 9c"):
-        TrinoTpuServer(device="cpu", spmd=True)
+    spmd = TrinoTpuServer(device="cpu", spmd=True).start()
+    try:
+        assert spmd.spmd is not None and spmd.engine.spmd is spmd.spmd
+        assert spmd.spmd.process_count == 1 and not spmd.spmd.mesh.spans
+        assert spmd.engine.spmd_peers() == []
+    finally:
+        spmd.stop()
     for kwargs in ({"role": "worker", "node_id": "w-plain"},
                    {"role": "worker", "node_id": "w-disc", "discovery_uri": server.base_uri}):
         worker = TrinoTpuServer(device="cpu", **kwargs).start()
@@ -522,19 +528,22 @@ def test_server_raises_without_a_gpu(monkeypatch, server):
 
 
 def test_main_refuses_cluster_options(server):
-    """``main`` refuses SPMD naming item 9c; ``--role worker`` with
+    """``main`` refuses incomplete SPMD options (a rendezvous without a
+    process count and a rank inside it, or a count or rank without a
+    rendezvous) before it joins any group; ``--role worker`` with
     ``--discovery`` starts a worker process that announces itself."""
     import os
     import subprocess
     import sys
 
-    from trino_tpu_torch.server.http import NotPortedError
     from trino_tpu_torch.server.main import main
 
     for argv in (["--spmd-coordinator", "127.0.0.1:1"], ["--spmd-procs", "2"],
-                 ["--spmd-rank", "1"]):
-        with pytest.raises(NotPortedError, match=r"ROADMAP item 9c"):
+                 ["--spmd-rank", "1"],
+                 ["--spmd-coordinator", "127.0.0.1:1", "--spmd-procs", "2", "--spmd-rank", "2"]):
+        with pytest.raises(SystemExit) as exc:
             main(["--device", "cpu", *argv])
+        assert exc.value.code == 2, argv
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.Popen(
         [sys.executable, "-m", "trino_tpu_torch.server.main", "--role", "worker",
@@ -548,12 +557,6 @@ def test_main_refuses_cluster_options(server):
         proc.terminate()
         proc.wait(timeout=30)
 
-
-# (method, path, ROADMAP item) of the routes of the reference's cluster
-# tier that this package does not serve
-NOT_PORTED_ROUTES = [
-    ("POST", "/v1/spmd", "9c"),
-]
 
 # the cluster tier's other routes, each with the body a peer sends:
 # answered as a reference server answers them
@@ -620,13 +623,39 @@ def test_cluster_routes_answer_as_the_reference(server, ref_server, method, path
     assert got[0] != 501
 
 
-@pytest.mark.parametrize("method,path,item", NOT_PORTED_ROUTES)
-def test_routes_not_ported_answer_501_naming_their_item(server, method, path, item):
-    status, body = _status(server.base_uri, method, path)
-    assert status == 501
-    doc = json.loads(body.decode())
-    assert doc["roadmapItem"] == item
-    assert f"ROADMAP item {item}" in doc["error"]
+def test_spmd_route_answers_its_two_phases(server, ref_server):
+    """``POST /v1/spmd``: a server without SPMD answers 400 as the
+    reference's does; a server with it (a group of one process here)
+    stages a prepare, skips an aborted slot, runs a committed one, and
+    refuses a slot that has passed."""
+    from trino_tpu_torch.planner.serde import node_to_json
+    from trino_tpu_torch.server.http import TrinoTpuServer
+    from trino_tpu_torch.testing import LocalQueryRunner
+
+    got = _status(server.base_uri, "POST", "/v1/spmd", b'{"seq": 0}')
+    want = _status(ref_server.base_uri, "POST", "/v1/spmd", b'{"seq": 0}')
+    assert got[0] == want[0] == 400
+    assert json.loads(got[1].decode()) == json.loads(want[1].decode())
+
+    def post(s, body):
+        status, raw = _status(s.base_uri, "POST", "/v1/spmd", json.dumps(body).encode())
+        assert status == 200
+        return json.loads(raw.decode())
+
+    plan = LocalQueryRunner(device="cpu").plan("select count(*) from tpch.tiny.region")
+    s = TrinoTpuServer(device="cpu", spmd=True).start()
+    try:
+        assert post(s, {"phase": "prepare", "seq": 0}) == {"ready": True, "seq": 0}
+        assert post(s, {"phase": "commit", "seq": 0, "go": False}) == {"skipped": True, "seq": 0}
+        assert post(s, {"phase": "prepare", "seq": 1, "plan": node_to_json(plan),
+                        "session": {"catalog": "tpch", "schema": "tiny"}}) == {
+            "ready": True, "seq": 1}
+        done = post(s, {"phase": "commit", "seq": 1, "go": True})
+        assert done["ok"] is True and done["seq"] == 1
+        assert done["stats"]["rank"] == 0 and "exchange" in done["stats"]
+        assert "slot already passed" in post(s, {"phase": "prepare", "seq": 1})["error"]
+    finally:
+        s.stop()
 
 
 def test_empty_cluster_listings_equal_a_reference_coordinator():

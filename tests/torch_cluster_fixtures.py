@@ -44,6 +44,27 @@ def query_id_for(cluster, marker: str) -> str:
     return query_info_for(cluster, marker)["queryId"]
 
 
+def execute_with_id(cluster, sql: str, session_properties=None):
+    """``cluster.execute`` that also returns the statement's query id, as
+    the coordinator's first response names it: ``(rows, names, id)``."""
+    from trino_tpu_torch.client import ClientSession, StatementClient
+
+    cs = ClientSession(
+        properties={"execution_mode": "cluster", **(session_properties or {})}
+    )
+    client = StatementClient(cluster.coordinator_uri, sql, cs)
+    rows = list(client.rows())
+    names = [c.name for c in client.columns] if client.columns else []
+    return rows, names, client.query_id
+
+
+def query_info_by_id(cluster, query_id: str) -> dict:
+    """The coordinator's listing entry of one query (``/v1/query``)."""
+    qs = [q for q in query_infos(cluster) if q["queryId"] == query_id]
+    assert qs, f"no query {query_id} on the coordinator"
+    return qs[0]
+
+
 def worker_tasks(cluster) -> dict[str, dict]:
     """Every live worker's task listing by task id (a killed worker's
     tasks are gone with it)."""

@@ -38,8 +38,10 @@ installs its ``ClusterScheduler``, and ``execution_mode=cluster`` runs a
 query's fragments as tasks of worker processes (``server/cluster.py``,
 ``server/task.py``); ``scaled_writers`` ships a write's pages to the
 workers (:meth:`Engine._scaled_insert`), whose parts are committed only
-once every writer has answered. SPMD across processes is not ported
-(ROADMAP item 9c).
+once every writer has answered. With SPMD (``server/http.py`` installs
+``spmd``, a ``parallel/spmd.py::SpmdRunner``, and ``spmd_peers``) a
+fusable query runs as the same fragment programs on every process of
+the group first, and per-task scheduling takes the others.
 """
 
 from __future__ import annotations
@@ -192,6 +194,10 @@ class Engine:
         # multi-process scheduling (server/cluster.py installs this on
         # coordinator servers; execution_mode=cluster routes through it)
         self.cluster_scheduler = None
+        # SPMD across server processes (the server installs the runner and
+        # the coordinator's peer discovery; reference engine.py:130-134)
+        self.spmd = None
+        self.spmd_peers = None
         from trino_tpu_torch.connectors.system import SystemConnector
 
         self.catalogs.register("system", SystemConnector(self))
@@ -850,7 +856,9 @@ class Engine:
         query_id: Optional[str] = None, programs: Optional[dict] = None,
         params: Optional[list] = None, history: Optional[dict] = None,
     ) -> StatementResult:
-        if session.get("execution_mode") == "cluster" and self.cluster_scheduler is not None:
+        if session.get("execution_mode") == "cluster" and (
+            self.cluster_scheduler is not None or self.spmd is not None
+        ):
             return self._execute_cluster(plan, session, query_id, params)
         ctx = self._memory_ctx(session, query_id)
         try:
@@ -865,10 +873,13 @@ class Engine:
     def _execute_cluster(self, plan: P.PlanNode, session: Session,
                          query_id: Optional[str], params: Optional[list]) -> StatementResult:
         """A query over the cluster's worker processes (reference
-        ``:932-970``, without its SPMD branch): the coordinator's
-        ``ClusterScheduler`` runs the fragments as worker tasks and the
-        root here; ``cluster_stats`` carries its stages, retries and the
-        workers' merged device, exchange and ingest stats."""
+        ``:932-970``): SPMD first where the server runs it (the same
+        fragment programs on every process of the group; ``cluster_stats``
+        then holds ``spmd``, every process's run), else, and on
+        ``SpmdUnsupported``, the coordinator's ``ClusterScheduler`` runs
+        the fragments as worker tasks and the root here; ``cluster_stats``
+        carries its stages, retries and the workers' merged device,
+        exchange and ingest stats."""
         if params:
             # a canonical (hoisted) plan reached the cluster path — a
             # batch member, or its sequential fallback. The wire serde
@@ -877,9 +888,29 @@ class Engine:
 
             plan = bind_params(plan, params)
         cluster_stats: dict[str, Any] = {}
-        batch, names = self.cluster_scheduler.execute(
-            plan, session, stats_sink=cluster_stats, query_id=query_id,
-        )
+        batch = None
+        if self.spmd is not None and self.spmd_peers is not None:
+            from trino_tpu_torch.parallel.spmd import SpmdUnsupported
+
+            spmd_stats: dict = {}
+            try:
+                batch, names = self.spmd.execute(plan, session, self.spmd_peers(),
+                                                 stats=spmd_stats)
+                # the coordinator's counters (every process counts alike)
+                # and every process's run under ``spmd``
+                cluster_stats["exchangeStats"] = {
+                    **(spmd_stats["coordinator"].get("exchange") or {}), "spmd": spmd_stats}
+            except SpmdUnsupported as e:
+                batch = None  # per-task scheduling below
+                cluster_stats["spmdFallback"] = str(e)
+        if batch is None:
+            if self.cluster_scheduler is None:
+                from trino_tpu_torch.exec.local import ExecutionError
+
+                raise ExecutionError("no cluster scheduler on this server")
+            batch, names = self.cluster_scheduler.execute(
+                plan, session, stats_sink=cluster_stats, query_id=query_id,
+            )
         from trino_tpu_torch.exec.programs import allow_sync
 
         with allow_sync(batch.device):  # the result's read

@@ -258,6 +258,12 @@ class _FragmentTracer(LocalExecutor):
         # output exchange moves rows between the shards
         self.mesh = getattr(base, "mesh", None)
         self.n = 1 if self.mesh is None else self.mesh.size
+        # the shards this process holds: all N in one process, its own on
+        # a mesh over the processes of an SPMD group (self.spans), where a
+        # sharded batch holds only these shards' rows and a batch that is
+        # not sharded is replicated
+        self.nl = 1 if self.mesh is None else self.mesh.local
+        self.spans = self.mesh is not None and self.mesh.spans
         # the output exchange's skew role: {"detect": (k, frac)} on a
         # probe side, {"salt": True, "hotset_key": ...} on a build side
         self.skew = skew or {}
@@ -303,9 +309,51 @@ class _FragmentTracer(LocalExecutor):
     def _exec(self, node: P.PlanNode) -> Result:
         key = id(node)
         if key not in self._memo:
-            self._memo[key] = super()._exec(node)
+            if self.spans and not self._shard_aware(node):
+                # a node that sees its inputs whole: the processes' shards
+                # gathered, every process then computing the same rows
+                for s in node.sources:
+                    self._memo[id(s)] = self._replicated(self._exec(s))
+            res = super()._exec(node)
+            if (self.spans and isinstance(node, (P.Filter, P.Project, P.Output))
+                    and self._memo[id(node.source)].batch.shards == self.n
+                    and res.batch.shards != self.n):
+                # row for row: the source's shards stay this process's
+                res = Result(Batch(res.batch.columns, res.batch.num_rows, res.batch.sel,
+                                   res.batch.device, shards=self.n), res.layout)
+            self._memo[key] = res
             self._op_count(node)
         return self._memo[key]
+
+    def _shard_aware(self, node: P.PlanNode) -> bool:
+        """Does the node's step take this process's shards as they are
+        (on a mesh over processes)? Leaves, row-for-row nodes, the
+        per-shard aggregates, partial TopN and the sharded equi-joins do;
+        every other node sees its inputs whole."""
+        if isinstance(node, (P.TableScan, P.RemoteSource, P.Filter, P.Project, P.Output)):
+            return True
+        if isinstance(node, P.Aggregate):
+            array_agg = any(fn.kind == "array_agg" for _, fn in node.aggregates)
+            if array_agg:
+                return False
+            if node.step == "partial" and not node.group_keys:
+                return True
+            return bool(node.group_keys) and node.step in ("partial", "final")
+        if isinstance(node, P.TopN):
+            return node.step == "partial"
+        if isinstance(node, P.Join):
+            return (node.join_type in ("INNER", "LEFT") and node.criteria
+                    and not node.single_row
+                    and not (node.join_type == "LEFT" and node.filter is not None))
+        return False
+
+    def _replicated(self, res: Result) -> Result:
+        """``res`` whole on every process (``mesh.replicate``)."""
+        from trino_tpu_torch.parallel import mesh as M
+
+        if not M.is_local(res.batch, self.mesh):
+            return res
+        return Result(M.replicate(res.batch, self.mesh), res.layout)
 
     # --- operator telemetry (reference: _op_rows/_op_count) ---------------
 
@@ -314,8 +362,24 @@ class _FragmentTracer(LocalExecutor):
         key = id(node)
         r = self._op_rowcounts.get(key)
         if r is None:
-            r = self._memo[key].batch.selection_mask().sum().to(torch.int64)
+            r = self._op_part(self._memo[key].batch.selection_mask(),
+                              self._memo[key].batch)
             self._op_rowcounts[key] = r
+        return r
+
+    def _op_part(self, sel: torch.Tensor, batch: Optional[Batch] = None,
+                 local: Optional[bool] = None) -> torch.Tensor:
+        """This process's part of an operator counter: the selected rows
+        of its shards, or of a replicated batch on the first process only,
+        so that the processes' parts sum to the one-process count."""
+        r = sel.sum(dtype=torch.int64)
+        if self.spans and self.mesh.rank != 0:
+            if local is None:
+                from trino_tpu_torch.parallel import mesh as M
+
+                local = M.is_local(batch, self.mesh)
+            if not local:
+                r = torch.zeros_like(r)
         return r
 
     def _op_count(self, node: P.PlanNode) -> None:
@@ -403,7 +467,7 @@ class _FragmentTracer(LocalExecutor):
         from trino_tpu_torch.parallel import mesh as M
 
         n = self.n
-        res = Result(M.as_sharded(res.batch, n), res.layout)
+        res = Result(M.as_sharded(res.batch, self.mesh), res.layout)
         inputs, specs, sdicts = self._agg_inputs(node, res)
 
         def one_row(sel, ins):
@@ -415,7 +479,7 @@ class _FragmentTracer(LocalExecutor):
 
         raw = M.smap(one_row, self.mesh, [res.batch.selection_mask(), inputs])
         cols, layout = acc_columns(node, raw, 0, sdicts)
-        return Result(Batch(cols, n, None, self.device, shards=n), layout)
+        return Result(Batch(cols, self.nl, None, self.device, shards=n), layout)
 
     def _sharded_aggregate(self, node: P.Aggregate, res: Result, site: str) -> Result:
         """A partial or final GROUP BY on N shards (reference
@@ -425,15 +489,15 @@ class _FragmentTracer(LocalExecutor):
         each shard holds whole groups."""
         from trino_tpu_torch.parallel import mesh as M
 
-        n = self.n
-        res = Result(M.as_sharded(res.batch, n), res.layout)
+        n, nl = self.n, self.nl
+        res = Result(M.as_sharded(res.batch, self.mesh), res.layout)
         sel = res.batch.selection_mask()
         if node.step == "final":
             inputs, specs, sdicts, fold = self._final_inputs(node, res)
         else:
             inputs, specs, sdicts = self._agg_inputs(node, res)
             fold = None
-        per = res.batch.capacity // n
+        per = res.batch.capacity // nl
         cap = self.caps.get(site, bucket_capacity(min(per, 1 << 12), minimum=1))
         keys = [res.opt_pair(k) for k in node.group_keys]
         (kd, kv), raw, ng, overflow = M.smap(
@@ -456,7 +520,7 @@ class _FragmentTracer(LocalExecutor):
             cols += finalize_aggs(node, raw, sdicts)
             layout = {s.name: i for i, s in enumerate(node.output_symbols)}
         live = (torch.arange(cap, device=sel.device).unsqueeze(0) < ng.unsqueeze(1)).reshape(-1)
-        return Result(Batch(cols, n * cap, live, self.device, shards=n), layout)
+        return Result(Batch(cols, nl * cap, live, self.device, shards=n), layout)
 
     @staticmethod
     def _final_inputs(node: P.Aggregate, res: Result):
@@ -570,21 +634,21 @@ class _FragmentTracer(LocalExecutor):
     def _partial_topn(self, res: Result, node: P.TopN) -> Result:
         from trino_tpu_torch.parallel import mesh as M
 
-        n = self.n
-        b = M.as_sharded(res.batch, n)
+        n, nl = self.n, self.nl
+        b = M.as_sharded(res.batch, self.mesh)
         res = Result(b, res.layout)
-        per = b.capacity // n
+        per = b.capacity // nl
         keep = min(node.count, max(1, per))
         key_pairs, keys, ranks = self._sort_operands(res, node.order_by)
         sel = b.selection_mask()
         perms = []
-        for s in range(n):
+        for s in range(nl):
             lo, hi = s * per, (s + 1) * per
             local = [(d[lo:hi], v[lo:hi]) for d, v in key_pairs]
             perms.append(sort_indices(local, keys, sel[lo:hi], ranks)[:keep] + lo)
         perm = torch.cat(perms)
         cols = [c.take(perm) for c in b.columns]
-        return Result(Batch(cols, n * keep, sel[perm], b.device, shards=n), res.layout)
+        return Result(Batch(cols, nl * keep, sel[perm], b.device, shards=n), res.layout)
 
     def _traced_sort(self, res: Result, order_by, keep: Optional[int]) -> Result:
         """All rows in ORDER BY order (selected first), cut to ``keep``."""
@@ -712,13 +776,16 @@ class _FragmentTracer(LocalExecutor):
         from trino_tpu_torch.parallel import mesh as M
         from trino_tpu_torch.parallel.distributed import _sharded_probe
 
-        n = self.n
+        n, nl = self.n, self.nl
         build_sharded = (
             isinstance(node.right, P.RemoteSource) and node.right.exchange_type == "hash"
         )
-        left = Result(M.as_sharded(left.batch, n), left.layout)
+        left = Result(M.as_sharded(left.batch, self.mesh), left.layout)
         if build_sharded:
-            right = Result(M.as_sharded(right.batch, n), right.layout)
+            right = Result(M.as_sharded(right.batch, self.mesh), right.layout)
+        else:
+            # every shard probes against the whole build side
+            right = self._replicated(right)
         lkeys, rkeys = self._join_keys(left, right, node.criteria)
         ph, _ = J.hash_keys(lkeys)
         bh, _ = J.hash_keys(rkeys)
@@ -742,8 +809,10 @@ class _FragmentTracer(LocalExecutor):
         if strategy != "sort":
             rows = 0
             if dense_site not in self.caps.vals:
-                rows = int(M.shard_view(bsel, n).sum(1).max()) if build_sharded \
+                rows = int(M.shard_view(bsel, nl).sum(1).max()) if build_sharded \
                     else int(bsel.sum())
+                if build_sharded and self.spans:
+                    rows = self.mesh.reduce_host([rows], ["max"])[0]
             table_cap = self.caps.get(dense_site, bucket_capacity(max(1024, 4 * rows)))
         cap = self.caps.vals.get(join_site)
         out_cols, out_sel, ovf, tovf, total = _sharded_probe(
@@ -754,15 +823,15 @@ class _FragmentTracer(LocalExecutor):
         if tovf is not None:
             self.overflows.append((dense_site, tovf))
         if cap is None:
-            cap = self.caps.get(join_site, out_sel.shape[0] // n)
+            cap = self.caps.get(join_site, out_sel.shape[0] // nl)
         self.overflows.append((join_site, ovf))
         self.needed[join_site] = total
-        result = join_output(node, left, right, out_cols, n * cap, out_sel)
+        result = join_output(node, left, right, out_cols, nl * cap, out_sel)
         mask = out_sel
         if node.filter is not None:
             expr = self._bind(node.filter, result.layout)
             mask = bound_filter_mask(expr, result.batch.columns, self.device, self.params) & out_sel
-        return Result(Batch(result.batch.columns, n * cap, mask, self.device, shards=n),
+        return Result(Batch(result.batch.columns, nl * cap, mask, self.device, shards=n),
                       result.layout)
 
     def _stream_sharded_join(self, node: P.Join, left: Result, right: Result) -> Result:
@@ -776,8 +845,9 @@ class _FragmentTracer(LocalExecutor):
         from trino_tpu_torch.parallel import mesh as M
         from trino_tpu_torch.parallel.distributed import _sharded_probe
 
-        n = self.n
-        left = Result(M.as_sharded(left.batch, n), left.layout)
+        n, nl = self.n, self.nl
+        left = Result(M.as_sharded(left.batch, self.mesh), left.layout)
+        right = self._replicated(right)
         lkeys, rkeys = self._join_keys(left, right, node.criteria, remap_probe=True)
         ph, _ = J.hash_keys(lkeys)
         probe_cols, probe_keys = [], []
@@ -797,15 +867,15 @@ class _FragmentTracer(LocalExecutor):
             None, None, None, None, cap, node.join_type, len(rkeys), build=build,
         )
         if cap is None:
-            cap = self.caps.get(join_site, out_sel.shape[0] // n)
+            cap = self.caps.get(join_site, out_sel.shape[0] // nl)
         self.overflows.append((join_site, ovf))
         self.needed[join_site] = total
-        result = join_output(node, left, right, out_cols, n * cap, out_sel)
+        result = join_output(node, left, right, out_cols, nl * cap, out_sel)
         mask = out_sel
         if node.filter is not None:  # INNER only: LEFT took the local path
             expr = self._bind(node.filter, result.layout)
             mask = bound_filter_mask(expr, result.batch.columns, self.device, self.params) & out_sel
-        return Result(Batch(result.batch.columns, n * cap, mask, self.device, shards=n),
+        return Result(Batch(result.batch.columns, nl * cap, mask, self.device, shards=n),
                       result.layout)
 
     def _join_build(self, node: P.Join, right: Result, rkeys, strategy: str,
@@ -961,14 +1031,17 @@ class _FragmentTracer(LocalExecutor):
         side detects the heavy hitters, its build peer salts with them);
         ``single`` and the root leave the global columns as they are. The
         exchange's flags and counters ride the program's words; its wire
-        accounting (slots each source ships) is static."""
+        accounting (slots each source ships) is static. On a mesh over
+        processes ``single`` and the root gather the processes' shards, so
+        that every process holds the whole relation, and a broadcast's
+        rows are replicated."""
         if self.n <= 1 or frag.output_exchange in (None, "single"):
-            return res
+            return self._replicated(res) if self.spans else res
         from trino_tpu_torch.parallel import exchange as X
         from trino_tpu_torch.parallel import mesh as M
 
         n = self.n
-        b = M.as_sharded(res.batch, n)
+        b = M.as_sharded(res.batch, self.mesh)
         res = Result(b, res.layout)
         sel = b.selection_mask()
         # wide DECIMAL columns ship as separate hi/lo lanes
@@ -990,9 +1063,10 @@ class _FragmentTracer(LocalExecutor):
                 else:
                     cols.append(Column(t, out[i], out[i + 1], d))
                     i += 2
-            self._op_exchange(frag, sel, out_sel)
-            return Result(Batch(cols, int(out_sel.shape[0]), out_sel, self.device, shards=n),
-                          res.layout)
+            replicated = self.spans and frag.output_exchange == "broadcast"
+            self._op_exchange(frag, sel, out_sel, replicated)
+            return Result(Batch(cols, int(out_sel.shape[0]), out_sel, self.device,
+                                shards=1 if replicated else n), res.layout)
 
         if frag.output_exchange == "broadcast":
             return rebuild(*X.broadcast_all(self.mesh, arrays, sel))
@@ -1004,8 +1078,10 @@ class _FragmentTracer(LocalExecutor):
             hot_set = (hs.columns[0].data, hs.columns[1].data)
         salted = detect is not None or hot_set is not None
         # cold tier: ~2x the uniform per-(src, dst) share; half that when a
-        # hot set routes the heavy mass away from the cold path
-        per_pair = b.capacity // (n * n)
+        # hot set routes the heavy mass away from the cold path (of the
+        # capacity over every shard)
+        gcap = b.capacity // self.nl * n
+        per_pair = gcap // (n * n)
         default_bucket = bucket_capacity(max(64, per_pair if salted else 2 * per_pair),
                                          minimum=64)
         fid = frag.id
@@ -1015,7 +1091,7 @@ class _FragmentTracer(LocalExecutor):
             # hot rows stay on their source shard: the region holds a
             # shard's rows
             hot_mode = "local"
-            hot_cap = self.caps.get(f"hot@{fid}", bucket_capacity(max(64, b.capacity // n),
+            hot_cap = self.caps.get(f"hot@{fid}", bucket_capacity(max(64, gcap // n),
                                                                   minimum=64))
         elif hot_set is not None:
             # the hot slice of a near-unique build side is small
@@ -1043,14 +1119,15 @@ class _FragmentTracer(LocalExecutor):
         st["shuffle_bytes"] = st.get("shuffle_bytes", 0) + n * wire_slots * row_bytes
         return rebuild(out, out_sel)
 
-    def _op_exchange(self, frag: PlanFragment, sel_in, sel_out) -> None:
+    def _op_exchange(self, frag: PlanFragment, sel_in, sel_out, replicated=False) -> None:
         """The exchange's leg of the operator counters (``exch@{fid}``):
         rows offered and rows landed (a broadcast lands n copies)."""
         if not self._op_enabled:
             return
         site = f"exch@{frag.id}"
-        self.counters.append((f"op!exchange!in!{site}", sel_in.sum(dtype=torch.int64)))
-        self.counters.append((f"op!exchange!out!{site}", sel_out.sum(dtype=torch.int64)))
+        self.counters.append((f"op!exchange!in!{site}", self._op_part(sel_in, local=True)))
+        self.counters.append((f"op!exchange!out!{site}",
+                              self._op_part(sel_out, local=not replicated)))
 
 
 # --- fusability (reference: fragment_fusable) -------------------------------
@@ -1222,6 +1299,15 @@ class _Meta:
         if not parts:
             return torch.zeros(0, dtype=torch.int64, device=device)
         return torch.stack([p.reshape(()).to(torch.int64) for p in parts])
+
+    def reduce_ops(self) -> list[str]:
+        """How each word combines over the processes of a mesh that spans
+        them: a flag fires and a match count is the largest where any
+        process's does (max); an operator counter is each process's part
+        (sum); an exchange's counters are reduced on the device already,
+        alike on every process (max)."""
+        return (["max"] * (len(self.flag_names) + len(self.needed_names))
+                + ["sum" if nm.startswith("op!") else "max" for nm in self.counter_names])
 
 
 class _TracerSummary:
@@ -1535,6 +1621,7 @@ class FragmentedExecutor(DistributedExecutor):
         the host, or None when the fragment has no result (a fused unit's
         interior member). Each copy is a counted host read."""
         from trino_tpu_torch.exec.programs import allow_sync
+        from trino_tpu_torch.parallel import mesh as M
 
         def build_lookup(fid):
             res = results.get(fid)
@@ -1542,8 +1629,13 @@ class FragmentedExecutor(DistributedExecutor):
                 return None
             sel = res.batch.selection_mask()
             self._count("host_reads")
+            # on a mesh over processes a sharded build is this process's
+            # shards: the domain is the union over every process
+            local = M.is_local(res.batch, self.mesh)
             with allow_sync(self.device):
                 n = int(sel.sum())
+            if local:
+                n = self.mesh.reduce_host([n], ["sum"])[0]
 
             def get_column(name):
                 idx = res.layout.get(name)
@@ -1551,8 +1643,13 @@ class FragmentedExecutor(DistributedExecutor):
                     return None
                 c = res.batch.columns[idx]
                 self._count("host_reads")
+                data, live = c.data, c.valid_mask() & sel
+                if local:
+                    L = self.mesh.local
+                    data = M.all_gather(M.shard_view(data, L), self.mesh)
+                    live = M.all_gather(M.shard_view(live, L), self.mesh)
                 with allow_sync(self.device):
-                    return c.data.cpu().numpy(), (c.valid_mask() & sel).cpu().numpy()
+                    return data.cpu().numpy(), live.cpu().numpy()
 
             return get_column, n
 
@@ -1814,8 +1911,6 @@ class FragmentedExecutor(DistributedExecutor):
     def _exchange_eagerly(self, frag: PlanFragment, res: Result, skew, inputs) -> Result:
         """A streamed fragment's output exchange, under the overflow
         protocol of its own sites (one host read a run)."""
-        from trino_tpu_torch.exec.programs import host_read
-
         caps = self._caps("exchange", frag.id)
         for _ in range(MAX_ATTEMPTS):
             tracer = _FragmentTracer(self, inputs, {}, caps, frag.id, None, skew=skew)
@@ -1823,7 +1918,7 @@ class FragmentedExecutor(DistributedExecutor):
             meta, summary = _Meta(), _TracerSummary()
             summary.absorb(tracer)
             meta.capture(out, summary)
-            vals = host_read(_Meta.words(summary, self.device), self.exchange_stats)
+            vals = self._host_words(meta, _Meta.words(summary, self.device))
             if self._settle(meta, vals, caps, set()):
                 out.aux = tracer.aux_out
                 return out
@@ -1985,7 +2080,7 @@ class FragmentedExecutor(DistributedExecutor):
                             res, words = prog.fn(named)
                     else:
                         res, words = PR.replay(self.pool, prog, named, copied)
-                    vals = PR.host_read(words, self.exchange_stats)
+                    vals = self._host_words(prog.meta, words)
                     if self._settle(prog.meta, vals, caps, fresh=()):
                         if recorder is not None:
                             PR.capture(self.pool, prog, named, copied, recorder)
@@ -2006,7 +2101,11 @@ class FragmentedExecutor(DistributedExecutor):
                                 res, words = fn(inputs)
                         else:
                             res, words = fn(inputs)
-                    vals = PR.host_read(words, self.exchange_stats)
+                    if self.mesh.spans:
+                        # collectives crossed processes in this run: a
+                        # capture cannot hold their host barriers
+                        self._count("spmd_eager_programs")
+                    vals = self._host_words(meta, words)
                     fresh = set(caps.vals) - sized_before
                     if not self._settle(meta, vals, caps, fresh):
                         del res, words
@@ -2026,7 +2125,7 @@ class FragmentedExecutor(DistributedExecutor):
                     # later run's: its consumers' programs then hold
                     del res, words
                     res, words = PR.replay(self.pool, prog, inputs, copied)
-                    PR.host_read(words, self.exchange_stats)
+                    self._host_words(prog.meta, words)
                 ms = prog.capture_ms if prog.graph is not None else (
                     (time.perf_counter() - t0) * 1000.0)
                 self.compile_stats["trace_count"] += 1
@@ -2041,7 +2140,9 @@ class FragmentedExecutor(DistributedExecutor):
             except (FusedUnsupported, CapacityRetryExceeded, PR.CaptureError):
                 raise  # NotCapturable too: the caller runs the fragment eagerly
             except Exception as e:  # noqa: BLE001 — inspect and rethrow
-                if not _is_resource_exhausted(e):
+                if not _is_resource_exhausted(e) or self.mesh.spans:
+                    # on a mesh over processes the peers could not follow
+                    # a halving: the query fails
                     raise
                 # the least recently used half of the stored programs'
                 # bytes first, then every program (which releases the
@@ -2062,6 +2163,19 @@ class FragmentedExecutor(DistributedExecutor):
             "traced-program", fragment_id=key[1], capacities=caps.vals,
             attempts=MAX_ATTEMPTS,
         )
+
+    def _host_words(self, meta: _Meta, words: torch.Tensor, skip_empty: bool = False) -> list:
+        """A run's words in one counted host read (none for no word with
+        ``skip_empty``); on a mesh over processes combined over every
+        process (:meth:`_Meta.reduce_ops`) before any decision is made
+        from them, so that every process sizes, retries and counts
+        alike."""
+        from trino_tpu_torch.exec.programs import host_read
+
+        vals = [] if skip_empty and not words.numel() else host_read(words, self.exchange_stats)
+        if self.mesh.spans:
+            vals = self.mesh.reduce_host(vals, meta.reduce_ops())
+        return vals
 
     def _settle(self, meta: _Meta, vals: list, caps: _Caps, fresh) -> bool:
         """Act on one run's words: True when no flag fired (its counters
@@ -2243,8 +2357,6 @@ class FragmentedExecutor(DistributedExecutor):
         """Run a fragment that is not one program (a node the program path
         does not take) eagerly, under the same overflow protocol: its
         flags in one host read a run, each fired site grown."""
-        from trino_tpu_torch.exec.programs import host_read
-
         caps = self._caps(fid)
         for _ in range(MAX_ATTEMPTS):
             sized_before = set(caps.vals)
@@ -2256,8 +2368,7 @@ class FragmentedExecutor(DistributedExecutor):
             summary = _TracerSummary()
             summary.absorb(tracer)
             meta.capture(res, summary)
-            words = _Meta.words(summary, self.device)
-            vals = host_read(words, self.exchange_stats) if words.numel() else []
+            vals = self._host_words(meta, _Meta.words(summary, self.device), skip_empty=True)
             if self._settle(meta, vals, caps, set(caps.vals) - sized_before):
                 res.aux = tracer.aux_out
                 return res

@@ -209,7 +209,9 @@ class StreamingAggregator:
             self.frag.id, self.frag.root,
         )
         for root in self.build_roots:
-            self._prememo[id(root)] = tracer._exec(root)
+            # every chunk probes the whole build side: on a mesh over
+            # processes it is gathered once, here
+            self._prememo[id(root)] = tracer._replicated(tracer._exec(root))
         self._absorb(tracer)
 
     def _absorb(self, tracer) -> None:
@@ -227,6 +229,23 @@ class StreamingAggregator:
     @property
     def device(self):
         return self.executor.device
+
+    @property
+    def _spans(self) -> bool:
+        # a bare instance (no __init__) steps as one process does
+        mesh = getattr(self, "mesh", None)
+        return mesh is not None and mesh.spans
+
+    @property
+    def nl(self) -> int:
+        """The shards this process steps: all N in one process, its own
+        on a mesh over the processes of an SPMD group."""
+        return self.mesh.local if self._spans else self.n
+
+    @property
+    def first(self) -> int:
+        """The global index of this process's first shard."""
+        return self.mesh.first if self._spans else 0
 
     # === chunk loop ======================================================
 
@@ -281,6 +300,9 @@ class StreamingAggregator:
             + [self._flags[n].to(torch.int64) for n in names[1:]]
             + [self._needed[n] for n in counted]
         ).cpu().tolist()
+        if self._spans:
+            # every process retries alike: a flag or count of any process
+            read = self.mesh.reduce_host(read, ["max"] * len(read))
         fired = [n for n, f in zip(names, read) if f]
         if fired:
             raise StreamOverflow(
@@ -404,9 +426,10 @@ class StreamingAggregator:
         table's end pad a short last step. The parts are cut from the
         slab's rows in order, not at split boundaries, so a step's N parts
         are one view of N x cap slab rows (shard-major), copied only where
-        the last step runs past the slab. Nothing goes through the host."""
+        the last step runs past the slab. Nothing goes through the host.
+        On a mesh over processes a step is this process's parts only."""
         chunk_rows = int(self.executor.session.get("stream_chunk_rows"))
-        n = self.n
+        n, nl = self.n, self.nl
         connector = self.executor.catalogs.get(self.scan.catalog)
         est = connector.estimate_rows(self.scan.schema, self.scan.table)
         target = max(n, ((est or 0) + chunk_rows - 1) // chunk_rows)
@@ -415,13 +438,16 @@ class StreamingAggregator:
         cap = bucket_capacity(max(1, min(-(-num_rows // splits), chunk_rows)))
         self.shard_cap = cap
         width = n * cap
-        pos = torch.arange(width, device=self.device)
+        # this process's parts of a step (all of them in one process)
+        lo = self.first * cap
+        mine = nl * cap
+        pos = torch.arange(lo, lo + mine, device=self.device)
 
         def rows(x, off):
-            view = x[off : off + width]
-            if view.shape[0] == width:
+            view = x[off + lo : off + lo + mine]
+            if view.shape[0] == mine:
                 return view
-            return torch.cat([view, view.new_zeros((width - view.shape[0],) + tuple(x.shape[1:]))])
+            return torch.cat([view, view.new_zeros((mine - view.shape[0],) + tuple(x.shape[1:]))])
 
         for off in range(0, max(num_rows, 1), width):
             cols = [
@@ -429,7 +455,7 @@ class StreamingAggregator:
                        None if c.valid is None else rows(c.valid, off), c.dictionary)
                 for c in slab.columns
             ]
-            yield Batch(cols, width, pos < num_rows - off, self.device, shards=n)
+            yield Batch(cols, mine, pos < num_rows - off, self.device, shards=n)
 
     def _try_dense(self, slab: Batch, num_rows: int) -> Optional[Result]:
         """Dense-domain fast path: when the group keys span a small
@@ -660,10 +686,13 @@ class StreamingAggregator:
         """Device chunks of the host parts (:meth:`_host_parts`): each
         step's parts padded to the per-shard capacity, shard-major in one
         batch of N x cap rows (its selection marks the parts' live rows),
-        copied to the device in one transfer."""
+        copied to the device in one transfer. On a mesh over processes the
+        step holds this process's parts; every process decodes every part,
+        so that their running dictionaries stay alike."""
+        first = self.first
         for parts, cap in self._host_parts(chunk_rows):
             self.shard_cap = cap
-            padded = [_pad_batch(p, cap) for p in parts]
+            padded = [_pad_batch(p, cap) for p in parts[first:first + self.nl]]
             if self.n == 1:
                 yield self.executor._to_device(padded[0])
                 continue
@@ -676,7 +705,7 @@ class StreamingAggregator:
                 cols.append(Column(c.type, torch.cat([p.columns[j].data for p in padded]),
                                    valid, c.dictionary))
             moved = self.executor._to_device(
-                Batch(cols, self.n * cap, torch.cat([p.sel for p in padded]))
+                Batch(cols, self.nl * cap, torch.cat([p.sel for p in padded]))
             )
             yield Batch(moved.columns, moved.num_rows, moved.sel, self.device,
                         shards=self.n)
@@ -706,7 +735,7 @@ class StreamingAggregator:
         if self.n > 1:
             # shard-major over the N shards, whatever the spine's last
             # operator left (an interpreted join compacts its rows)
-            res = Result(M.as_sharded(res.batch, self.n), res.layout)
+            res = Result(M.as_sharded(res.batch, self.mesh), res.layout)
         sel = res.batch.selection_mask()
         agg_inputs, specs, string_dicts = tracer._agg_inputs(self.agg, res)
         keys = [res.opt_pair(k) for k in self.agg.group_keys]
@@ -753,7 +782,7 @@ class StreamingAggregator:
         """The carried state: G group rows a shard (N x G, shard-major, as
         ``parallel/mesh.py`` lays out a sharded column), one row a shard
         without group keys."""
-        rows = self.n * (self.G if self.nkeys else 1)
+        rows = self.nl * (self.G if self.nkeys else 1)
         dev = self.device
 
         def zeros(shape, dt):
@@ -823,7 +852,7 @@ class StreamingAggregator:
         travels in one packed (rows, lanes) input; min/max combine over
         the non-empty sides and float sums add, each as its own input."""
         specs, combine = meta["specs"], meta["combine"]
-        n, total = self.n, self.n * self.G
+        n, total = self.nl, self.nl * self.G
         glive = torch.arange(total, device=self.device)
         state_kd, state_kv = list(state["key_data"]), list(state["key_valid"])
         if n > 1:
@@ -963,9 +992,9 @@ class StreamingAggregator:
         if self.nkeys:
             cols = self._key_columns(state, meta)
             layout = {k.name: i for i, k in enumerate(agg.group_keys)}
-            live, total = state["live"], self.n * self.G
+            live, total = state["live"], self.nl * self.G
         else:
-            total = self.n
+            total = self.nl
             live = torch.ones(total, dtype=torch.bool, device=self.device)
         for (vsym, csym), spec, v, c, sdict in zip(
             agg.acc_symbols, meta["specs"], state["values"], state["counts"],

@@ -33,6 +33,8 @@ other (same schema, same keys).
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import json
 import os
 import threading
@@ -86,9 +88,11 @@ class QueryHistoryStore:
     Thread-safe; one instance is shared by every query of an engine that
     resolved the same ``history_dir``. Cross-process concurrent writers
     are safe by construction (tmp + rename never tears the file) and
-    additive in the common case: each flush re-reads the file and adopts
-    fingerprints it has not seen, so two engines recording disjoint
-    workloads into one directory both survive.
+    additive: each record re-reads the file, adopts fingerprints it has
+    not seen and flushes under one lock on ``<path>.lock``, so two
+    engines recording disjoint workloads into one directory both survive
+    (the reference's store holds no such lock and can lose a writer's
+    entry to another's flush of an older read).
     """
 
     def __init__(
@@ -162,6 +166,23 @@ class QueryHistoryStore:
             except OSError:
                 pass
 
+    @contextlib.contextmanager
+    def _disk_lock(self):
+        """An exclusive advisory lock on ``<path>.lock`` from the adopting
+        read to the flush: a concurrent writer (another store on the same
+        file, in this process or another) waits, instead of replacing the
+        file with a copy it read before this record's flush."""
+        if not self.path:
+            yield
+            return
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        fd = os.open(f"{self.path}.lock", os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            yield
+        finally:
+            os.close(fd)  # releases the lock
+
     def _adopt_disk_locked(self) -> None:
         """Concurrent-writer merge: before overwriting the file, adopt
         fingerprints another process flushed since we last read it."""
@@ -188,7 +209,7 @@ class QueryHistoryStore:
         # record() flushes the JSON document to disk under _lock; callers
         # are query-finalize paths on dispatch workers, never the reactor
         assert_not_loop_thread("QueryHistoryStore.record")
-        with self._lock:
+        with self._lock, self._disk_lock():
             self._adopt_disk_locked()
             self._seq += 1
             ent = self._entries.get(fingerprint)

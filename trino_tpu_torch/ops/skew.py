@@ -15,7 +15,9 @@ n_shards``). A key outside every shard's top-k stays on the cold path
 (the spill tier catches it): a miss costs padding, never correctness.
 
 The body runs once over the ``[n, m]`` view of all shards
-(``parallel/mesh.py``). The reference sorts the candidates on their count
+(``parallel/mesh.py``), this process's local shards on a mesh over
+processes, whose candidates and counts cross processes; every process
+then picks the same hot set. The reference sorts the candidates on their count
 alone, unstably (``skew.py:62``), so on a tie at the k-th candidate
 XLA's pick is unspecified; this port sorts by ``(-count, hash)``. The
 hot sets can then differ on such ties, the rows never: routing is a
@@ -33,11 +35,14 @@ from trino_tpu_torch.parallel import mesh as M
 _SENTINEL = (1 << 63) - 1
 
 
-def hot_key_sketch(khash: torch.Tensor, sel: torch.Tensor, k: int, threshold_frac: float):
+def hot_key_sketch(khash: torch.Tensor, sel: torch.Tensor, k: int, threshold_frac: float,
+                   mesh=None):
     """The sketch over every shard (reference ``hot_key_sketch``, :37).
 
     Args:
-      khash: ``[n, m]`` int64 key hashes, one row a shard.
+      khash: ``[n, m]`` int64 key hashes, one row a shard (this process's
+        local shards on a ``mesh`` over processes, whose candidates and
+        counts then cross processes).
       sel: ``[n, m]`` bool liveness.
       k: candidates kept per shard.
       threshold_frac: hot iff global count > frac * total_live / n.
@@ -47,10 +52,11 @@ def hot_key_sketch(khash: torch.Tensor, sel: torch.Tensor, k: int, threshold_fra
     and cold or empty slots masked by ``hot_valid``), the hot-key count
     and the global live-row count (int64 scalars).
     """
-    n, m = khash.shape
+    nl, m = khash.shape
+    n = nl if mesh is None else mesh.size
     dev = khash.device
     skey = torch.sort(torch.where(sel, khash, _SENTINEL), dim=1).values
-    pos = torch.arange(m, dtype=torch.int64, device=dev).expand(n, m)
+    pos = torch.arange(m, dtype=torch.int64, device=dev).expand(nl, m)
     left = torch.searchsorted(skey, skey, side="left")
     right = torch.searchsorted(skey, skey, side="right")
     # one candidate per distinct key: its first occurrence carries the
@@ -63,14 +69,14 @@ def hot_key_sketch(khash: torch.Tensor, sel: torch.Tensor, k: int, threshold_fra
     kk = min(k, m)
     top = torch.where(-neg_sorted[:, :kk] > 0, cand[:, :kk], _SENTINEL)
     if kk < k:
-        top = torch.cat([top, top.new_full((n, k - kk), _SENTINEL)], dim=1)
-    gcand = M.all_gather(top)  # [n * k], seen by every shard
+        top = torch.cat([top, top.new_full((nl, k - kk), _SENTINEL)], dim=1)
+    gcand = M.all_gather(top, mesh)  # [n * k], seen by every shard
     # exact global count for every candidate (psum of local run lengths)
-    probe = gcand.expand(n, gcand.shape[0]).contiguous()
+    probe = gcand.expand(nl, gcand.shape[0]).contiguous()
     lo = torch.searchsorted(skey, probe, side="left")
     hi = torch.searchsorted(skey, probe, side="right")
-    gcount = M.psum(hi - lo)
-    total = M.psum(sel.sum(1, dtype=torch.int64))
+    gcount = M.psum(hi - lo, mesh)
+    total = M.psum(sel.sum(1, dtype=torch.int64), mesh)
     hot = gcount.to(torch.float64) * n > threshold_frac * total.to(torch.float64)
     hot = hot & (gcand != _SENTINEL)
     # sorted by hash for searchsorted membership; duplicates of a hash
@@ -97,5 +103,6 @@ def hot_key_hashes(mesh: M.Mesh, key_hash: torch.Tensor, sel: torch.Tensor, k: i
     """The sketch over global row-sharded ``key_hash``/``sel`` (reference
     :103): ``(hot_hashes, hot_valid, n_hot, total_live)``, seen by every
     shard."""
-    n = mesh.size
-    return hot_key_sketch(M.shard_view(key_hash, n), M.shard_view(sel, n), k, threshold_frac)
+    nl = mesh.local
+    return hot_key_sketch(M.shard_view(key_hash, nl), M.shard_view(sel, nl), k,
+                          threshold_frac, mesh)

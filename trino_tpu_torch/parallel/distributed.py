@@ -193,8 +193,10 @@ def _sharded_probe(mesh, probe_cols, probe_keys, ph, probe_sel, build_cols, buil
     global shard-major output columns (probe payload then build payload,
     flat (data, valid)) of ``n * cap`` rows, the flags' ``pmax`` over the
     shards (``table_overflow`` None on the sort tier) and the largest
-    shard's match count."""
-    n = mesh.size
+    shard's match count. On a mesh over processes the shards are this
+    process's, a first run's capacity is the largest over every process,
+    and the flags and counts are reduced over every process."""
+    n = mesh.local
     probe_cols, probe_keys, ph, probe_sel = _pad_shards(
         list(probe_cols), list(probe_keys), ph, probe_sel, n)
     if build is None:
@@ -215,15 +217,17 @@ def _sharded_probe(mesh, probe_cols, probe_keys, ph, probe_sel, build_cols, buil
             per_shard_cap, join_type,
         ))
     cap = max(o[1].shape[0] for o in shards)
+    if per_shard_cap is None and mesh.spans:
+        cap = mesh.reduce_host([cap], ["max"])[0]
     outs = []
     for k in range(len(shards[0][0])):
         outs.append(torch.cat([_pad_to(o[0][k], cap) for o in shards]))
     osel = torch.cat([_pad_to(o[1], cap) for o in shards])
-    ovf = M.pmax(torch.stack([o[2].reshape(()).to(torch.int32) for o in shards]))
+    ovf = M.pmax(torch.stack([o[2].reshape(()).to(torch.int32) for o in shards]), mesh)
     tovf = None
     if shards[0][3] is not None:
-        tovf = M.pmax(torch.stack([o[3].reshape(()).to(torch.int32) for o in shards]))
-    total = M.pmax(torch.stack([o[4].reshape(()).to(torch.int64) for o in shards]))
+        tovf = M.pmax(torch.stack([o[3].reshape(()).to(torch.int32) for o in shards]), mesh)
+    total = M.pmax(torch.stack([o[4].reshape(()).to(torch.int64) for o in shards]), mesh)
     return outs, osel, ovf, tovf, total
 
 
@@ -351,14 +355,15 @@ class DistributedExecutor(LocalExecutor):
             from trino_tpu_torch.columnar import Dictionary, torch_dtype
 
             cols = []
+            nl = self.mesh.local
             for s in node.symbols:
                 wide = isinstance(s.type, T.DecimalType) and s.type.wide
-                data = torch.zeros((n, 2) if wide else n,
+                data = torch.zeros((nl, 2) if wide else nl,
                                    dtype=torch_dtype(s.type.storage_dtype), device=self.device)
                 cols.append(Column(s.type, data, None,
                                    Dictionary([]) if T.is_string(s.type) else None))
-            sel = torch.zeros(n, dtype=torch.bool, device=self.device)
-            return Result(Batch(cols, n, sel, self.device, shards=n), layout)
+            sel = torch.zeros(nl, dtype=torch.bool, device=self.device)
+            return Result(Batch(cols, nl, sel, self.device, shards=n), layout)
         from trino_tpu_torch.obs.trace import get_tracer
 
         t0 = time.perf_counter()
@@ -429,7 +434,7 @@ class DistributedExecutor(LocalExecutor):
                 lambda k, s, i: group_aggregate(k, s, i, specs, G),
                 self.mesh, [keys, sel, agg_inputs],
             )
-            if not bool(M.pmax(ovf.to(torch.int32))):
+            if not bool(M.pmax(ovf.to(torch.int32), self.mesh)):
                 break
             if G > (1 << 24):
                 raise ExecutionError("per-shard group cardinality too large")
@@ -567,7 +572,7 @@ class DistributedExecutor(LocalExecutor):
         """The build side all-gathered to every shard, each shard probing
         its own rows (reference :619)."""
         n = self.n_shards
-        left = Result(M.as_sharded(left.batch, n), left.layout)
+        left = Result(M.as_sharded(left.batch, self.mesh), left.layout)
         barr, bkeys, rschema = self._flatten(node.right, right, rkeys, bh)
         rep, bsel = X.broadcast_all(self.mesh, barr + bkeys + [bh], right.batch.selection_mask())
         nb, nk = len(barr), len(bkeys)

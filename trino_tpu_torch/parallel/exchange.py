@@ -16,10 +16,13 @@ a flag; the caller retries with a larger bucket.
 Each body runs once over the ``[n, m]`` view of every shard
 (``parallel/mesh.py``), where the collectives are a transpose (all to
 all), a concatenation seen by every shard (all gather) and a reduction
-over the shard axis (psum, pmax). As in the reference, one sort a shard
-orders the rows by destination: the destination and the row index share
-one integer lane (``dest << idx_bits | row``), int32 or int64 (``wide``)
-as the reference picks, so the sort needs no second operand.
+over the shard axis (psum, pmax). On a mesh over processes the view is
+this process's local shards, ``n`` stays the mesh's shard count (the
+destinations), and the collectives cross processes. As in the
+reference, one sort a shard orders the rows by destination: the
+destination and the row index share one integer lane (``dest <<
+idx_bits | row``), int32 or int64 (``wide``) as the reference picks, so
+the sort needs no second operand.
 """
 
 from __future__ import annotations
@@ -80,9 +83,9 @@ def hash_repartition(mesh: M.Mesh, arrays: Sequence[torch.Tensor], key_hash: tor
     ``(out_arrays, out_sel, overflow)``: per shard ``n * B`` rows (global
     ``n * n * B``), the live rows' mask, and an int32 flag (any block
     overflowed)."""
-    n = mesh.size
-    khash = M.shard_view(key_hash, n)
-    s = M.shard_view(sel, n)
+    n, nl = mesh.size, mesh.local
+    khash = M.shard_view(key_hash, nl)
+    s = M.shard_view(sel, nl)
     # floor modulo, as jnp's % on signed hashes
     dest = torch.where(s, torch.remainder(khash, n), n)
     order, d_sorted, counts, within = _dest_sort(dest, n + 1)
@@ -92,11 +95,11 @@ def hash_repartition(mesh: M.Mesh, arrays: Sequence[torch.Tensor], key_hash: tor
     valid_block = _scatter_rows(live, slot, n * bucket, False)
     out_cols = []
     for a in arrays:
-        b = _scatter_rows(_take_rows(M.shard_view(a, n), order), slot, n * bucket)
-        blocks = b.reshape((n, n, bucket) + tuple(a.shape[1:]))
-        out_cols.append(M.all_gather(M.all_to_all(blocks)))
-    out_valid = M.all_gather(M.all_to_all(valid_block.reshape(n, n, bucket)))
-    return out_cols, out_valid, M.pmax(overflow.to(torch.int32))
+        b = _scatter_rows(_take_rows(M.shard_view(a, nl), order), slot, n * bucket)
+        blocks = b.reshape((nl, n, bucket) + tuple(a.shape[1:]))
+        out_cols.append(M.flat(M.all_to_all(blocks, mesh)))
+    out_valid = M.flat(M.all_to_all(valid_block.reshape(nl, n, bucket), mesh))
+    return out_cols, out_valid, M.pmax(overflow.to(torch.int32), mesh)
 
 
 def skewed_repartition(mesh: M.Mesh, arrays: Sequence[torch.Tensor], key_hash: torch.Tensor,
@@ -125,18 +128,18 @@ def skewed_repartition(mesh: M.Mesh, arrays: Sequence[torch.Tensor], key_hash: t
     (replicate)."""
     from trino_tpu_torch.ops import skew as SK
 
-    n = mesh.size
+    n, nl = mesh.size, mesh.local
     assert hot_mode in (None, "local", "replicate")
     assert (hot_mode is None) == (hot_set is None and detect is None)
-    khash = M.shard_view(key_hash, n)
-    s = M.shard_view(sel, n)
+    khash = M.shard_view(key_hash, nl)
+    s = M.shard_view(sel, nl)
     hotset_out = ()
     if hot_set is not None:
         hh, hv = hot_set
         n_hot = hv.sum(dtype=torch.int64)
     elif detect is not None:
         k, frac = detect
-        hh, hv, n_hot, _total = SK.hot_key_sketch(khash, s, k, frac)
+        hh, hv, n_hot, _total = SK.hot_key_sketch(khash, s, k, frac, mesh)
         hotset_out = (hh, hv, n_hot)
     else:
         hh = hv = None
@@ -165,36 +168,37 @@ def skewed_repartition(mesh: M.Mesh, arrays: Sequence[torch.Tensor], key_hash: t
 
     def ship(buf):
         rest = tuple(buf.shape[2:])
-        cold_out = M.all_to_all(buf[:, :base_spill].reshape((n, n, bucket) + rest))
-        spill_out = M.all_gather(buf[:, base_spill:base_hot])
-        parts = [cold_out, spill_out.expand((n,) + tuple(spill_out.shape))]
+        cold_out = M.all_to_all(buf[:, :base_spill].reshape((nl, n, bucket) + rest), mesh)
+        spill_out = M.all_gather(buf[:, base_spill:base_hot], mesh)
+        parts = [cold_out, spill_out.expand((nl,) + tuple(spill_out.shape))]
         if hot_mode == "replicate":
-            hot_out = M.all_gather(buf[:, base_hot:])
-            parts.append(hot_out.expand((n,) + tuple(hot_out.shape)))
+            hot_out = M.all_gather(buf[:, base_hot:], mesh)
+            parts.append(hot_out.expand((nl,) + tuple(hot_out.shape)))
         elif hot_mode == "local":
             parts.append(buf[:, base_hot:])
-        return M.all_gather(torch.cat(parts, 1))
+        return M.flat(torch.cat(parts, 1))
 
     out_cols = [
-        ship(_scatter_rows(_take_rows(M.shard_view(a, n), order), slot, total_slots))
+        ship(_scatter_rows(_take_rows(M.shard_view(a, nl), order), slot, total_slots))
         for a in arrays
     ]
     out_valid = ship(valid_buf)
     # spill rows were gathered everywhere: each shard keeps its own
-    gdest = M.all_gather(dest_buf[:, base_spill:base_hot])
-    per_shard = out_valid.shape[0] // n
-    me = torch.arange(n, device=key_hash.device).unsqueeze(1)
-    keep = torch.ones((n, per_shard), dtype=torch.bool, device=key_hash.device)
+    gdest = M.all_gather(dest_buf[:, base_spill:base_hot], mesh)
+    per_shard = out_valid.shape[0] // nl
+    me = mesh.first + torch.arange(nl, device=key_hash.device).unsqueeze(1)
+    keep = torch.ones((nl, per_shard), dtype=torch.bool, device=key_hash.device)
     keep[:, base_spill:base_spill + n * spill] = gdest.unsqueeze(0) == me
     out_valid = out_valid & keep.reshape(-1)
     zero = torch.zeros((), dtype=torch.int32, device=key_hash.device)
     flags = (
-        M.pmax((n_spilled > spill).to(torch.int32)),
-        M.pmax((counts[:, n] > hot_cap).to(torch.int32)) if hot_mode is not None else zero,
+        M.pmax((n_spilled > spill).to(torch.int32), mesh),
+        M.pmax((counts[:, n] > hot_cap).to(torch.int32), mesh) if hot_mode is not None
+        else zero,
     )
     # live rows entering the exchange (the padding ratio's denominator);
     # hot-local rows count too, so skew on and off share a baseline
-    counters = (M.psum(s.sum(1, dtype=torch.int64)), M.psum(counts[:, n]), n_hot)
+    counters = (M.psum(s.sum(1, dtype=torch.int64), mesh), M.psum(counts[:, n], mesh), n_hot)
     return out_cols, out_valid, flags, counters, hotset_out
 
 
@@ -205,13 +209,14 @@ def skew_split_counts(mesh: M.Mesh, key_hash: torch.Tensor, sel: torch.Tensor,
     of *hot* rows, at least 8 each. One host read."""
     from trino_tpu_torch.ops import skew as SK
 
-    n = mesh.size
-    khash = M.shard_view(key_hash, n)
-    s = M.shard_view(sel, n)
+    n, nl = mesh.size, mesh.local
+    khash = M.shard_view(key_hash, nl)
+    s = M.shard_view(sel, nl)
     dest = torch.where(s, torch.remainder(khash, n), n + 1)
     dest = torch.where(SK.is_hot(hot_hashes, hot_valid, khash) & s, n, dest)
     counts = _counts(dest, n + 2)
-    both = torch.stack([M.pmax(counts[:, :n].amax(1)), M.pmax(counts[:, n])]).tolist()
+    both = torch.stack([M.pmax(counts[:, :n].amax(1), mesh),
+                        M.pmax(counts[:, n], mesh)]).tolist()
     return max(8, int(both[0])), max(8, int(both[1]))
 
 
@@ -224,19 +229,21 @@ def needed_bucket(mesh: M.Mesh, key_hash: torch.Tensor, sel: torch.Tensor) -> in
     """Exact per-(src, dst) bucket of ``hash_repartition`` (reference
     :344): the most rows any source sends any destination, at least 8.
     One host read; it spares the overflow retries."""
-    n = mesh.size
-    khash = M.shard_view(key_hash, n)
-    s = M.shard_view(sel, n)
+    n, nl = mesh.size, mesh.local
+    khash = M.shard_view(key_hash, nl)
+    s = M.shard_view(sel, nl)
     dest = torch.where(s, torch.remainder(khash, n), n)
     counts = _counts(dest, n + 1)[:, :n]
-    return max(8, int(M.pmax(counts.amax(1))))
+    return max(8, int(M.pmax(counts.amax(1), mesh)))
 
 
 def broadcast_all(mesh: M.Mesh, arrays: Sequence[torch.Tensor], sel: torch.Tensor):
     """Replicate row-sharded arrays to every shard (build-side broadcast,
     reference :376): the full-length arrays and selection, padded to a
-    multiple of the mesh (padding rows unselected), seen by every shard."""
-    n = mesh.size
-    arrays = [M.pad_rows_to(a, n) for a in arrays]
-    sel = M.pad_rows_to(sel, n, False)
-    return [M.all_gather(M.shard_view(a, n)) for a in arrays], M.all_gather(M.shard_view(sel, n))
+    multiple of the mesh (padding rows unselected), seen by every shard.
+    On a mesh over processes the arrays are this process's shards."""
+    nl = mesh.local
+    arrays = [M.pad_rows_to(a, nl) for a in arrays]
+    sel = M.pad_rows_to(sel, nl, False)
+    return ([M.all_gather(M.shard_view(a, nl), mesh) for a in arrays],
+            M.all_gather(M.shard_view(sel, nl), mesh))

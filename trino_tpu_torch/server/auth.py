@@ -8,8 +8,8 @@ environment variable (every process of one cluster shares it); with no
 secret configured, auth is disabled (single-process/dev mode).
 
 A copy of ``trino_tpu/server/auth.py``. It guards the cluster tier's
-internal paths (tasks, spool, scaled writes, discovery, announcements;
-SPMD answers 501, ROADMAP item 9c).
+internal paths (tasks, spool, scaled writes, discovery, announcements
+and the SPMD phases).
 """
 
 from __future__ import annotations

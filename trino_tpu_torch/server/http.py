@@ -30,10 +30,11 @@ post-mortem tiers (``/v1/history``, ``/v1/cache``, ``/v1/slo``,
 results (``/v1/task``), spooled pages (``/v1/spool``), scaled-writer pages
 (``/v1/write``), discovery and announcements (``/v1/discovery``,
 ``/v1/announce``, the worker's announce loop) and a worker's graceful
-drain (``PUT /v1/info/state``). SPMD (``POST /v1/spmd``; ROADMAP item 9c,
-its one open part: one card has no faithful ``torch.distributed`` form)
-answers **501** with a body naming its item, and a server asked for SPMD
-refuses at construction.
+drain (``PUT /v1/info/state``), and SPMD: with ``spmd=True`` the server
+builds a ``parallel/spmd.py::SpmdRunner`` over the group its process
+joined (``server/main.py``, ``--spmd-*``) and ``POST /v1/spmd`` runs the
+two phases of a query a coordinator prepares and commits; a server
+without it answers 400, as the reference's does.
 """
 
 from __future__ import annotations
@@ -89,24 +90,6 @@ def _json_rows(rows, decimal_columns: list[int]) -> list[list]:
 # parking a thread in the buffer's condition wait
 _TASK_POLL_S = 0.015
 
-# where a route that is not ported yet belongs (ROADMAP item)
-CLUSTER_ITEM = "9c"
-
-
-class NotPortedError(RuntimeError):
-    """A server option of a tier this package does not have yet."""
-
-
-def refuse_cluster_options(spmd: bool = False) -> None:
-    """Raise for SPMD, the one part of the cluster tier (ROADMAP item 9c)
-    that is not ported: one program across the processes of one
-    ``torch.distributed`` group has no faithful form on one card."""
-    if spmd:
-        raise NotPortedError(
-            f"spmd is not yet ported to trino_tpu_torch (ROADMAP item {CLUSTER_ITEM})"
-        )
-
-
 class TrinoTpuServer:
     """Coordinator server wrapping Engine + QueryManager.
 
@@ -114,7 +97,8 @@ class TrinoTpuServer:
     reference's single binary with ``coordinator=true/false``.
     ``TrinoTpuServer()`` builds ``Engine(device=device)``: on ``cuda``
     unless ``device`` names another, raising where there is no GPU, as
-    ``Engine()`` does. SPMD (ROADMAP item 9c) raises.
+    ``Engine()`` does. ``spmd=True`` runs fusable cluster queries SPMD
+    over the process group this process joined (reference ``:108-130``).
     """
 
     def __init__(
@@ -136,7 +120,6 @@ class TrinoTpuServer:
         from trino_tpu_torch.server.resourcegroups import ResourceGroupManager
         from trino_tpu_torch.server.task import SqlTaskManager
 
-        refuse_cluster_options(spmd)
         self.engine = engine or Engine(device=device)
         self.server_config = server_config or ServerConfig()
         # registering a sink is what turns tracing ON for this process;
@@ -155,6 +138,12 @@ class TrinoTpuServer:
         # every node can run tasks (reference: same binary, coordinator=true/false)
         self.task_manager = SqlTaskManager(self.engine)
         self.node_manager = None
+        self.spmd = None
+        if spmd:
+            from trino_tpu_torch.parallel.spmd import SpmdRunner
+
+            self.spmd = SpmdRunner(self.engine)
+            self.engine.spmd = self.spmd
         if role == "coordinator":
             from trino_tpu_torch.server.cluster import ClusterNodeManager, ClusterScheduler
 
@@ -162,6 +151,10 @@ class TrinoTpuServer:
             self.engine.cluster_scheduler = ClusterScheduler(
                 self.engine, self.node_manager
             )
+            if self.spmd is not None:
+                self.engine.spmd_peers = lambda: [
+                    n.uri for n in self.node_manager.active_nodes()
+                ]
         self.cluster_memory_manager = None
         if role == "coordinator":
             from trino_tpu_torch.memory import ClusterMemoryManager
@@ -683,9 +676,17 @@ class TrinoTpuServer:
 
             return self._offload(responder, write, ceiling=False)
         if path == "/v1/spmd":
-            # one program across the processes of a torch.distributed
-            # group: the one open part of item 9c
-            return self._not_ported(responder, path, CLUSTER_ITEM)
+            if self.spmd is None:
+                return responder.respond(
+                    json_response({"error": "spmd mode not enabled"}, 400)
+                )
+
+            def run_spmd() -> Response:
+                payload = json.loads(request.body.decode())
+                return json_response(self.spmd.execute_remote(payload))
+
+            # a commit blocks until its slot's turn and run
+            return self._offload(responder, run_spmd, ceiling=False)
         if len(parts) == 3 and parts[:2] == ["v1", "spool"]:
             # spooled exchange: a worker POSTs one finished-output page
             # (raw bytes; idempotent per (task, partition, seq))
@@ -1053,13 +1054,6 @@ class TrinoTpuServer:
             self._task_results_poll,
             responder, task, partition, token, deadline,
         )
-
-    def _not_ported(self, responder: Responder, path: str, item: str) -> None:
-        responder.respond(json_response(
-            {"error": f"{path} is not yet ported to trino_tpu_torch (ROADMAP item {item})",
-             "roadmapItem": item},
-            501,
-        ))
 
     # --- long-polls (loop-driven, no parked threads) ----------------------
 

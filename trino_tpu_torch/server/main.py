@@ -11,8 +11,10 @@ is the process's share of its card where a coordinator and its workers
 share one card (``memory.set_card_share``; the reference has none: a TPU
 chip is never shared by processes). On a card the process loads the hand
 kernels' libraries at boot (built into ``.kernel_build/`` if missing).
-SPMD (``--spmd-coordinator``, a non-zero ``--spmd-procs`` or
-``--spmd-rank``) refuses with ROADMAP item 9c named.
+SPMD (``--spmd-coordinator`` with ``--spmd-procs`` and ``--spmd-rank``)
+joins the process group (``parallel/spmd.py::initialize_spmd``: gloo on
+the CPU, peer copies through the card's exchange arenas) after the card
+share is set and before the engine exists, and serves ``/v1/spmd``.
 """
 
 from __future__ import annotations
@@ -46,12 +48,12 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--spmd-coordinator",
         default=None,
-        help="multi-host SPMD coordinator host:port (not ported: item 9c)",
+        help="SPMD process group rendezvous host:port (enables SPMD)",
     )
     parser.add_argument("--spmd-procs", type=int, default=0,
-                        help="SPMD process count (not ported: item 9c)")
+                        help="SPMD process count (with --spmd-coordinator)")
     parser.add_argument("--spmd-rank", type=int, default=0,
-                        help="SPMD process rank (not ported: item 9c)")
+                        help="this process's SPMD rank (0: the coordinator)")
     parser.add_argument(
         "--catalog",
         action="append",
@@ -91,9 +93,12 @@ def main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
 
-    from trino_tpu_torch.server.http import TrinoTpuServer, refuse_cluster_options
+    from trino_tpu_torch.server.http import TrinoTpuServer
 
-    refuse_cluster_options(bool(args.spmd_coordinator or args.spmd_procs or args.spmd_rank))
+    if not args.spmd_coordinator and (args.spmd_procs or args.spmd_rank):
+        parser.error("--spmd-procs and --spmd-rank need --spmd-coordinator")
+    if args.spmd_coordinator and not 0 <= args.spmd_rank < args.spmd_procs:
+        parser.error("SPMD needs --spmd-procs N and --spmd-rank in [0, N)")
 
     import torch
 
@@ -106,6 +111,11 @@ def main(argv=None) -> int:
         # no fallback: a worker on a machine with a card runs on the card
         parser.error("a worker on a machine with a GPU runs on the GPU (--device cuda)")
     set_card_share(args.card_share, device)
+    if args.spmd_coordinator:
+        # the group and its data plane before the engine touches the card
+        from trino_tpu_torch.parallel.spmd import initialize_spmd
+
+        initialize_spmd(args.spmd_coordinator, args.spmd_procs, args.spmd_rank, device)
     if device.type == "cuda":
         # the CUDA context and the hand kernels' libraries at boot
         from trino_tpu_torch import _kernels
@@ -144,6 +154,7 @@ def main(argv=None) -> int:
         discovery_uri=args.discovery,
         cluster_memory_limit_bytes=args.cluster_memory_limit_bytes,
         server_config=server_config,
+        spmd=bool(args.spmd_coordinator),
     )
     server.start()
     # parent supervisors (tests, orchestration) read this line

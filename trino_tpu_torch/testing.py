@@ -80,7 +80,11 @@ class MultiProcessQueryRunner:
     Reference: ``testing/trino-testing/.../DistributedQueryRunner.java:72``
     (N real TestingTrinoServer instances; here real OS processes, which is
     stricter: nothing can leak through shared memory); a port of
-    ``trino_tpu/testing.py:71-339`` without its SPMD branch.
+    ``trino_tpu/testing.py:71-339``. With ``spmd=True`` the processes form
+    one SPMD group (``parallel/spmd.py``): a free rendezvous port, the
+    coordinator rank 0, every process spawned before any ``LISTENING``
+    line is read (each waits in the group's rendezvous until all have
+    joined), every collective under ``parallel/spmd.py::TIMEOUT_S``.
 
     Every process runs ``python -m trino_tpu_torch.server.main`` on
     ``device`` (``cuda`` unless the caller asks for the CPU). On a card the
@@ -107,6 +111,7 @@ class MultiProcessQueryRunner:
         card_share: Optional[float] = None,
         command: Optional[list] = None,
         extra_env: Optional[dict] = None,
+        spmd: bool = False,
     ):
         import json as _json
         import os
@@ -143,6 +148,16 @@ class MultiProcessQueryRunner:
         if card_share is None:
             card_share = 1.0 / (n_workers + 1) if self.device.type == "cuda" else 1.0
         self.card_share = float(card_share)
+        self.spmd = spmd
+        # one group: the coordinator rank 0, worker i rank i + 1
+        self._spmd_args: list[list[str]] = []
+        if spmd:
+            rendezvous = f"127.0.0.1:{_free_port()}"
+            self._spmd_args = [
+                ["--spmd-coordinator", rendezvous, "--spmd-procs", str(n_workers + 1),
+                 "--spmd-rank", str(rank)]
+                for rank in range(n_workers + 1)
+            ]
         catalog_args: list[str] = []
         for spec in catalogs or []:
             catalog_args += ["--catalog", spec]
@@ -157,8 +172,13 @@ class MultiProcessQueryRunner:
         if cluster_memory_limit_bytes is not None:
             coord_args += ["--cluster-memory-limit-bytes", str(cluster_memory_limit_bytes)]
         try:
-            coord_proc = self._popen(coord_args)
-            self._worker_procs = [self._popen(self._worker_args(i)) for i in range(n_workers)]
+            coord_proc = self._popen(coord_args + (self._spmd_args[0] if spmd else []))
+            # every process before any LISTENING line: an SPMD rank waits
+            # in the group's rendezvous until all have joined
+            self._worker_procs = [
+                self._popen(self._worker_args(i) + (self._spmd_args[i + 1] if spmd else []))
+                for i in range(n_workers)
+            ]
             self.coordinator_uri = self._await_listening(coord_proc)
             self.worker_uris = [self._await_listening(p) for p in self._worker_procs]
             # wait for every worker to be announced and healthy
